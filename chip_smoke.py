@@ -7,10 +7,17 @@ Run from the root of a checkout on a machine with a card::
 
 It builds the hand-written CUDA kernels from ``gs360x_torch/csrc`` (into
 ``build/gs360x_torch/``), holds each kernel against its plain torch
-version on the card at the main path's shapes and times both, then drives
-the perspcut main path once (image-directory mode, ``default`` preset,
-``--size 1600``, 8K equirect frames) through the port's CLI and checks
-that it went through the kernels and that its pixels are right.
+version on the card at the main paths' shapes and times both (the
+equirect warp on yaw-ring, pitched, pole and fisheye views of an 8K
+frame; the remap on the Osmo 360 undistort map and the 10 SFM10 maps),
+then drives each main path once through the port's CLIs and checks that
+it went through the kernels only and that its pixels are right:
+
+* ``gs360x-torch-perspcut`` on 2 synthetic 8K frames with the
+  ``default``, ``fisheyelike`` and ``fisheyeXY`` presets (PNG);
+* ``gs360x-torch-dualfisheye`` on 2 synthetic 3840² pairs with the
+  generated default calibration, undistorted fisheyes, the 10 SFM10
+  views and one mask pair (PNG).
 
 Phases print one line each; any failure raises and the exit code is not
 0. Without CUDA, or without the rest of the checkout, it exits non-zero
@@ -21,6 +28,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -32,9 +40,12 @@ import numpy as np
 import torch
 from PIL import Image
 
-from gs360x_torch.kernels import _build, warp_cuda
+from gs360x_torch.core import camera as cam
+from gs360x_torch.kernels import _build, remap_cuda, warp_cuda
 from gs360x_torch.kernels import warp as twin
-from gs360x_torch.tools import perspcut
+from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
+from gs360x_torch.runtime.executor import _view_groups
+from gs360x_torch.tools import dualfisheye, perspcut
 
 SRC_H, SRC_W = 3840, 7680                 # 8K equirect frame
 RING = [float(45 * k) for k in range(8)]  # yaw ring, 180 = the seam view
@@ -43,12 +54,26 @@ HEADLINE = dict(width=1920, height=1080, hfov_deg=112.6, vfov_deg=73.7)
 DEFAULT_FOV = math.degrees(2.0 * math.atan(36.0 / 24.0))
 MAIN = dict(width=1600, height=1600, hfov_deg=DEFAULT_FOV,
             vfov_deg=DEFAULT_FOV)
-E2E_FRAMES = 3
+E2E_FRAMES = 2
+FISH = 3840                               # Osmo 360 lens image, 3840²
+SFM10_SIZE = 1750                         # dualfisheye --perspective-size
 # f32 kernel vs plain twin on a smooth frame: both evaluate the same f32
 # formulas on the same card; the residue is the f64-derived rotation table
 # vs the twin's f32 trig composition and FMA contraction, ~1e-6.
 F32_TOL = 1e-4
 LSB_SHARE_TOL = 0.001   # quantized: <= 1 LSB apart on <= 0.1% of pixels
+# views whose image holds a pole (and fisheye hemispheres, whose rim
+# touches the poles) are ill-conditioned in u: the v360 oracle's gate,
+# <= 2 LSB and <= 1% of samples more than 1 LSB apart. The max is taken
+# off the polar pixels (source row within one row of a pole): there every
+# longitude meets, the synthetic lon/lat frame is not continuous, and u is
+# undefined; they are counted and reported, and held by the share.
+ORACLE_LSB, ORACLE_SHARE = 2, 0.01
+# rim pixels where the kernel's image circle differs from the plain
+# version's: the kernel computes r with round-to-nearest intrinsics, the
+# same f32 expression as the twin, so none
+RIM_TOL = 0
+REMAP_F32_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -87,8 +112,26 @@ def lonlat_frame(h: int, w: int, shift: float, device) -> torch.Tensor:
     return (img * 255).to(torch.uint8)
 
 
+def fisheye_frame(size: int, seed: int, device) -> torch.Tensor:
+    """Smooth textured (size, size, 3) u8 lens image with a little noise."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ys, xs = torch.meshgrid(
+        torch.arange(size, device=device, dtype=torch.float32) / size,
+        torch.arange(size, device=device, dtype=torch.float32) / size,
+        indexing="ij")
+    img = torch.stack([xs, ys, 0.5 + 0.4 * torch.sin(40.0 * xs + seed)
+                       * torch.cos(30.0 * ys)], dim=-1)
+    img = img + 0.02 * torch.rand(img.shape, generator=gen, device=device)
+    return torch.round(img.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
 def quantize(x: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.int32)
+
+
+def read_png(path: pathlib.Path) -> np.ndarray:
+    with Image.open(path) as pil:
+        return np.asarray(pil)
 
 
 def phase_device() -> dict:
@@ -106,6 +149,9 @@ def phase_device() -> dict:
     log(f"[device] {name} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | kernels built in {_build.build_seconds:.2f}s "
         f"(load {load_s:.2f}s)")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[ptxas] {line.strip()}")
     return {"kind": name, "smi": smi}
 
 
@@ -172,108 +218,382 @@ def phase_warp(dev) -> dict:
         # flips roundings on a few % of pixels: gate at <= 1 LSB only
         _compare_warp(noise, HEADLINE, interp, False,
                       "headline 8x1920x1080 noise")
-    errs.append(_compare_warp(smooth, MAIN, "bicubic", True,
-                              "main-path 8x1600x1600 smooth"))
+    main_err = _compare_warp(smooth, MAIN, "bicubic", True,
+                             "main-path 8x1600x1600 smooth")
     planes = warp_cuda.planarize_rows(smooth, 1.0, torch.uint8)
     src_f32 = smooth.reshape(SRC_H, SRC_W, 3).to(torch.float32) / 255.0
     zeros = [0.0] * len(RING)
     ms = cuda_ms(lambda: warp_cuda.warp_planes(
         planes, RING, zeros, zeros, interp="bicubic", **HEADLINE))
     plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
-        src_f32, RING, zeros, zeros, interp="bicubic", **HEADLINE),
-        reps=5, warmup=1)
+        src_f32, RING, zeros, zeros, interp="bicubic", **HEADLINE))
     bil_ms = cuda_ms(lambda: warp_cuda.warp_planes(
         planes, RING, zeros, zeros, interp="bilinear", **HEADLINE))
     bil_plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
-        src_f32, RING, zeros, zeros, interp="bilinear", **HEADLINE),
-        reps=5, warmup=1)
+        src_f32, RING, zeros, zeros, interp="bilinear", **HEADLINE))
     main_ms = cuda_ms(lambda: warp_cuda.warp_planes(
         planes, RING, zeros, zeros, interp="bicubic", **MAIN))
+    main_plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
+        src_f32, RING, zeros, zeros, interp="bicubic", **MAIN))
     log(f"[warp] headline 8x1920x1080 from 8K u8: bicubic kernel {ms:.4f} ms "
         f"({8000.0 / ms:.1f} views/s), plain {plain_ms:.4f} ms | bilinear "
         f"kernel {bil_ms:.4f} ms, plain {bil_plain_ms:.4f} ms | main-path "
-        f"8x1600x1600 bicubic kernel {main_ms:.4f} ms")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+        f"8x1600x1600 bicubic kernel {main_ms:.4f} ms, plain "
+        f"{main_plain_ms:.4f} ms")
+    return {"headline": {"max_abs_err": max(errs), "ms": ms,
+                         "plain_ms": plain_ms},
+            "main": {"max_abs_err": main_err, "ms": main_ms,
+                     "plain_ms": main_plain_ms}}
 
 
-def phase_end_to_end(dev) -> dict:
-    with tempfile.TemporaryDirectory(prefix="gs360x_smoke_") as tmp:
-        tmp = pathlib.Path(tmp)
-        src_dir, out_dir = tmp / "panos", tmp / "out"
-        src_dir.mkdir()
-        shifts = [0.0, 0.5, 1.0][:E2E_FRAMES]
-        frames = {}
-        t0 = time.perf_counter()
-        for k, shift in enumerate(shifts):
-            stem = f"pano_{k + 1:04d}"
-            frame = lonlat_frame(SRC_H, SRC_W, shift, dev).cpu().numpy()
-            Image.fromarray(frame).save(src_dir / f"{stem}.png")
-            frames[stem] = (shift, frame)
-        setup_s = time.perf_counter() - t0
+def _preset_plan(preset: str, size, files, out_dir: pathlib.Path):
+    """A preset's plan and its view groups as the executor launches them:
+    [((projection, w, h, hfov, vfov), [job index, ...]), ...]."""
+    cfg = PerspCutConfig(preset=preset, size=size or 1600, ext="png",
+                         size_explicit=size is not None)
+    plan = build_view_plan(cfg, files, out_dir)
+    return plan, list(_view_groups([job.view for job in plan.jobs]).items())
 
-        warp_cuda.reset_counters()
-        t0 = time.perf_counter()
-        rc = perspcut.main(["-i", str(src_dir), "-o", str(out_dir),
-                            "--preset", "default", "--size", "1600",
-                            "--ext", "png", "--device", dev.type,
-                            "--stats"])
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = dict(warp_cuda.LAUNCHES)
-        plain = dict(warp_cuda.PLAIN_CALLS)
-        if rc != 0:
-            raise AssertionError(f"perspcut exited {rc}")
-        if launches != {"planarize": E2E_FRAMES, "warp": E2E_FRAMES}:
-            raise AssertionError(f"kernel launches {launches}: expected one "
-                                 f"of each per frame ({E2E_FRAMES})")
-        if any(plain.values()):
-            raise AssertionError(f"plain versions ran on the main path: "
-                                 f"{plain}")
 
-        letters = "ABCDEFGH"
-        expected = sorted(f"{stem}_{v}.png" for stem in frames
-                          for v in letters)
-        names = sorted(p.name for p in out_dir.iterdir())
-        if names != expected:
-            raise AssertionError(f"outputs {names} != planned {expected}")
-        worst = 0.0
-        for stem, (shift, _frame) in frames.items():
-            for k, v in enumerate(letters):
-                with Image.open(out_dir / f"{stem}_{v}.png") as pil:
-                    img = np.asarray(pil.convert("RGB"))
-                if img.shape != (1600, 1600, 3):
-                    raise AssertionError(f"{stem}_{v}: shape {img.shape}")
+def _angles(plan, idxs):
+    return [[getattr(plan.jobs[i].view, name) for i in idxs]
+            for name in ("yaw_deg", "pitch_deg", "roll_deg")]
+
+
+def _compare_views(rows, planes, src_f32, key, yaws, pitches, rolls,
+                   label: str, smooth_gate: bool) -> dict:
+    """One view group, kernel vs plain on the card: f32 gap, LSB gate,
+    image-circle disagreements (fisheye), CUDA-event times."""
+    projection, width, height, hfov, vfov = key
+    kw = dict(width=width, height=height, hfov_deg=hfov, vfov_deg=vfov,
+              projection=projection, interp="bicubic")
+    got = warp_cuda.warp_equirect_to_views_cuda(rows, yaws, pitches, rolls,
+                                                planar=True, **kw)
+    ref = warp_cuda.warp_equirect_to_views_plain(rows, yaws, pitches, rolls,
+                                                 planar=True, **kw)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"warp {label}: non-finite output")
+    lsb = (quantize(got) - quantize(ref)).abs()
+    share = float((lsb > 1).float().mean())
+    _u, v, _valid = twin.view_uv_from_equirect(
+        width, height, hfov, vfov, projection,
+        *[torch.tensor(a, dtype=torch.float32, device=rows.device)
+          for a in (yaws, pitches, rolls)], SRC_W, SRC_H,
+        device=rows.device)
+    polar = ((v < 0.5) | (v > SRC_H - 1.5))[:, None].expand_as(lsb)
+    gap = (got - ref).abs()
+    err = float(gap[~polar].max())
+    max_lsb = int(lsb[~polar].max())
+    polar_n = int(polar[:, 0].sum())
+    polar_lsb = int(lsb[polar].max()) if polar_n else 0
+    polar_err = float(gap[polar].max()) if polar_n else 0.0
+    rim = 0
+    if projection != "perspective":
+        model = "equidistant" if projection == "fisheye_v360" else "equisolid"
+        _rays, valid = cam.fisheye_rays(width, height, hfov, model=model,
+                                        device=rows.device)
+        rim = int(((got == 0).all(dim=1) != ~valid[None]).sum())
+    ms = cuda_ms(lambda: warp_cuda.warp_planes(
+        planes, yaws, pitches, rolls, **kw))
+    plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
+        src_f32, yaws, pitches, rolls, **kw))
+    log(f"[warp] {label} ({len(yaws)}x{width}x{height} {projection} "
+        f"hfov {hfov:.2f}): max|diff| f32 {err:.3e}, max {max_lsb} LSB "
+        f"({polar_n} polar pixels: f32 {polar_err:.3e}, max {polar_lsb} "
+        f"LSB), {share:.5%} of "
+        f"pixels > 1 LSB, rim-mask disagreements {rim} | "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if rim > RIM_TOL:
+        raise AssertionError(f"warp {label}: {rim} rim pixels disagree")
+    if max_lsb > ORACLE_LSB or share > ORACLE_SHARE:
+        raise AssertionError(f"warp {label}: {max_lsb} LSB, {share:.4%} "
+                             "of pixels > 1 LSB")
+    if smooth_gate and err > F32_TOL:
+        raise AssertionError(f"warp {label}: f32 diff {err}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_warp_tilted(dev) -> dict:
+    # no pixel of the smooth frame is 0, so an all-zero output pixel is the
+    # kernel's "outside the image circle"
+    frame = lonlat_frame(SRC_H, SRC_W, 0.3, dev).clamp_min(1)
+    rows = frame.reshape(SRC_H, SRC_W * 3)
+    planes = warp_cuda.planarize_rows(rows, 1.0, torch.uint8)
+    src_f32 = frame.to(torch.float32) / 255.0
+    files = [pathlib.Path("frame.png")]
+    cover_plan, ((cover_key, cover_idx),) = _preset_plan(
+        "full360coverage", 1600, files, pathlib.Path("out"))
+    fish_plan, ((fish_key, fish_idx),) = _preset_plan(
+        "fisheyeXY", None, files, pathlib.Path("out"))
+    cover = _angles(cover_plan, cover_idx)
+    fish = _angles(fish_plan, fish_idx)
+    pole_key = ("perspective", 1600, 1600, cover_key[3], cover_key[4])
+    solid_key = ("equisolid", 2048, 2048, 190.0, 190.0)
+    return {
+        "pitched": _compare_views(rows, planes, src_f32, cover_key, *cover,
+                                  "full360coverage --size 1600", True),
+        "pole": _compare_views(rows, planes, src_f32, pole_key, [30.0],
+                               [90.0], [0.0], "pole view pitch 90", False),
+        "fisheye": _compare_views(rows, planes, src_f32, fish_key, *fish,
+                                  "fisheyeXY hemispheres", False),
+        "equisolid": _compare_views(rows, planes, src_f32, solid_key,
+                                    [90.0], [-20.0], [10.0],
+                                    "equisolid view", False),
+    }
+
+
+def _remap_check(prep_call, plain_call, label: str, exact: bool) -> dict:
+    got = prep_call()
+    ref = plain_call()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"remap {label}: non-finite output")
+    err = float((got - ref).abs().max())
+    lsb = int((quantize(got) - quantize(ref)).abs().max())
+    ms = cuda_ms(prep_call)
+    plain_ms = cuda_ms(plain_call)
+    log(f"[remap] {label}: max|diff| f32 {err:.3e}, quantized max {lsb} LSB"
+        f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if err > REMAP_F32_TOL or lsb > (0 if exact else 1):
+        raise AssertionError(f"remap {label}: f32 {err}, {lsb} LSB")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_remap(dev) -> dict:
+    xml = dualfisheye.default_calibration_path()
+    sensors, _cams = dualfisheye.load_metashape_calibration(xml)
+    calib = sensors["0"]
+    t0 = time.perf_counter()
+    cache = dualfisheye.build_remap_cache(calib, None, 190.0)
+    specs = dualfisheye.build_sfm10_specs(SFM10_SIZE, 14.0, "36 36", 40.0,
+                                          40.0)
+    views = dualfisheye.build_perspective_spec_maps(
+        sensors, "0", "0", specs, 0.0, 180.0, 190.0)
+    maps_s = time.perf_counter() - t0
+
+    img = fisheye_frame(FISH, 3, dev)
+    planes_u8 = remap_cuda.source_planes(img, FISH, FISH, dev)
+    planes_f32 = (planes_u8.to(torch.float32) / 255.0).contiguous()
+    mask = (img[..., 0] > 128).to(torch.uint8) * 255
+    mask_planes = remap_cuda.source_planes(mask, FISH, FISH, dev)
+
+    und = remap_cuda.PreparedRemap(cache.map_x, cache.map_y, cache.valid,
+                                   src_w=FISH, src_h=FISH, device=dev)
+    batch = remap_cuda.PreparedRemapBatch(
+        [(views[s["view_id"]]["map_x"], views[s["view_id"]]["map_y"],
+          views[s["view_id"]]["valid"]) for s in specs],
+        src_w=FISH, src_h=FISH, interp="catmull-rom", device=dev)
+    nearest = batch.with_interp("nearest")
+
+    def plain(prep, planes, interp):
+        return remap_cuda.remap_planes_plain(
+            planes, prep.map_x, prep.map_y, prep.valid, interp=interp,
+            fill=0.0)
+
+    out = {
+        "undistort_f32": _remap_check(
+            lambda: und(planes_f32, interp="catmull-rom")[None],
+            lambda: plain(und, planes_f32, "catmull-rom"),
+            f"undistort {FISH}² catmull-rom f32 source", False),
+        "undistort": _remap_check(
+            lambda: und(planes_u8, interp="catmull-rom")[None],
+            lambda: plain(und, planes_u8, "catmull-rom"),
+            f"undistort {FISH}² catmull-rom u8 source", False),
+        "batch_f32": _remap_check(
+            lambda: batch(planes_f32), lambda: plain(batch, planes_f32,
+                                                     "catmull-rom"),
+            f"SFM10 batch 10x{SFM10_SIZE}² catmull-rom f32 source", False),
+        "batch": _remap_check(
+            lambda: batch(planes_u8), lambda: plain(batch, planes_u8,
+                                                    "catmull-rom"),
+            f"SFM10 batch 10x{SFM10_SIZE}² catmull-rom u8 source", False),
+        "mask": _remap_check(
+            lambda: nearest(mask_planes), lambda: plain(nearest, mask_planes,
+                                                        "nearest"),
+            f"SFM10 mask batch 10x{SFM10_SIZE}² nearest C=1", True),
+    }
+    log(f"[remap] default Osmo 360 calibration, auto zoom "
+        f"{cache.undistort_zoom:.4f}; maps built on the host in "
+        f"{maps_s:.2f}s")
+    return {"checks": out, "calib": calib, "cache": cache, "specs": specs,
+            "views": views}
+
+
+def phase_perspcut(dev, src_dir: pathlib.Path, frames: dict, tmp,
+                   preset: str, size=None) -> dict:
+    out_dir = tmp / f"out_{preset}"
+    args = ["-i", str(src_dir), "-o", str(out_dir), "--preset", preset,
+            "--ext", "png", "--device", dev.type, "--stats"]
+    if size:
+        args += ["--size", str(size)]
+    stem = "pano_0001"
+    plan, groups = _preset_plan(preset, size, [src_dir / f"{stem}.png"],
+                                out_dir)
+
+    warp_cuda.reset_counters()
+    remap_cuda.reset_counters()
+    t0 = time.perf_counter()
+    rc = perspcut.main(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES}
+    plain = {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS}
+    if rc != 0:
+        raise AssertionError(f"perspcut --preset {preset} exited {rc}")
+    # one planarize and one warp per (view group, frame)
+    want = {"planarize": E2E_FRAMES * len(groups),
+            "warp": E2E_FRAMES * len(groups), "remap": 0}
+    if launches != want:
+        raise AssertionError(f"{preset}: kernel launches {launches}, "
+                             f"expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"{preset}: plain versions ran on the main "
+                             f"path: {plain}")
+    written = sorted(p.name for p in out_dir.iterdir())
+    if len(written) != E2E_FRAMES * len(plan.jobs):
+        raise AssertionError(f"{preset}: {len(written)} outputs, expected "
+                             f"{E2E_FRAMES * len(plan.jobs)}")
+
+    # frame 1's outputs against the plain warp on the card
+    rows = torch.from_numpy(frames[stem][1].reshape(SRC_H, SRC_W * 3)).to(
+        dev)
+    worst, share = 0, 0.0
+    for (projection, width, height, hfov, vfov), idxs in groups:
+        ref = quantize(warp_cuda.warp_equirect_to_views_plain(
+            rows, *_angles(plan, idxs), width=width, height=height,
+            hfov_deg=hfov, vfov_deg=vfov, projection=projection,
+            interp="bicubic", planar=True)).permute(0, 2, 3, 1).cpu()
+        for j, i in enumerate(idxs):
+            img = torch.from_numpy(read_png(
+                out_dir / plan.jobs[i].output_name).astype(np.int32))
+            if tuple(img.shape) != (height, width, 3):
+                raise AssertionError(f"{plan.jobs[i].output_name}: shape "
+                                     f"{tuple(img.shape)}")
+            diff = (img - ref[j]).abs()
+            worst = max(worst, int(diff.max()))
+            share = max(share, float((diff > 1).float().mean()))
+    if worst > ORACLE_LSB or share > ORACLE_SHARE:
+        raise AssertionError(f"{preset}: outputs {worst} LSB from the plain "
+                             f"warp, {share:.4%} of pixels > 1 LSB")
+    extra = ""
+    if preset == "default":
+        centers = 0.0
+        for stem_k, (shift, _frame) in frames.items():
+            for k, v in enumerate("ABCDEFGH"):
+                img = read_png(out_dir / f"{stem_k}_{v}.png")
                 center = img[799:801, 799:801, 0].astype(np.float64).mean()
-                want = 255.0 * (0.5 + 0.5 * math.sin(
+                want_c = 255.0 * (0.5 + 0.5 * math.sin(
                     math.radians(RING[k]) + shift))
-                worst = max(worst, abs(center - want))
-        if worst > 2.0:
-            raise AssertionError(f"view centers off by {worst:.2f} LSB")
+                centers = max(centers, abs(center - want_c))
+        if centers > 2.0:
+            raise AssertionError(f"view centers off by {centers:.2f} LSB")
+        extra = f" | view centers within {centers:.2f} LSB"
+    log(f"[e2e] perspcut --preset {preset}, {E2E_FRAMES} 8K frames, "
+        f"{len(written)} outputs: wall {wall_s:.3f}s | launches {launches} "
+        f"plain {plain} | frame 1 vs plain warp on the card: max {worst} "
+        f"LSB, {share:.5%} > 1 LSB{extra}")
+    return {"launches": launches, "wall_s": wall_s}
 
-        # pitched views are outside this slice's kernel gate: on the card
-        # the plan raises before any work, never runs the plain twin
-        try:
-            perspcut.main(["-i", str(src_dir), "-o", str(tmp / "gated"),
-                           "--preset", "fisheyelike", "--device", dev.type])
-        except NotImplementedError as exc:
-            gated = str(exc).split(":")[0]
-        else:
-            raise AssertionError("fisheyelike preset ran outside the gate")
-        if dict(warp_cuda.PLAIN_CALLS) != plain or (tmp / "gated").exists():
-            raise AssertionError("gated plan did work before raising")
 
-        # per-frame device time of the warp path at this shape
-        rows = torch.from_numpy(frames["pano_0001"][1].reshape(
-            SRC_H, SRC_W * 3)).to(dev)
-        zeros = [0.0] * len(RING)
-        frame_ms = cuda_ms(lambda: warp_cuda.warp_equirect_to_views_cuda(
-            rows, RING, zeros, zeros, interp="bicubic", planar=True, **MAIN))
-    log(f"[e2e] perspcut default preset --size 1600, {E2E_FRAMES} 8K frames, "
-        f"{len(expected)} outputs: wall {wall_s:.3f}s (set-up {setup_s:.2f}s) "
-        f"| launches {launches} plain {plain} | view centers within "
-        f"{worst:.2f} LSB | per-frame warp (planarize+warp) {frame_ms:.4f} ms"
-        f" | fisheyelike raises: {gated}")
-    return {"launches": launches}
+def phase_dualfisheye(dev, tmp, remap: dict) -> dict:
+    in_dir, mask_dir, out_dir = tmp / "pairs", tmp / "masks", tmp / "dfe"
+    in_dir.mkdir()
+    mask_dir.mkdir()
+    t0 = time.perf_counter()
+    images = {}
+    for k in range(2):
+        for lens in "XY":
+            name = f"osmo_{k + 1:04d}_{lens}.png"
+            img = fisheye_frame(FISH, 10 * k + (lens == "Y"), dev).cpu()
+            images[name] = img.numpy()
+            # fast zlib level: the inputs are set-up, not the path
+            Image.fromarray(images[name]).save(in_dir / name,
+                                               compress_level=1)
+            if k == 0:   # one mask pair
+                mask = np.where(images[name][..., 1] > 100, 255, 0)
+                Image.fromarray(mask.astype(np.uint8)).save(
+                    mask_dir / name, compress_level=1)
+    setup_s = time.perf_counter() - t0
+
+    warp_cuda.reset_counters()
+    remap_cuda.reset_counters()
+    t0 = time.perf_counter()
+    rc = dualfisheye.main([
+        "--input-dir", str(in_dir), "--output-dir", str(out_dir),
+        "--save-fisheye-output", "--perspective-ext", ".png",
+        "--mask-input-dir", str(mask_dir), "--report-json",
+        str(tmp / "report.json"), "--device", dev.type, "--stats"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES}
+    plain = {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS}
+    report = json.loads((tmp / "report.json").read_text())
+    if rc != 0 or report["failed"] != 0 or report["processed"] != 2:
+        raise AssertionError(f"dualfisheye exited {rc}, report {report}")
+    # per pair: 2 lens planarizes; 2 undistorts + 2 lens view groups,
+    # + 2 mask groups for the pair with masks
+    want = {"planarize": 4, "warp": 0, "remap": 10}
+    if launches != want:
+        raise AssertionError(f"dualfisheye launches {launches}, expected "
+                             f"{want}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the main path: {plain}")
+    views = sorted((out_dir / "perspective" / "images").iterdir())
+    masks = sorted((out_dir / "perspective" / "masks").iterdir())
+    unds = sorted(out_dir.glob("osmo_*.png"))
+    if (len(unds), len(views), len(masks)) != (4, 20, 10):
+        raise AssertionError(f"outputs: {len(unds)} undistorted, "
+                             f"{len(views)} views, {len(masks)} masks")
+
+    # pair 1 against the plain remap on the card
+    worst = 0
+    planes = {lens: remap_cuda.source_planes(
+        images[f"osmo_0001_{lens}.png"], FISH, FISH, dev) for lens in "XY"}
+    mplanes = {lens: remap_cuda.source_planes(
+        read_png(mask_dir / f"osmo_0001_{lens}.png"), FISH, FISH, dev)
+        for lens in "XY"}
+
+    def plain_u8(src, mx, my, valid, interp):
+        out = remap_cuda.remap_planes_plain(
+            src, torch.as_tensor(mx, device=dev)[None],
+            torch.as_tensor(my, device=dev)[None],
+            torch.as_tensor(valid, device=dev)[None], interp=interp,
+            fill=0.0)[0]
+        return quantize(out).permute(1, 2, 0).cpu()
+
+    cache = remap["cache"]
+    for lens in "XY":
+        ref = plain_u8(planes[lens], cache.map_x, cache.map_y, cache.valid,
+                       "catmull-rom")
+        got = torch.from_numpy(read_png(out_dir / f"osmo_0001_{lens}.png")
+                               .astype(np.int32))
+        worst = max(worst, int((got - ref).abs().max()))
+    mask_equal = True
+    for spec in remap["specs"]:
+        m = remap["views"][spec["view_id"]]
+        lens = m["lens_key"]
+        ref = plain_u8(planes[lens], m["map_x"], m["map_y"], m["valid"],
+                       "catmull-rom")
+        got = torch.from_numpy(read_png(
+            out_dir / "perspective" / "images" /
+            f"osmo_0001_{spec['view_id']}.png").astype(np.int32))
+        worst = max(worst, int((got - ref).abs().max()))
+        ref_m = plain_u8(mplanes[lens], m["map_x"], m["map_y"], m["valid"],
+                         "nearest")[..., 0]
+        got_m = torch.from_numpy(read_png(
+            out_dir / "perspective" / "masks" /
+            f"osmo_0001_{spec['view_id']}.png").astype(np.int32))
+        mask_equal &= torch.equal(got_m, ref_m)
+    if worst > 1 or not mask_equal:
+        raise AssertionError(f"dualfisheye pair 1: {worst} LSB from the "
+                             f"plain remap, masks equal: {mask_equal}")
+    log(f"[e2e] dualfisheye 2 pairs {FISH}², default calibration, "
+        f"{len(unds)} undistorted + {len(views)} views + {len(masks)} masks:"
+        f" wall {wall_s:.3f}s (set-up {setup_s:.2f}s) | launches {launches}"
+        f" plain {plain} | pair 1 vs plain remap on the card: max {worst} "
+        f"LSB, masks equal")
+    return {"launches": launches, "wall_s": wall_s}
 
 
 def main() -> int:
@@ -281,20 +601,75 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     plan = phase_planarize(dev)
     warp = phase_warp(dev)
-    e2e = phase_end_to_end(dev)
+    tilted = phase_warp_tilted(dev)
+    with tempfile.TemporaryDirectory(prefix="gs360x_smoke_") as tmp_name:
+        tmp = pathlib.Path(tmp_name)
+        # the default calibration is generated under ~/.gs360x: keep it in
+        # this run's directory
+        os.environ["HOME"] = str(tmp)
+        remap = phase_remap(dev)
+
+        src_dir = tmp / "panos"
+        src_dir.mkdir()
+        frames = {}
+        t0 = time.perf_counter()
+        for k, shift in enumerate([0.0, 0.5][:E2E_FRAMES]):
+            stem = f"pano_{k + 1:04d}"
+            frame = lonlat_frame(SRC_H, SRC_W, shift, dev).cpu().numpy()
+            Image.fromarray(frame).save(src_dir / f"{stem}.png")
+            frames[stem] = (shift, frame)
+        log(f"[e2e] wrote {E2E_FRAMES} 8K PNG frames in "
+            f"{time.perf_counter() - t0:.2f}s (set-up)")
+        runs = {
+            "default": phase_perspcut(dev, src_dir, frames, tmp, "default",
+                                      1600),
+            "fisheyelike": phase_perspcut(dev, src_dir, frames, tmp,
+                                          "fisheyelike"),
+            "fisheyeXY": phase_perspcut(dev, src_dir, frames, tmp,
+                                        "fisheyeXY"),
+        }
+        dfe = phase_dualfisheye(dev, tmp, remap)
+
+    def total(kernel: str) -> int:
+        return sum(r["launches"].get(kernel, 0)
+                   for r in [*runs.values(), dfe])
+
+    checks = remap["checks"]
+
+    def row(name, source, replaces, kernel, stats):
+        return {"name": name, "route": "cuda",
+                "source": f"gs360x_torch/csrc/{source}",
+                "replaces": f"gs360x/kernels/{replaces}",
+                "launches": total(kernel),
+                "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
+                "plain_ms": stats["plain_ms"]}
+
     kernels = [
-        {"name": "planarize", "route": "cuda",
-         "source": "gs360x_torch/csrc/planarize.cu",
-         "replaces": "gs360x/kernels/warp_pallas.py:3234",
-         "launches": e2e["launches"]["planarize"],
-         "max_abs_err": plan["max_abs_err"], "ms": plan["ms"],
-         "plain_ms": plan["plain_ms"]},
-        {"name": "warp_equirect", "route": "cuda",
-         "source": "gs360x_torch/csrc/warp_equirect.cu",
-         "replaces": "gs360x/kernels/warp_pallas.py:1032",
-         "launches": e2e["launches"]["warp"],
-         "max_abs_err": warp["max_abs_err"], "ms": warp["ms"],
-         "plain_ms": warp["plain_ms"]},
+        row("planarize (_planarize_mxu_kernel)", "planarize.cu",
+            "warp_pallas.py:3234", "planarize", plan),
+        row("planarize (_planarize_kernel)", "planarize.cu",
+            "warp_pallas.py:3193", "planarize", plan),
+        row("warp_equirect (_warp_kernel_yaw2: yaw ring 8x1920x1080)",
+            "warp_equirect.cu", "warp_pallas.py:1032", "warp",
+            warp["headline"]),
+        row("warp_equirect (_warp_kernel_yaw: yaw ring 8x1600x1600)",
+            "warp_equirect.cu", "warp_pallas.py:734", "warp", warp["main"]),
+        row("warp_equirect (_warp_kernel: pitched full360coverage)",
+            "warp_equirect.cu", "warp_pallas.py:613", "warp",
+            tilted["pitched"]),
+        row("warp_equirect (_warp_kernel_wide3: fisheyeXY hemispheres)",
+            "warp_equirect.cu", "warp_pallas.py:2814", "warp",
+            tilted["fisheye"]),
+        row("warp_equirect (_warp_kernel_wide2: pole view)",
+            "warp_equirect.cu", "warp_pallas.py:1671", "warp",
+            tilted["pole"]),
+        row("warp_equirect (_warp_kernel_wide: equisolid view)",
+            "warp_equirect.cu", "warp_pallas.py:1182", "warp",
+            tilted["equisolid"]),
+        row("remap (_remap_kernel: undistort 3840²)", "remap.cu",
+            "remap_pallas.py:110", "remap", checks["undistort"]),
+        row("remap (_remap_kernel_wide3: SFM10 10x1750²)", "remap.cu",
+            "remap_pallas.py:283", "remap", checks["batch"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

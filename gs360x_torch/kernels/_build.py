@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``gs360x_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface for Hopper (``sm_90a``), at first use, into
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, at first use, into
 ``build/gs360x_torch/`` at the root of the checkout (listed in
 ``.gitignore``). The library's name carries a hash of the sources and the
 flags, so an edit rebuilds and an unchanged checkout reuses the build.
@@ -29,12 +30,15 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "gs360x_torch"
 
 # no --use_fast_math: approximate atan2f/asinf move u by > 0.01 px at 8K
+# -Xptxas -v: registers, shared memory and spills of each kernel, kept in
+# ``build_log``
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: float = 0.0   # wall time of the last build (0 when reused)
+build_log: str = ""          # the compilers' output of the last build
 
 
 def _sources():
@@ -68,33 +72,63 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gs360x_planarize.argtypes = [vp, i32, vp, i32, i64, i64, f32, vp]
     lib.gs360x_planarize.restype = i32
     lib.gs360x_warp_equirect.argtypes = [vp, i32, i32, i32, vp, i32, vp,
-                                         i32, i32, i32, f32, vp]
+                                         i32, i32, i32, i32, f32, vp]
     lib.gs360x_warp_equirect.restype = i32
+    lib.gs360x_remap.argtypes = [vp, i32, i32, i32, i32, vp, vp, vp, i32,
+                                 vp, i32, i32, i32, f32, f32, vp]
+    lib.gs360x_remap.restype = i32
     lib.gs360x_cuda_error_string.argtypes = [i32]
     lib.gs360x_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _compile(lib_path: pathlib.Path) -> str:
+    """Compile every source in parallel, then link; returns the log."""
+    work = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.objs")
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = work / f"{src.stem}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        failed = []
+        for cmd, _obj, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = work / lib_path.name
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-shared", "-o", str(tmp), *[str(o) for _c, o, _p in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib_path)
+        return "\n".join(log)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def load() -> ctypes.CDLL:
     """Return the kernel library, building it first if this checkout has
     no build of the current sources."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     with _lock:
         if _lib is not None:
             return _lib
         lib_path = BUILD_DIR / f"libgs360x_torch_{_digest()}.so"
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in _sources() if s.suffix == ".cu"]]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, lib_path)
+            build_log = _compile(lib_path)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(lib_path))
         _declare(lib)

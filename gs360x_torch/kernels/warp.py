@@ -8,7 +8,8 @@ device. It is the reference the CUDA kernels are held to (on the card, in
 
 Interpolation matches ffmpeg v360's kernels: ``bilinear``; ``bicubic`` =
 the 4-point Lagrange weights of v360's ``calculate_bicubic_coeffs``;
-``nearest`` for masks. The longitude seam wraps modulo W; with
+``nearest`` for masks; ``catmull-rom`` (Keys a=-0.5) for the dual-fisheye
+tool's ``--interpolation cubic``. The longitude seam wraps modulo W; with
 ``pole_reflect`` a tap row past a pole reflects over it with a half-width
 column shift (v360 ``reflecty``).
 """
@@ -115,6 +116,12 @@ def catmull_rom_weights(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return w0, w1, w2, w3
 
 
+_CUBIC_KERNELS = {
+    "bicubic": lagrange_cubic_weights,
+    "catmull-rom": catmull_rom_weights,
+}
+
+
 # --------------------------------------------------------------------------
 # Gather-based samplers
 # --------------------------------------------------------------------------
@@ -205,9 +212,9 @@ def sample_nearest(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
 
 
 def sample_bicubic(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
-                   wrap_x: bool = False,
+                   wrap_x: bool = False, kernel: str = "bicubic",
                    pole_reflect: bool = False) -> torch.Tensor:
-    """16-tap separable Lagrange cubic sample (v360 interp=cubic)."""
+    """16-tap separable cubic sample (v360 interp=cubic by default)."""
     h, w = src.shape[0], src.shape[1]
     src_flat = src.reshape(h * w, -1)
     x0 = torch.floor(u)
@@ -216,8 +223,8 @@ def sample_bicubic(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
     fy = v - y0
     x0i = x0.to(torch.int64)
     y0i = y0.to(torch.int64)
-    wxs = lagrange_cubic_weights(fx)
-    wys = lagrange_cubic_weights(fy)
+    wxs = _CUBIC_KERNELS[kernel](fx)
+    wys = _CUBIC_KERNELS[kernel](fy)
     out = None
     for dy in range(4):
         if pole_reflect:
@@ -243,7 +250,8 @@ def sample_bicubic(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
 _SAMPLERS = {
     "bilinear": sample_bilinear,
     "nearest": sample_nearest,
-    "bicubic": sample_bicubic,
+    "bicubic": functools.partial(sample_bicubic, kernel="bicubic"),
+    "catmull-rom": functools.partial(sample_bicubic, kernel="catmull-rom"),
 }
 
 

@@ -5,8 +5,12 @@ path on the card:
 
 * ``planarize.cu`` — interleaved (H, 3·W) rows → planar (3, H, W),
   replacing ``_planarize_mxu_kernel`` / ``_planarize_kernel``;
-* ``warp_equirect.cu`` — planar source → (V, 3, h, w) f32 perspective
-  views, replacing ``_warp_kernel_yaw2``.
+* ``warp_equirect.cu`` — planar source → (V, 3, h, w) f32 views of every
+  class the JAX entry sorts views into (yaw ring, narrow, tilted, wide:
+  poles in view, pitched and rolled views, ``fisheye_v360`` and
+  ``equisolid`` outputs), replacing ``_warp_kernel_yaw2``, ``_warp_kernel``,
+  ``_warp_kernel_wide3`` and the fallbacks ``_warp_kernel_wide2``,
+  ``_warp_kernel_wide`` and ``_warp_kernel_yaw``.
 
 Each wrapper checks its inputs, launches its kernel on PyTorch's current
 stream for a CUDA tensor (or raises), and runs its plain torch version
@@ -14,9 +18,10 @@ for a CPU tensor — only then. ``LAUNCHES`` counts kernel launches and
 ``PLAIN_CALLS`` counts plain-version runs, so a run shows which path it
 took.
 
-The kernel takes a full rotation per view, but this slice gates it on
-the yaw ring (pitch = roll = 0, seam included); tilted/pole views and
-fisheye outputs are the next slices (ROADMAP A.6).
+Every view the JAX entry accepts launches: the projections and interps
+that :func:`gs360x.kernels.warp_pallas.warp_equirect_to_views_pallas`
+refuses with ``PallasFallback`` raise ``ValueError`` here, on either
+device.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ PLAIN_CALLS: Dict[str, int] = {"planarize": 0, "warp": 0}
 
 _KIND = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
 _INTERP = {"bilinear": 0, "bicubic": 1}
+_PROJECTION = {"perspective": 0, "fisheye_v360": 1, "equisolid": 2}
 _SCALE = {torch.uint8: 1.0 / 255.0, torch.uint16: 1.0 / 65535.0,
           torch.float32: 1.0}
 
@@ -134,9 +140,12 @@ def _rot_matrix(yaw_deg: float, pitch_deg: float, roll_deg: float
 
 def view_table(yaws: Sequence[float], pitches: Sequence[float],
                rolls: Sequence[float], hfov_deg: float,
-               vfov_deg: float) -> np.ndarray:
-    """Host (V, 16) f32 view table of perspective views: ``rot[0:9]``
-    row-major, then ``tan(hfov/2)``, ``tan(vfov/2)``, zeros — the table
+               vfov_deg: float, projection: str = "perspective"
+               ) -> np.ndarray:
+    """Host (V, 16) f32 view table: ``rot[0:9]`` row-major, then
+    ``tan(hfov/2)``, ``tan(vfov/2)`` for perspective views, or the rim
+    angle ``half = hfov/2`` (radians) and the equisolid scale
+    ``sin(half/2)`` for fisheye outputs; zeros after — the table
     ``warp_equirect_to_views_pallas`` builds for its kernels."""
     n = len(yaws)
     table = np.zeros((max(n, 1), 16), np.float32)
@@ -144,48 +153,44 @@ def view_table(yaws: Sequence[float], pitches: Sequence[float],
         rot = _rot_matrix(float(yaws[vi]), float(pitches[vi]),
                           float(rolls[vi])).astype(np.float32)
         table[vi, 0:9] = rot.reshape(-1)
-        table[vi, 9] = math.tan(math.radians(hfov_deg) / 2.0)
-        table[vi, 10] = math.tan(math.radians(vfov_deg) / 2.0)
+        if projection == "perspective":
+            table[vi, 9] = math.tan(math.radians(hfov_deg) / 2.0)
+            table[vi, 10] = math.tan(math.radians(vfov_deg) / 2.0)
+        else:
+            half = math.radians(hfov_deg) / 2.0
+            table[vi, 9] = half                   # theta at the rim
+            table[vi, 10] = math.sin(half / 2.0)  # equisolid scale
     return table
 
 
-def _device_table(yaws, pitches, rolls, hfov_deg, vfov_deg,
+def _device_table(yaws, pitches, rolls, hfov_deg, vfov_deg, projection,
                   device: torch.device) -> torch.Tensor:
     """Device copy of :func:`view_table`, cached: view geometry is static
     across frames, so the upload does not recur per frame."""
     key = (tuple(yaws), tuple(pitches), tuple(rolls), float(hfov_deg),
-           float(vfov_deg), str(device))
+           float(vfov_deg), projection, str(device))
     hit = _TABLE_CACHE.get(key)
     if hit is None:
         if len(_TABLE_CACHE) > 16:
             _TABLE_CACHE.clear()
         hit = torch.from_numpy(view_table(yaws, pitches, rolls, hfov_deg,
-                                          vfov_deg)).to(device)
+                                          vfov_deg, projection)).to(device)
         _TABLE_CACHE[key] = hit
     return hit
 
 
-def kernel_supports(projection: str, pitches, rolls) -> bool:
-    """Whether a view group is inside this slice's kernel gate: perspective
-    outputs on the yaw ring (pitch = roll = 0 modulo 360; the seam is
-    included). Outside it the CUDA wrapper raises."""
-    return projection == "perspective" and all(
-        float(p) % 360.0 == 0.0 for p in pitches) and all(
-        float(r) % 360.0 == 0.0 for r in rolls)
-
-
-def require_kernel_gate(projection: str, pitches, rolls) -> None:
-    """Raise ``NotImplementedError`` for a view group outside
-    :func:`kernel_supports`, naming the ROADMAP item that opens it."""
-    if projection != "perspective":
-        raise NotImplementedError(
-            f"projection {projection!r} on CUDA: fisheye outputs are slice 3 "
-            "of the port (ROADMAP A.6, B table: _warp_kernel_wide3)")
-    if not kernel_supports(projection, pitches, rolls):
-        raise NotImplementedError(
-            "tilted or rolled views on CUDA: the kernel is gated on the yaw "
-            "ring in this slice; slice 2 opens it (ROADMAP A.6, B table: "
-            "_warp_kernel)")
+def _check_view_args(projection: str, interp: str) -> str:
+    """The JAX entry's ``PallasFallback`` cases raise ``ValueError``;
+    ``nearest`` runs bilinear, as the JAX executor maps it."""
+    if projection not in _PROJECTION:
+        raise ValueError(f"projection {projection!r}: expected one of "
+                         f"{', '.join(_PROJECTION)}")
+    if interp == "nearest":
+        interp = "bilinear"
+    if interp not in _INTERP:
+        raise ValueError(f"interp {interp!r}: expected bicubic, bilinear or "
+                         "nearest")
+    return interp
 
 
 def _as_rows(src: torch.Tensor) -> torch.Tensor:
@@ -235,16 +240,14 @@ def warp_equirect_to_views_cuda(src_rows, yaws, pitches, rolls, *,
     ``src_rows`` is (H, W·3) (or (H, W, 3)) u8/u16/f32, angles are host
     values in degrees; returns (V, 3, height, width) f32 when ``planar``
     else (V, height, width, 3). ``interp="nearest"`` runs bilinear, as the
-    JAX executor maps it for its kernels.
+    JAX executor maps it for its kernels. ``projection`` is
+    ``perspective``, ``fisheye_v360`` or ``equisolid`` (pixels outside a
+    fisheye's image circle are 0); anything else raises ``ValueError``.
 
-    CUDA tensors: ``planarize.cu`` then ``warp_equirect.cu``; raises for
-    views outside :func:`kernel_supports`. CPU tensors: the plain version.
+    CUDA tensors: ``planarize.cu`` then ``warp_equirect.cu``, for every
+    view. CPU tensors: the plain version.
     """
-    if interp == "nearest":
-        interp = "bilinear"
-    if interp not in _INTERP:
-        raise ValueError(f"interp {interp!r}: expected bicubic, bilinear or "
-                         "nearest")
+    interp = _check_view_args(projection, interp)
     yaws = [float(y) for y in np.asarray(yaws, np.float64).reshape(-1)]
     pitches = [float(p) for p in np.asarray(pitches, np.float64).reshape(-1)]
     rolls = [float(r) for r in np.asarray(rolls, np.float64).reshape(-1)]
@@ -258,7 +261,6 @@ def warp_equirect_to_views_cuda(src_rows, yaws, pitches, rolls, *,
             hfov_deg=hfov_deg, vfov_deg=vfov_deg, projection=projection,
             interp=interp, planar=planar)
     _require_cuda(rows, "warp_equirect_to_views_cuda")
-    require_kernel_gate(projection, pitches, rolls)
     if rows.dtype not in _KIND:
         raise ValueError(f"unsupported source dtype {rows.dtype}")
     if rows.dtype == torch.uint8:
@@ -268,16 +270,18 @@ def warp_equirect_to_views_cuda(src_rows, yaws, pitches, rolls, *,
         planes = planarize_rows(rows, _SCALE[rows.dtype], torch.float32)
     out = warp_planes(planes, yaws, pitches, rolls, width=width,
                       height=height, hfov_deg=hfov_deg, vfov_deg=vfov_deg,
-                      interp=interp)
+                      projection=projection, interp=interp)
     return out if planar else out.permute(0, 2, 3, 1)
 
 
 def warp_planes(planes: torch.Tensor, yaws, pitches, rolls, *,
                 width: int, height: int, hfov_deg: float, vfov_deg: float,
+                projection: str = "perspective",
                 interp: str = "bicubic") -> torch.Tensor:
     """Launch ``warp_equirect.cu`` on a planar CUDA source: (3, H, W) u8
     (scaled by 1/255 in the kernel) or f32 (read as is) → (V, 3, height,
-    width) f32. Perspective views; the caller applies the kernel gate."""
+    width) f32."""
+    interp = _check_view_args(projection, interp)
     _require_cuda(planes, "warp_planes")
     if planes.dim() != 3 or planes.shape[0] != 3 \
             or planes.dtype not in (torch.uint8, torch.float32):
@@ -286,7 +290,7 @@ def warp_planes(planes: torch.Tensor, yaws, pitches, rolls, *,
     planes = planes.contiguous()
     src_h, src_w = planes.shape[1], planes.shape[2]
     table = _device_table(yaws, pitches, rolls, hfov_deg, vfov_deg,
-                          planes.device)
+                          projection, planes.device)
     n_views = len(yaws)
     out = torch.empty((n_views, 3, height, width), dtype=torch.float32,
                       device=planes.device)
@@ -297,7 +301,7 @@ def warp_planes(planes: torch.Tensor, yaws, pitches, rolls, *,
             ctypes.c_void_p(planes.data_ptr()), _KIND[planes.dtype], src_h,
             src_w, ctypes.c_void_p(table.data_ptr()), n_views,
             ctypes.c_void_p(out.data_ptr()), height, width, _INTERP[interp],
-            float(scale), _stream(planes))
+            _PROJECTION[projection], float(scale), _stream(planes))
     _build.check(err, "warp_equirect")
     LAUNCHES["warp"] += 1
     return out

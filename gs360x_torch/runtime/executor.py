@@ -11,9 +11,9 @@ and passes it down. ``backend`` keeps the JAX spelling: ``auto`` and
 ``pallas`` send every view group through the CUDA kernel wrapper
 (:mod:`gs360x_torch.kernels.warp_cuda`), which launches the kernels on a
 CUDA device and runs their plain versions on a CPU device; ``xla`` runs
-the plain torch twin on either. On a CUDA device a plan with a view
-group outside the kernel gate raises ``NotImplementedError`` before any
-frame is read: it never quietly runs the plain twin on the card.
+the plain torch twin on either. Every view group of every preset (yaw
+ring, tilted, rolled, pole and fisheye views) launches the kernels on a
+CUDA device: ``--backend xla`` is the only way to the plain twin there.
 """
 
 from __future__ import annotations
@@ -145,16 +145,6 @@ def _group_angles(views, idxs):
                  for name in ("yaw_deg", "pitch_deg", "roll_deg"))
 
 
-def _check_kernel_gate(views, backend: str, device: torch.device) -> None:
-    """On a CUDA device with the kernel backend, raise before any work if
-    a view group lies outside the kernel gate."""
-    if device.type != "cuda" or backend == "xla":
-        return
-    for (projection, *_), idxs in _view_groups(views).items():
-        _yaws, pitches, rolls = _group_angles(views, idxs)
-        warp_cuda.require_kernel_gate(projection, pitches, rolls)
-
-
 def _warp_frame_views(frame: np.ndarray, views, *, interp: str,
                       backend: str, device: torch.device,
                       keep_rec709: Optional[bool] = None,
@@ -223,7 +213,6 @@ def run_plan(plan: RenderPlan, *,
              quiet: bool = False,
              stats: bool = False) -> ExecutionReport:
     """Execute a RenderPlan (image-dir or video mode) on ``device``."""
-    _check_kernel_gate(plan.unique_views(), backend, device)
     t0 = time.time()
     stop_event = stop_event or threading.Event()
     report = ExecutionReport(total=plan.total if not plan.video_mode else 0)

@@ -105,10 +105,10 @@ def create_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", choices=["auto", "xla", "pallas"],
                     default="auto",
                     help="Warp backend, JAX spelling: auto and pallas = the "
-                         "CUDA kernels on a CUDA device (a view outside the "
-                         "kernel gate, e.g. tilted or fisheye, raises "
-                         "NotImplementedError there); xla = the plain torch "
-                         "twin")
+                         "CUDA kernels on a CUDA device, for every view of "
+                         "every preset (tilted, pole and fisheye included); "
+                         "xla = the plain torch twin, the only way to it on "
+                         "a CUDA device")
     ap.add_argument("--device", choices=list(DEVICE_CHOICES), default="cuda",
                     help="Torch device: cuda raises when no card is "
                          "present; cpu runs the plain torch versions")

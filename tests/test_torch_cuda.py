@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain torch versions on the card, at
-small and ragged shapes (``chip_smoke.py`` covers the main path's full
-shapes). Marked ``cuda``: each test skips without a card. On a machine
+small and ragged shapes: planarize, the warp (yaw ring, and the tilted,
+pole and fisheye geometry of the ``tests/test_warp_pallas.py`` parity
+cases of ``_warp_kernel``, ``_warp_kernel_wide3``, ``_warp_kernel_wide2``,
+``_warp_kernel_wide`` and ``_warp_kernel_yaw``), and the remap
+(``chip_smoke.py`` covers the main paths' full shapes). Marked ``cuda``: each test skips without a card. On a machine
 with one, run (the JAX-side conftest is not needed)::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -12,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from gs360x_torch.kernels import warp_cuda
+from gs360x_torch.kernels import remap_cuda, warp_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -82,8 +85,7 @@ def test_warp_kernel_matches_plain(dev, interp, dtype, size):
 
 
 def test_warp_kernel_reflects_over_the_poles(dev):
-    # views with taps past both poles, through the launcher directly (the
-    # wrapper's gate keeps tilted views off the kernel in this slice)
+    # views with taps past both poles, through the planar launcher
     rows = _pano(np.uint8, 64, 128, dev)
     yaws, pitches, rolls = [20.0, 200.0], [80.0, -85.0], [0.0, 10.0]
     kw = dict(width=96, height=96, hfov_deg=110.0, vfov_deg=110.0)
@@ -100,12 +102,121 @@ def test_warp_kernel_reflects_over_the_poles(dev):
     assert float((lsb > 1).float().mean()) <= 0.01
 
 
-def test_wrapper_raises_outside_the_gate(dev):
-    rows = _rows(np.uint8, 64, 128, dev)
-    kw = dict(width=32, height=32, hfov_deg=90.0, vfov_deg=90.0)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        warp_cuda.warp_equirect_to_views_cuda(
-            rows, [0.0], [0.0], [0.0], projection="fisheye_v360", **kw)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        warp_cuda.warp_equirect_to_views_cuda(rows, [0.0], [10.0], [0.0],
-                                              **kw)
+def _lsb(x):
+    return torch.round(x.clamp(0, 1) * 255)
+
+
+# (id, source (w, h), view kwargs, yaws, pitches, rolls, projection,
+#  interp, pole): the tests/test_warp_pallas.py parity cases at the lines
+#  named (the same list as tests/test_torch_warp.py::GEOMETRY)
+_KW = dict(width=256, height=128, hfov_deg=100.0, vfov_deg=60.0)
+_FKW = dict(width=128, height=128, hfov_deg=180.0, vfov_deg=180.0)
+GEOMETRY = [
+    ("seam_straddle_45", (512, 256), _KW, [180.0], [0.0], [0.0],
+     "perspective", "bicubic", False),
+    ("poles_167", (512, 256), _KW, [0.0, 0.0, 0.0, 0.0],
+     [90.0, -90.0, 75.0, -75.0], [0.0] * 4, "perspective", "bicubic", True),
+    ("pole_with_seam_174", (512, 256), _KW, [180.0], [88.0], [30.0],
+     "perspective", "bicubic", True),
+    ("extreme_slope_181", (512, 256),
+     dict(width=256, height=128, hfov_deg=150.0, vfov_deg=70.0),
+     [45.0], [0.0], [0.0], "perspective", "bicubic", False),
+    ("fisheye_front_back_261", (512, 256), _FKW, [0.0, 180.0], [0.0, 0.0],
+     [0.0, 0.0], "fisheye_v360", "bilinear", True),
+    ("equisolid_front_back_261", (512, 256), _FKW, [0.0, 180.0],
+     [0.0, 10.0], [0.0, 5.0], "equisolid", "bicubic", True),
+    ("grazing_pole_362", (512, 256),
+     dict(width=256, height=32, hfov_deg=60.0, vfov_deg=22.0),
+     [20.0], [-82.0], [0.0], "perspective", "bicubic", True),
+    ("wide_fov_tilt_401", (2048, 1024),
+     dict(width=256, height=128, hfov_deg=112.6, vfov_deg=100.0),
+     [0.0], [30.0], [0.0], "perspective", "bicubic", False),
+    ("deep_shear_510", (1024, 512),
+     dict(width=384, height=64, hfov_deg=110.0, vfov_deg=30.0),
+     [20.0], [60.0], [0.0], "perspective", "bicubic", False),
+    ("fisheye_overflow_619", (768, 384),
+     dict(width=128, height=128, hfov_deg=190.0, vfov_deg=190.0),
+     [0.0], [0.0], [0.0], "fisheye_v360", "bilinear", True),
+    ("yaw_ring_v1_734", (512, 256), dict(width=250, height=131,
+                                         hfov_deg=90.0, vfov_deg=60.0),
+     [0.0, 45.0, 180.0, 300.0], [0.0] * 4, [0.0] * 4, "perspective",
+     "bilinear", False),
+]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize(
+    "src_wh,kw,yaws,pitches,rolls,projection,interp,pole",
+    [pytest.param(*case[1:], id=case[0]) for case in GEOMETRY])
+def test_tilted_pole_fisheye_kernel_matches_plain(
+        dev, dtype, src_wh, kw, yaws, pitches, rolls, projection, interp,
+        pole):
+    rows = _pano(dtype, src_wh[1], src_wh[0], dev)
+    before = dict(warp_cuda.LAUNCHES)
+    got = warp_cuda.warp_equirect_to_views_cuda(
+        rows, yaws, pitches, rolls, projection=projection, interp=interp,
+        planar=True, **kw)
+    ref = warp_cuda.warp_equirect_to_views_plain(
+        rows, yaws, pitches, rolls, projection=projection, interp=interp,
+        planar=True, **kw)
+    torch.cuda.synchronize()
+    assert warp_cuda.LAUNCHES["warp"] == before["warp"] + 1
+    assert got.shape == ref.shape == (len(yaws), 3, kw["height"],
+                                      kw["width"])
+    assert bool(torch.isfinite(got).all())
+    if projection != "perspective":
+        # the image circle is bitwise the plain version's: 0 outside
+        assert torch.equal((got == 0).all(dim=1), (ref == 0).all(dim=1))
+    lsb = (_lsb(got) - _lsb(ref)).abs()
+    assert float(lsb.max()) <= (2 if pole else 1)
+    assert float((lsb > 1).float().mean()) <= 0.01
+    if not pole:
+        # the tolerance of the Pallas-vs-twin parity tests
+        assert float((got - ref).abs().max()) <= 1e-4
+
+
+def _barrel_maps(h, w, src_h, src_w, shift):
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    nx = (xx - w / 2) / w
+    ny = (yy - h / 2) / h
+    r2 = nx * nx + ny * ny
+    return ((xx * (1 + 0.08 * r2) + shift[0]).astype(np.float32),
+            (yy * (1 + 0.08 * r2) + shift[1]).astype(np.float32))
+
+
+@pytest.mark.parametrize("interp", ["nearest", "bilinear", "bicubic",
+                                    "catmull-rom"])
+@pytest.mark.parametrize("dtype,channels", [(np.uint8, 3), (np.float32, 3),
+                                            (np.uint8, 1)])
+def test_remap_kernel_matches_plain(dev, interp, dtype, channels):
+    # three ragged maps over one source, with taps past every edge and an
+    # invalid band each (fill), in one launch
+    src_h, src_w = 97, 203
+    maps = []
+    for k, shift in enumerate([(-30.0, -20.0), (60.0, 10.0),
+                               (150.0, 70.0)]):
+        mx, my = _barrel_maps(45, 77, src_h, src_w, shift)
+        valid = np.ones(mx.shape, bool)
+        valid[k * 9:k * 9 + 5] = False
+        maps.append((mx, my, valid))
+    rng = np.random.default_rng(3)
+    shape = (src_h, src_w) if channels == 1 else (src_h, src_w, 3)
+    src = (rng.integers(0, 256, shape, dtype=np.uint8) if dtype == np.uint8
+           else rng.random(shape, dtype=np.float32))
+    batch = remap_cuda.PreparedRemapBatch(maps, src_w=src_w, src_h=src_h,
+                                          interp=interp, device=dev)
+    planes = remap_cuda.source_planes(src, src_h, src_w, dev)
+    before = remap_cuda.LAUNCHES["remap"]
+    got = batch(planes, fill=0.3)
+    ref = remap_cuda.remap_planes_plain(planes, batch.map_x, batch.map_y,
+                                        batch.valid, interp=interp, fill=0.3)
+    torch.cuda.synchronize()
+    assert remap_cuda.LAUNCHES["remap"] == before + 1
+    assert got.shape == ref.shape == (3, channels, 45, 77)
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert float((_lsb(got) - _lsb(ref)).abs().max()) <= 1
+    # one map through PreparedRemap equals its row of the batch
+    single = remap_cuda.PreparedRemap(*maps[1], src_w=src_w, src_h=src_h,
+                                      device=dev)(planes, interp=interp,
+                                                  fill=0.3)
+    assert torch.equal(single, got[1])

@@ -1,0 +1,219 @@
+"""The port's dual-fisheye tool (:mod:`gs360x_torch.tools.dualfisheye`)
+against the JAX package's (:mod:`gs360x.tools.dualfisheye`) on the CPU:
+the host-side numpy code exactly (calibration parse, auto-zoom, undistort
+maps, SFM10 layout, per-view lens choice and maps, pairing), the device
+remap within 1 LSB, and the whole CLI (``--device cpu``, the plain
+versions): the same files, images within 1 LSB, masks equal, the same
+report JSON and exit codes; ``--dry-run``, a missing XML, and the
+deferred LUT / metadata flags refused with exit code 2."""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from gs360x.io import image as im
+from gs360x.tools import dualfisheye as jdf
+from gs360x_torch.kernels import remap_cuda, warp_cuda
+from gs360x_torch.tools import dualfisheye as tdf
+from test_dualfisheye import CALIB_XML, make_calib, synth_fisheye
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+
+
+def port_calib(calib):
+    return tdf.SensorCalibration(**dataclasses.asdict(calib))
+
+
+@pytest.fixture
+def calib_xml(tmp_path):
+    p = tmp_path / "calib.xml"
+    p.write_text(CALIB_XML)
+    return p
+
+
+# --- host code: exactly the JAX tool's ---------------------------------------
+
+def test_calibration_parse_equals_jax(calib_xml):
+    ref_sensors, ref_cams = jdf.load_metashape_calibration(calib_xml)
+    got_sensors, got_cams = tdf.load_metashape_calibration(calib_xml)
+    assert got_cams == ref_cams
+    assert sorted(got_sensors) == sorted(ref_sensors)
+    for sid, calib in ref_sensors.items():
+        assert dataclasses.asdict(got_sensors[sid]) == \
+            dataclasses.asdict(calib)
+        assert got_sensors[sid].center == calib.center
+
+
+@pytest.mark.parametrize("kw,zoom", [(dict(f=140.0, k1=0.15), None),
+                                     (dict(f=143.0, k1=0.01, cx=1.5,
+                                           cy=-0.8, p1=1e-3, b1=0.5), 1.1)])
+def test_remap_cache_equals_jax(kw, zoom):
+    calib = make_calib(size=128, **kw)
+    ref = jdf.build_remap_cache(calib, zoom, 190.0)
+    got = tdf.build_remap_cache(port_calib(calib), zoom, 190.0)
+    assert got.undistort_zoom == ref.undistort_zoom
+    for name in ("map_x", "map_y", "valid"):
+        assert np.array_equal(getattr(got, name), getattr(ref, name)), name
+    assert tdf.estimate_auto_undistort_zoom(port_calib(calib)) == \
+        jdf.estimate_auto_undistort_zoom(calib)
+
+
+def test_sfm10_specs_and_perspective_maps_equal_jax():
+    specs = tdf.build_sfm10_specs(48, 14.0, "36x24", 40.0, 35.0)
+    assert specs == jdf.build_sfm10_specs(48, 14.0, "36x24", 40.0, 35.0)
+    ref_sensors = {"0": make_calib("0", size=256),
+                   "1": make_calib("1", size=256, k1=0.02)}
+    got_sensors = {k: port_calib(v) for k, v in ref_sensors.items()}
+    ref = jdf.build_perspective_spec_maps(ref_sensors, "0", "1", specs,
+                                          0.0, 180.0, 190.0)
+    got = tdf.build_perspective_spec_maps(got_sensors, "0", "1", specs,
+                                          0.0, 180.0, 190.0)
+    assert list(got) == list(ref)
+    for vid, m in ref.items():
+        assert got[vid]["lens_key"] == m["lens_key"]
+        for name in ("map_x", "map_y", "valid"):
+            assert np.array_equal(got[vid][name], m[name]), (vid, name)
+    for bad in ((48, 14.0, "36 36", 190.0, 40.0),
+                (48, 14.0, "36 36", 40.0, 95.0), (0, 14.0, "36 36", 40, 40)):
+        with pytest.raises(ValueError) as ref_exc:
+            jdf.build_sfm10_specs(*bad)
+        with pytest.raises(ValueError) as got_exc:
+            tdf.build_sfm10_specs(*bad)
+        assert str(got_exc.value) == str(ref_exc.value)
+
+
+def test_pairing_and_sensor_ids_equal_jax(tmp_path):
+    for name in ("a_X.jpg", "a_Y.jpg", "b_X.jpg", "c_Y.jpg", "d.jpg",
+                 "e_X.png", "e_Y.png"):
+        (tmp_path / name).touch()
+    files = sorted(tmp_path.iterdir())
+    pairs = tdf.build_pair_records(files, "_X", "_Y")
+    assert pairs == jdf.build_pair_records(files, "_X", "_Y")
+    sensors = {"0": None, "7": None}
+    for cams in ({}, {"a_X": "7", "a_Y": "0"}, {"a_X": "9"}):
+        args = (cams, sensors, "a", pairs[0][1], pairs[0][2], "_X", "_Y",
+                "0", "1")
+        assert tdf.resolve_sensor_ids(*args) == jdf.resolve_sensor_ids(*args)
+
+
+@pytest.mark.parametrize("interp", ["nearest", "bilinear", "catmull-rom"])
+def test_device_remap_matches_jax(interp):
+    calib = make_calib(size=128, k1=0.05)
+    cache = jdf.build_remap_cache(calib, None, 190.0)
+    img = synth_fisheye(calib)
+    ref = jdf.device_remap(im.to_float01(img), cache.map_x, cache.map_y,
+                           cache.valid, interp=interp, fill=0.2,
+                           quantize=True)
+    got = tdf.device_remap(img, cache.map_x, cache.map_y, cache.valid,
+                           interp=interp, fill=0.2, quantize=True,
+                           device=CPU)
+    assert got.dtype == ref.dtype == np.uint8
+    assert got.shape == ref.shape == (128, 128, 3)
+    assert int(np.abs(got.astype(int) - ref.astype(int)).max()) <= 1
+    mask = img[..., 0]
+    ref_m = jdf.device_remap(mask.astype(np.float32) / 255.0, cache.map_x,
+                             cache.map_y, cache.valid, interp="nearest",
+                             fill=0.0)
+    got_m = tdf.device_remap(mask, cache.map_x, cache.map_y, cache.valid,
+                             interp="nearest", fill=0.0, quantize=True,
+                             device=CPU)
+    assert np.array_equal(got_m, im.from_float01(ref_m))
+
+
+# --- the whole CLI -----------------------------------------------------------
+
+def _pair_dir(tmp_path, calib_xml, masks: bool):
+    sensors, _ = jdf.load_metashape_calibration(calib_xml)
+    in_dir = tmp_path / "pairs"
+    in_dir.mkdir()
+    im.write_image(in_dir / "frame_0001_X.png", synth_fisheye(sensors["0"]))
+    im.write_image(in_dir / "frame_0001_Y.png", synth_fisheye(sensors["1"]))
+    mask_dir = None
+    if masks:
+        mask_dir = tmp_path / "masks"
+        mask_dir.mkdir()
+        rng = np.random.default_rng(5)
+        for name in ("frame_0001_X.png", "frame_0001_Y.png"):
+            m = (rng.random((512, 512)) > 0.5).astype(np.uint8) * 255
+            im.write_image(mask_dir / name, np.repeat(m[..., None], 3, -1))
+    return in_dir, mask_dir
+
+
+def test_cli_matches_jax(calib_xml, tmp_path):
+    in_dir, mask_dir = _pair_dir(tmp_path, calib_xml, masks=True)
+    common = ["--input-dir", str(in_dir), "--camera-xml", str(calib_xml),
+              "--perspective-size", "128", "--save-fisheye-output",
+              "--perspective-ext", ".png", "--mask-input-dir", str(mask_dir)]
+    ref_out, got_out = tmp_path / "jax", tmp_path / "torch"
+    assert jdf.main(common + ["--output-dir", str(ref_out), "--report-json",
+                              str(tmp_path / "jax.json")]) == 0
+    remap_cuda.reset_counters()
+    warp_cuda.reset_counters()
+    assert tdf.main(common + ["--output-dir", str(got_out), "--report-json",
+                              str(tmp_path / "torch.json"),
+                              "--device", "cpu"]) == 0
+    # one remap per lens undistort, per lens view group, per mask group;
+    # one planarize per lens image
+    assert remap_cuda.PLAIN_CALLS["remap"] == 6
+    assert warp_cuda.PLAIN_CALLS["planarize"] == 2
+    assert remap_cuda.LAUNCHES["remap"] == 0
+    assert json.loads((tmp_path / "torch.json").read_text()) == \
+        json.loads((tmp_path / "jax.json").read_text())
+    ref_files = sorted(p.relative_to(ref_out) for p in ref_out.rglob("*.png"))
+    got_files = sorted(p.relative_to(got_out) for p in got_out.rglob("*.png"))
+    assert got_files == ref_files
+    assert len(ref_files) == 2 + 10 + 10
+    for rel in ref_files:
+        ref = im.read_image(ref_out / rel).astype(np.int32)
+        got = im.read_image(got_out / rel).astype(np.int32)
+        assert got.shape == ref.shape, rel
+        if rel.parts[:2] == ("perspective", "masks"):
+            assert np.array_equal(got, ref), rel
+        else:
+            assert int(np.abs(got - ref).max()) <= 1, rel
+
+
+def test_dry_run(calib_xml, tmp_path, capsys):
+    in_dir = tmp_path / "pairs"
+    in_dir.mkdir()
+    (in_dir / "p_X.jpg").write_bytes(b"")
+    (in_dir / "p_Y.jpg").write_bytes(b"")
+    args = ["--input-dir", str(in_dir), "--camera-xml", str(calib_xml),
+            "--dry-run", "--perspective-size", "64"]
+    assert jdf.main(args) == 0
+    ref = capsys.readouterr().out
+    assert tdf.main(args + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert "[DRY]" in got
+    assert got == ref
+
+
+def test_missing_xml_and_input_exit_codes(tmp_path):
+    missing = ["--camera-xml", str(tmp_path / "no.xml")]
+    assert tdf.main(missing + ["--device", "cpu"]) == jdf.main(missing) == 1
+    xml = tmp_path / "c.xml"
+    xml.write_text(CALIB_XML)
+    no_input = ["--camera-xml", str(xml), "--output-dir",
+                str(tmp_path / "o")]
+    assert tdf.main(no_input + ["--device", "cpu"]) == \
+        jdf.main(no_input) == 1
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--input-lut", "x.cube"], "A.8"),
+    (["--input-color-profile", "osmo360-dlogm", "--dlogm-lut", "x.cube"],
+     "A.8"),
+    (["--metadata-only", "--camera-extrinsics-xml", "a.xml"], "A.7"),
+    (["--camera-extrinsics-xml", "a.xml"], "A.7")])
+def test_deferred_flags_are_refused(calib_xml, tmp_path, capsys, flags,
+                                    item):
+    rc = tdf.main(["--camera-xml", str(calib_xml), "--input-dir",
+                   str(tmp_path), "--device", "cpu"] + flags)
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert err.startswith("[ERR]") and f"ROADMAP {item}" in err

@@ -1,8 +1,8 @@
-"""The port never imports JAX: every ``gs360x_torch`` module, and
-``chip_smoke`` as a module, import in a fresh interpreter with no ``jax``
-in ``sys.modules`` afterwards, and of the JAX package ``gs360x`` only its
-JAX-free host modules. A subprocess, because this test process has
-already imported JAX. ``chip_smoke.py`` itself imports nothing of
+"""The port never imports JAX: every ``gs360x_torch`` module (the remap
+path and the dual-fisheye tool named explicitly), and ``chip_smoke`` as a
+module, import in a fresh interpreter with no ``jax`` in ``sys.modules``
+afterwards, and of the JAX package ``gs360x`` only its JAX-free host
+modules. A subprocess, because this test process has already imported JAX. ``chip_smoke.py`` itself imports nothing of
 ``gs360x``."""
 
 import ast
@@ -18,7 +18,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 ALLOWED_GS360X = {
     "gs360x", "gs360x.io", "gs360x.io.image", "gs360x.io.video",
     "gs360x.runtime", "gs360x.runtime.profiling", "gs360x.runtime.cancel",
-    "gs360x.native",
+    "gs360x.native", "gs360x.templates", "gs360x.runtime.throttle",
 }
 
 PROBE = """
@@ -32,6 +32,7 @@ import chip_smoke
 loaded = sorted(sys.modules)
 print(json.dumps({
     "n_modules": len(names),
+    "names": names,
     "jax": [m for m in loaded if m == "jax" or m.startswith("jax.")],
     "gs360x": [m for m in loaded if m == "gs360x" or m.startswith("gs360x.")],
 }))
@@ -43,7 +44,9 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert seen["n_modules"] >= 15, seen
+    assert seen["n_modules"] >= 17, seen
+    assert {"gs360x_torch.kernels.remap_cuda",
+            "gs360x_torch.tools.dualfisheye"} <= set(seen["names"])
     assert seen["jax"] == [], seen["jax"]
     assert set(seen["gs360x"]) <= ALLOWED_GS360X, seen["gs360x"]
 

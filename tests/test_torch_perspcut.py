@@ -1,7 +1,8 @@
 """The port's perspcut CLI, the slice as a whole, against the JAX
 package's CLI on the CPU: the same file names, pixels within 1 u8 LSB on
-at most 0.1% of pixels, in image-directory and video mode; and
-``--device cuda`` on a machine without a card raises."""
+at most 0.1% of pixels, in image-directory and video mode; the presets
+with tilted, pole and fisheye views within 1 LSB; and ``--device cuda``
+on a machine without a card raises."""
 
 import math
 
@@ -13,8 +14,6 @@ from gs360x.io import image as im
 from gs360x.io import video as vio
 from gs360x.tools import perspcut as jax_perspcut
 from gs360x_torch.kernels import warp_cuda
-from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
-from gs360x_torch.runtime.executor import run_plan
 from gs360x_torch.tools import perspcut as torch_perspcut
 
 torch.set_num_threads(1)
@@ -32,7 +31,8 @@ def lonlat_pano(w=512, h=256, shift=0.0):
     return (img * 255).astype(np.uint8)
 
 
-def _assert_same_outputs(ref_dir, got_dir):
+def _assert_same_outputs(ref_dir, got_dir, share=0.001):
+    """Same names; pixels within 1 LSB, on at most ``share`` of them."""
     ref_names = sorted(p.name for p in ref_dir.iterdir())
     got_names = sorted(p.name for p in got_dir.iterdir())
     assert got_names == ref_names
@@ -43,7 +43,7 @@ def _assert_same_outputs(ref_dir, got_dir):
         assert got.shape == ref.shape
         diff = np.abs(got - ref)
         assert int(diff.max()) <= 1, name
-        assert float((diff > 0).mean()) <= 0.001, name
+        assert float((diff > 0).mean()) <= share, name
 
 
 @pytest.fixture(scope="module")
@@ -120,22 +120,25 @@ def test_device_cuda_without_a_card_raises(pano_dir, tmp_path):
     assert warp_cuda.PLAIN_CALLS == {"planarize": 0, "warp": 0}
 
 
-@pytest.mark.parametrize("preset,match", [("fisheyelike", "slice 2"),
-                                          ("fisheyeXY", "slice 3")])
-def test_cuda_plan_outside_the_kernel_gate_raises(pano_dir, tmp_path, preset,
-                                                  match):
-    # on a CUDA device, pitched and fisheye groups raise before any work
-    # instead of running the plain twin on the card (checked without one:
-    # the gate raises before the device is touched)
-    out = tmp_path / "never"
-    files = sorted(pano_dir.glob("*.png"))
-    plan = build_view_plan(PerspCutConfig(preset=preset, size=32), files, out)
+@pytest.mark.parametrize("preset", ["fisheyelike", "full360coverage",
+                                    "fisheyeXY"])
+def test_tilted_pole_and_fisheye_presets_match_jax(pano_dir, tmp_path,
+                                                   preset, capsys):
+    # pitched views, a pole-grazing wide cover and fisheye hemispheres:
+    # every group goes through the CUDA-path wrapper (its plain version on
+    # the CPU), none is refused
+    args = ["-i", str(pano_dir), "--preset", preset, "--size", "32",
+            "--ext", "png"]
+    ref_out, got_out = tmp_path / "jax", tmp_path / "torch"
+    assert jax_perspcut.main(args + ["-o", str(ref_out)]) == 0
     warp_cuda.reset_counters()
-    with pytest.raises(NotImplementedError, match=match):
-        run_plan(plan, device=torch.device("cuda"), backend="auto",
-                 quiet=True)
-    assert not out.exists()
-    assert warp_cuda.PLAIN_CALLS == {"planarize": 0, "warp": 0}
+    assert torch_perspcut.main(args + ["-o", str(got_out),
+                                       "--device", "cpu"]) == 0
+    assert "failed=0" in capsys.readouterr().out
+    assert warp_cuda.PLAIN_CALLS["warp"] >= 2
+    assert warp_cuda.LAUNCHES == {"planarize": 0, "warp": 0}
+    # near-pole views are ill-conditioned in u (ROADMAP C): 1 LSB anywhere
+    _assert_same_outputs(ref_out, got_out, share=1.0)
 
 
 def test_exit_codes_match(tmp_path, capsys):

@@ -1,9 +1,11 @@
 """The port's warp twin and CUDA-path wrapper (plain version on CPU
-tensors) against the JAX package: the XLA twin, the Pallas yaw-ring path
-in interpret mode, the independent v360 oracle, and the kernels' view
-table. Sizes follow ``tests/test_warp_pallas.py`` (512x256 source,
-256x128 views). The CUDA kernel itself is held to the plain version on the
-card by ``chip_smoke.py``."""
+tensors) against the JAX package: the XLA twin (yaw ring, and the tilted,
+pole and fisheye geometry of ``tests/test_warp_pallas.py``), the Pallas
+yaw-ring path in interpret mode, the independent v360 oracle on every
+parity case, and the kernels' view table (perspective and fisheye). Sizes
+follow ``tests/test_warp_pallas.py`` (512x256 source, 256x128 views). The
+CUDA kernel itself is held to the plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
 
 import math
 
@@ -120,12 +122,115 @@ def test_wrapper_hwc_layout_and_nearest_maps_to_bilinear():
     assert torch.equal(near, bil.permute(0, 2, 3, 1))
 
 
-def test_kernel_gate():
-    assert warp_cuda.kernel_supports("perspective", [0.0, 0.0], [360.0, 0.0])
-    assert not warp_cuda.kernel_supports("perspective", [0.0, 10.0],
-                                         [0.0, 0.0])
-    assert not warp_cuda.kernel_supports("perspective", [0.0], [5.0])
-    assert not warp_cuda.kernel_supports("fisheye_v360", [0.0], [0.0])
+@pytest.mark.parametrize("projection,interp", [("cylindrical", "bicubic"),
+                                               ("perspective", "lanczos")])
+def test_unsupported_projection_or_interp_raises(projection, interp):
+    # the JAX entry's PallasFallback cases: no view is refused otherwise
+    rows = torch.from_numpy(SRC_U8.reshape(256, 512 * 3))
+    warp_cuda.reset_counters()
+    with pytest.raises(ValueError, match=projection if interp == "bicubic"
+                       else interp):
+        warp_cuda.warp_equirect_to_views_cuda(
+            rows, [0.0], [10.0], [0.0], projection=projection,
+            interp=interp, **KW)
+    assert warp_cuda.PLAIN_CALLS == {"planarize": 0, "warp": 0}
+
+
+# --- tilted, pole and fisheye views against the JAX XLA twin -----------------
+
+def _lonlat(w, h):
+    return lonlat_pano(w, h) if (w, h) != (512, 256) else SRC
+
+
+FKW = dict(width=128, height=128, hfov_deg=180.0, vfov_deg=180.0)
+# (id, source (w, h), view kwargs, yaws, pitches, rolls, projection, interp,
+#  pole): the geometry of the tests/test_warp_pallas.py cases at the lines
+#  named; `pole` marks views whose image holds a pole, where u is
+#  ill-conditioned (ROADMAP C) and the oracle's LSB gate applies
+GEOMETRY = [
+    ("seam_straddle_45", (512, 256), KW, [180.0], [0.0], [0.0],
+     "perspective", "bicubic", False),
+    ("pole_up_167", (512, 256), KW, [0.0], [90.0], [0.0],
+     "perspective", "bilinear", True),
+    ("pole_down_167", (512, 256), KW, [0.0], [-90.0], [0.0],
+     "perspective", "bicubic", True),
+    ("near_pole_up_167", (512, 256), KW, [0.0], [75.0], [0.0],
+     "perspective", "bicubic", True),
+    ("near_pole_down_167", (512, 256), KW, [0.0], [-75.0], [0.0],
+     "perspective", "bilinear", True),
+    ("pole_with_seam_174", (512, 256), KW, [180.0], [88.0], [30.0],
+     "perspective", "bicubic", True),
+    ("extreme_slope_181", (512, 256),
+     dict(width=256, height=128, hfov_deg=150.0, vfov_deg=70.0),
+     [45.0], [0.0], [0.0], "perspective", "bicubic", False),
+    ("fisheye_front_back_261", (512, 256), FKW, [0.0, 180.0], [0.0, 0.0],
+     [0.0, 0.0], "fisheye_v360", "bilinear", True),
+    ("equisolid_front_back_261", (512, 256), FKW, [0.0, 180.0], [0.0, 0.0],
+     [0.0, 0.0], "equisolid", "bicubic", True),
+    ("grazing_pole_362", (512, 256),
+     dict(width=256, height=32, hfov_deg=60.0, vfov_deg=22.0),
+     [20.0], [-82.0], [0.0], "perspective", "bicubic", True),
+    ("wide_fov_tilt_401", (2048, 1024),
+     dict(width=256, height=128, hfov_deg=112.6, vfov_deg=100.0),
+     [0.0], [30.0], [0.0], "perspective", "bicubic", False),
+    ("deep_shear_510", (1024, 512),
+     dict(width=384, height=64, hfov_deg=110.0, vfov_deg=30.0),
+     [20.0], [60.0], [0.0], "perspective", "bicubic", False),
+    ("fisheye_overflow_619", (768, 384),
+     dict(width=128, height=128, hfov_deg=190.0, vfov_deg=190.0),
+     [0.0], [0.0], [0.0], "fisheye_v360", "bilinear", True),
+]
+
+
+def _assert_lsb_gate(got, ref):
+    """The oracle's gate (tests/test_v360_oracle.py::_assert_parity):
+    <= 2 u8 LSB, and <= 1% of samples more than 1 LSB apart."""
+    def q(x):
+        return np.clip(np.rint(np.asarray(x) * 255.0), 0, 255).astype(
+            np.int32)
+    diff = np.abs(q(got) - q(ref))
+    assert int(diff.max()) <= 2, f"max diff {diff.max()} u8 LSB"
+    assert float((diff > 1).mean()) <= 0.01
+
+
+@pytest.mark.parametrize("path", ["twin", "wrapper"])
+@pytest.mark.parametrize(
+    "src_wh,kw,yaws,pitches,rolls,projection,interp,pole",
+    [pytest.param(*case[1:], id=case[0]) for case in GEOMETRY])
+def test_tilted_pole_fisheye_views_match_jax_xla_twin(
+        path, src_wh, kw, yaws, pitches, rolls, projection, interp, pole):
+    src = _lonlat(*src_wh)
+    angles = [np.asarray(a, np.float32) for a in (yaws, pitches, rolls)]
+    if path == "twin":
+        ref = np.asarray(jax_warp.warp_equirect_to_views(
+            src, *angles, projection=projection, interp=interp,
+            backend="xla", **kw))
+        got = twin.warp_equirect_to_views(
+            torch.from_numpy(src), *angles, projection=projection,
+            interp=interp, **kw).numpy()
+    else:
+        # the CUDA-path wrapper on a CPU u8 frame: the plain version
+        src_u8 = np.clip(np.rint(src * 255.0), 0, 255).astype(np.uint8)
+        ref = np.asarray(jax_warp.warp_equirect_to_views(
+            src_u8.astype(np.float32) / 255.0, *angles,
+            projection=projection, interp=interp, backend="xla", **kw))
+        h, w = src_u8.shape[:2]
+        warp_cuda.reset_counters()
+        got = warp_cuda.warp_equirect_to_views_cuda(
+            torch.from_numpy(src_u8.reshape(h, w * 3)), yaws, pitches,
+            rolls, projection=projection, interp=interp, **kw).numpy()
+        assert warp_cuda.PLAIN_CALLS["warp"] == 1
+        assert warp_cuda.LAUNCHES["warp"] == 0
+    assert got.shape == ref.shape == (len(yaws), kw["height"], kw["width"], 3)
+    if projection != "perspective":
+        # the image circle: bitwise the same mask, 0 outside it
+        outside = np.all(ref == 0.0, axis=-1)
+        assert np.array_equal(np.all(got == 0.0, axis=-1), outside)
+        assert outside[:, 0, 0].all()
+    if pole:
+        _assert_lsb_gate(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, atol=5e-5)
 
 
 # --- the view table against the one the Pallas entry builds ------------------
@@ -160,13 +265,51 @@ def test_view_table_rotation_of_tilted_views_equals_pallas(yaw, pitch, roll):
     assert np.array_equal(got[0, 0:9], budget.rot.reshape(-1))
 
 
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.parametrize("projection", ["fisheye_v360", "equisolid"])
+def test_fisheye_view_table_equals_pallas(monkeypatch, projection):
+    # fisheye outputs go to the wide kernels; capture their view table and
+    # stop before the interpret-mode kernel runs
+    seen = []
+
+    def spy(src_rows, view_f32, *args, **kwargs):
+        seen.append(np.asarray(view_f32))
+        raise _Captured
+
+    for name in ("_warp_call_wide3", "_warp_call_wide2", "_warp_call_wide"):
+        monkeypatch.setattr(warp_pallas, name, spy)
+    yaws = np.array([0.0, 180.0])
+    pitches = np.array([0.0, 15.0])
+    rolls = np.array([0.0, -5.0])
+    with pytest.raises(_Captured):
+        warp_pallas.warp_equirect_to_views_pallas(
+            SRC, yaws, pitches, rolls, width=64, height=64,
+            hfov_deg=190.0, vfov_deg=190.0, projection=projection,
+            interp="bilinear", interpret=True)
+    got = warp_cuda.view_table(yaws, pitches, rolls, 190.0, 190.0,
+                               projection)
+    assert np.array_equal(got, seen[0][:len(yaws)])
+
+
 # --- the twin against the independent v360 oracle ---------------------------
 
 ORACLE_OUT = 128
+# every parity case of docs/V360_PARITY.md (tools/v360_parity_report.py:
+# the 7 CASES of tests/test_v360_oracle.py plus tilt_m30 and pole_graze):
+# (id, projection, hfov, vfov, yaw, pitch, roll)
 ORACLE_CASES = [
-    # (hfov, yaw) of the yaw and seam cases of tests/test_v360_oracle.py
-    (104.25, 37.0),
-    (104.25, 180.0),     # seam crossing
+    ("yaw_ring", "perspective", 104.25, 104.25, 37.0, 0.0, 0.0),
+    ("seam_cross", "perspective", 104.25, 104.25, 180.0, 0.0, 0.0),
+    ("tilt_p30", "perspective", 104.25, 104.25, 45.0, 30.0, 0.0),
+    ("tilt_m30", "perspective", 104.25, 104.25, -135.0, -30.0, 0.0),
+    ("deep_shear", "perspective", 110.0, 110.0, 20.0, 60.0, 0.0),
+    ("pole_graze", "perspective", 112.6, 112.6, 0.0, 62.0, 0.0),
+    ("roll_20", "perspective", 104.25, 104.25, 10.0, 15.0, 20.0),
+    ("fisheye_d190", "fisheye_v360", 190.0, 190.0, 0.0, 0.0, 0.0),
+    ("pole_up", "perspective", 104.25, 104.25, 0.0, 90.0, 0.0),
 ]
 
 
@@ -184,15 +327,17 @@ def oracle_pano():
 
 
 @pytest.mark.parametrize("interp", ["bicubic", "bilinear"])
-@pytest.mark.parametrize("hfov,yaw", ORACLE_CASES)
-def test_twin_meets_oracle_gate(oracle_pano, hfov, yaw, interp):
+@pytest.mark.parametrize("projection,hfov,vfov,yaw,pitch,roll",
+                         [pytest.param(*c[1:], id=c[0]) for c in ORACLE_CASES])
+def test_twin_meets_oracle_gate(oracle_pano, projection, hfov, vfov, yaw,
+                                pitch, roll, interp):
     oracle, valid = vo.warp_equirect_oracle(
-        oracle_pano, yaw, 0.0, 0.0, width=ORACLE_OUT, height=ORACLE_OUT,
-        hfov_deg=hfov, vfov_deg=hfov, interp=interp)
+        oracle_pano, yaw, pitch, roll, width=ORACLE_OUT, height=ORACLE_OUT,
+        hfov_deg=hfov, vfov_deg=vfov, projection=projection, interp=interp)
     out = twin.warp_equirect_to_views(
         torch.from_numpy(oracle_pano.astype(np.float32) / 255.0),
-        [yaw], [0.0], [0.0], width=ORACLE_OUT, height=ORACLE_OUT,
-        hfov_deg=hfov, vfov_deg=hfov, interp=interp)
+        [yaw], [pitch], [roll], width=ORACLE_OUT, height=ORACLE_OUT,
+        hfov_deg=hfov, vfov_deg=vfov, projection=projection, interp=interp)
     got = np.clip(np.rint(out[0].numpy() * 255.0), 0, 255).astype(np.uint8)
     # the gate of tests/test_v360_oracle.py::_assert_parity: float taps
     # against v360's Q14 fixed-point taps
