@@ -7,9 +7,11 @@ Run from the root of a checkout on a machine with a card::
 
 It builds the hand-written CUDA kernels from ``gs360x_torch/csrc`` (into
 ``build/gs360x_torch/``), holds each kernel against its plain torch
-version on the card at the main paths' shapes and times both (the
-equirect warp on yaw-ring, pitched, pole and fisheye views of an 8K
-frame; the remap on the Osmo 360 undistort map and the 10 SFM10 maps),
+version on the card at the main paths' shapes and times both (planarize
+for every input/output type and every variant on an 8K frame, a 3840²
+lens image and a ragged, unaligned view; the equirect warp on yaw-ring,
+pitched, pole and fisheye views of an 8K frame; the remap on the Osmo 360
+undistort map and the 10 SFM10 maps),
 then drives each main path once through the port's CLIs and checks that
 it went through the kernels only and that its pixels are right:
 
@@ -74,14 +76,47 @@ ORACLE_LSB, ORACLE_SHARE = 2, 0.01
 # same f32 expression as the twin, so none
 RIM_TOL = 0
 REMAP_F32_TOL = 1e-5
+# planarize: (label, H, W, storage offset in elements) — the 8K frame, the
+# Osmo 360 lens, and a ragged shape on an unaligned base (the scalar path),
+# frame-sized: at a few MB the wrapper's host time per call exceeds the
+# kernel's, and back-to-back events would time the host
+PLANARIZE_SHAPES = [("8K", SRC_H, SRC_W, 0), (f"lens {FISH}²", FISH, FISH, 0),
+                    ("ragged 3839x7679 +1", SRC_H - 1, SRC_W - 1, 1)]
+PLANARIZE_PAIRS = [("u8->u8", torch.uint8, 1.0, torch.uint8),
+                   ("u8->f32", torch.uint8, 1.0 / 255.0, torch.float32),
+                   ("u16->f32", torch.uint16, 1.0 / 65535.0, torch.float32),
+                   ("f32->f32", torch.float32, 1.0, torch.float32)]
+HBM_TBS = 3.35   # published H100 SXM device-memory bandwidth, TB/s
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each run)."""
+def cuda_ms(fn, reps: int = 10, batches: int = 5, warmup: int = 2) -> float:
+    """Device time of one ``fn`` in ms: CUDA events around ``reps`` runs
+    back to back, so the host's work for the next launch overlaps the
+    device's run; the median over ``batches`` such means."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return statistics.median(times)
+
+
+def launch_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median time of ``fn`` in ms with CUDA events around each single
+    run: an idle device waits between the events for the host to launch,
+    so the host's per-call work counts too."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -155,27 +190,74 @@ def phase_device() -> dict:
     return {"kind": name, "smi": smi}
 
 
+def _planarize_rows_input(h: int, w: int, dtype, offset: int, seed: int,
+                          dev) -> torch.Tensor:
+    """Random (h, 3w) rows of ``dtype`` on the card: a contiguous view
+    ``offset`` elements into its storage (offset > 0: an unaligned base)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = 3 * h * w + offset
+    if dtype == torch.float32:
+        flat = torch.rand(n, generator=gen, device=dev)
+    elif dtype == torch.uint16:   # int16 bits, read as u16
+        flat = torch.randint(-32768, 32768, (n,), generator=gen,
+                             dtype=torch.int16, device=dev).view(dtype)
+    else:
+        flat = torch.randint(0, 256, (n,), generator=gen, dtype=dtype,
+                             device=dev)
+    return flat[offset:].view(h, 3 * w)
+
+
 def phase_planarize(dev) -> dict:
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rows = torch.randint(0, 256, (SRC_H, SRC_W * 3), generator=gen,
-                         dtype=torch.uint8, device=dev)
-    got_u8 = warp_cuda.planarize_rows(rows, 1.0, torch.uint8)
-    ref_u8 = warp_cuda.planarize_rows_plain(rows, 1.0, torch.uint8)
-    got_f = warp_cuda.planarize_rows(rows, 1.0 / 255.0, torch.float32)
-    ref_f = warp_cuda.planarize_rows_plain(rows, 1.0 / 255.0, torch.float32)
-    torch.cuda.synchronize()
-    if not torch.equal(got_u8, ref_u8):
-        raise AssertionError("planarize u8 out: kernel != plain")
-    if not torch.equal(got_f.view(torch.int32), ref_f.view(torch.int32)):
-        raise AssertionError("planarize f32 out: kernel != plain (bitwise)")
-    err = float((got_f - ref_f).abs().max())
-    ms = cuda_ms(lambda: warp_cuda.planarize_rows(rows, 1.0, torch.uint8))
-    plain_ms = cuda_ms(
-        lambda: warp_cuda.planarize_rows_plain(rows, 1.0, torch.uint8))
-    log(f"[planarize] 8K u8 {SRC_H}x{SRC_W * 3} -> (3,{SRC_H},{SRC_W}): "
-        f"bitwise equal (u8 out, f32*1/255 out) | kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    """Every (in, out) pair at the main paths' shapes and one ragged,
+    unaligned shape: bitwise against the plain version, for the variant
+    the main path takes and for every other variant the shape allows;
+    each timed beside the plain version."""
+    stats = {}
+    for label, h, w, offset in PLANARIZE_SHAPES:
+        for pair, dtype, scale, out_dtype in PLANARIZE_PAIRS:
+            rows = _planarize_rows_input(h, w, dtype, offset, len(stats), dev)
+            ref = warp_cuda.planarize_rows_plain(rows, scale, out_dtype)
+            got = warp_cuda.planarize_rows(rows, scale, out_dtype)
+            kept = warp_cuda.planarize_variant(rows, got)
+            others = [v for v in warp_cuda.PLANARIZE_VARIANTS if v != kept] \
+                if kept != "scalar" else []
+            outs = {v: warp_cuda.planarize_rows(rows, scale, out_dtype,
+                                                variant=v) for v in others}
+            torch.cuda.synchronize()
+            for variant, out in [(kept, got), *outs.items()]:
+                if not torch.equal(out.view(torch.uint8),
+                                   ref.view(torch.uint8)):
+                    raise AssertionError(f"planarize {label} {pair} "
+                                         f"{variant}: kernel != plain")
+            err = float((got.float() - ref.float()).abs().max())
+            ms = cuda_ms(lambda: warp_cuda.planarize_rows(rows, scale,
+                                                          out_dtype))
+            plain_ms = cuda_ms(lambda: warp_cuda.planarize_rows_plain(
+                rows, scale, out_dtype))
+            other_ms = {v: cuda_ms(lambda v=v: warp_cuda.planarize_rows(
+                rows, scale, out_dtype, variant=v)) for v in others}
+            moved = h * w * 3 * (rows.element_size() + got.element_size())
+            gbs = moved / ms / 1e6
+            bound_ms = moved / (HBM_TBS * 1e9)
+            extra = ", ".join(
+                f"{v}{'' if v == 'scalar' else ' (variant not kept)'} "
+                f"{t:.4f} ms" for v, t in other_ms.items())
+            if not stats:   # 8K u8 -> u8: also timed one launch at a time
+                one = launch_ms(lambda: warp_cuda.planarize_rows(
+                    rows, scale, out_dtype))
+                one_plain = launch_ms(lambda: warp_cuda.planarize_rows_plain(
+                    rows, scale, out_dtype))
+                extra += (f", per launch: kernel {one:.4f} ms, plain "
+                          f"{one_plain:.4f} ms")
+            log(f"[planarize] {label} {pair}: bitwise equal "
+                f"({', '.join([kept + ' (main path)', *others])}) | kernel "
+                f"{kept} {ms:.4f} ms ({gbs:.1f} GB/s, {gbs / HBM_TBS / 10:.1f}"
+                f"% of {HBM_TBS} TB/s; bound {bound_ms:.4f} ms), plain "
+                f"{plain_ms:.4f} ms{' | ' + extra if extra else ''}")
+            stats[(label, pair)] = {"max_abs_err": err, "ms": ms,
+                                    "plain_ms": plain_ms}
+            del rows, ref, got, outs
+    return stats[(PLANARIZE_SHAPES[0][0], PLANARIZE_PAIRS[0][0])]
 
 
 def _compare_warp(rows: torch.Tensor, geom: dict, interp: str, smooth: bool,

@@ -4,19 +4,46 @@
 // with H % 128 == 0, a one-hot bf16 matmul on the MXU) and _planarize_kernel
 // (lane gathers), both reached through _planarize_rows. Both compute one
 // function: de-interleave RGB rows into three planes; a u8 output keeps the
-// bytes verbatim, a float output gets `scale` folded in (1/255, 1/65535 or 1).
-// The seam wrap pad and the pole pad of _planar_source stay outside: the
-// warp kernel wraps and reflects per tap instead.
+// bytes verbatim, a float output is float(v) * scale in f32 (scale 1/255,
+// 1/65535 or 1). The seam wrap pad and the pole pad of _planar_source stay
+// outside: the warp kernel wraps and reflects per tap instead. None of the
+// TPU tiling (the one-hot matmul, 384-column blocks, packed planes) carries
+// over.
 //
-// Bound on the H100: device memory. An 8K u8 frame is 88.5 MB read and
-// 88.5 MB written, no arithmetic to speak of.
+// Bound on the H100: bytes. There is no arithmetic to speak of. An 8K u8
+// frame (3840 x 7680) is 88.5 MB read and 88.5 MB written, 0.053 ms at the
+// published 3.35 TB/s; u8 -> f32 at 8K moves 442 MB, 0.132 ms.
 //
-// Design: one thread per output element (channel, row, column). A warp
-// writes 32 consecutive outputs of one plane row (coalesced stores) and
-// reads 32 input elements 3 apart, inside a span of 96 elements of one row,
-// so every input line it touches is fully used by the block's three
-// channel slices through L2. Grid: x over columns, y over rows, z over the
-// three channels; 64-bit offsets throughout.
+// Design. Input and output are both contiguous, so rows do not matter: the
+// input is N = H*W pixels of three interleaved values, the output three
+// planes of N. The vector path gives each thread a chunk of Q pixels whose
+// outputs make exactly one 16-byte store in each plane (Q = 16 for a u8
+// output, 4 for f32), so a warp's stores cover 512 contiguous bytes of each
+// plane. The chunk's input comes in three loads as wide as it allows (16,
+// 4, 8 or 16 bytes for u8->u8, u8->f32, u16->f32, f32->f32) and is
+// de-interleaved in registers (__byte_perm for u8 -> u8, shifts otherwise).
+// A 1-D grid of one block per 256 chunks, with a grid-stride loop and
+// 64-bit offsets, so no grid dimension bounds H or W. On the H100 this runs
+// at the rate of the device's own copy (torch clone of the same bytes, ~84%
+// of 3.35 TB/s). Q is set by the stores, not the loads: with 16 pixels (48
+// input bytes) a thread for every pair, a thread's four f32 stores a plane
+// land 64 bytes apart, each warp store fills half of every sector, and
+// u8 -> f32 ran at 31% of the bound, slower than the scalar path.
+//
+// Two vector variants, timed against each other by chip_smoke.py:
+//   regs: each thread loads its own chunk from device memory; the sectors
+//         the three strided loads of a warp share are served by L1;
+//   bulk: a block stages the contiguous input span of its 256 chunks in
+//         shared memory with one cp.async.bulk (an mbarrier counts the
+//         bytes) and de-interleaves from there.
+// They tie at u8 -> u8 and regs is ahead on f32 outputs, so gs360x_planarize
+// launches regs (kKeptVariant), the one without a barrier.
+//
+// Ragged inputs: the vector path needs N % Q == 0 and 16-byte aligned input
+// and output bases (8K frames and 3840^2 lenses qualify). Any other input,
+// such as a view with a storage offset, takes the scalar path of this file:
+// element loads and stores, each thread four pixels 256 apart, all loads
+// before any store (the shape of torch's own copy kernel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -24,69 +51,307 @@
 namespace {
 
 enum Kind { KIND_U8 = 0, KIND_U16 = 1, KIND_F32 = 2 };
+enum Variant { VARIANT_AUTO = -1, VARIANT_SCALAR = 0, VARIANT_REGS = 1,
+               VARIANT_BULK = 2 };
 
+constexpr int kKeptVariant = VARIANT_REGS;
+constexpr int kThreads = 256;
+constexpr int kMaxChunkBytes = 48;  // u8 -> u8 and f32 -> f32 chunks
+
+// ---------------------------------------------------------------- vector
+
+// A chunk is the Q pixels whose outputs make one 16-byte store in each
+// plane: 16 pixels for a u8 output, 4 for an f32 output. Its input is three
+// loads of kLoad bytes: 16 (u8 -> u8), 4 (u8 -> f32), 8 (u16 -> f32) or 16
+// (f32 -> f32).
 template <typename Tin, typename Tout>
-struct Convert;
-
-template <>
-struct Convert<uint8_t, uint8_t> {
-  __device__ static uint8_t run(uint8_t v, float) { return v; }
+struct ChunkShape {
+  static constexpr int Q = 16 / sizeof(Tout);
+  static constexpr int kLoad = Q * sizeof(Tin);
+  static constexpr int kBytes = 3 * kLoad;
+  static constexpr int kWords = kBytes / 4;
 };
 
-template <typename Tin>
-struct Convert<Tin, float> {
-  __device__ static float run(Tin v, float scale) {
-    return static_cast<float>(v) * scale;
+// The chunk's input as little-endian words, from device memory (read-only
+// path) or from shared memory.
+template <int kLoad, bool kGlobal>
+__device__ __forceinline__ void load_words(const uint8_t* src, uint32_t* w) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const uint8_t* p = src + k * kLoad;
+    if constexpr (kLoad == 16) {
+      const uint4* q = reinterpret_cast<const uint4*>(p);
+      uint4 v;
+      if constexpr (kGlobal) v = __ldg(q); else v = *q;
+      w[4 * k] = v.x; w[4 * k + 1] = v.y; w[4 * k + 2] = v.z; w[4 * k + 3] = v.w;
+    } else if constexpr (kLoad == 8) {
+      const uint2* q = reinterpret_cast<const uint2*>(p);
+      uint2 v;
+      if constexpr (kGlobal) v = __ldg(q); else v = *q;
+      w[2 * k] = v.x; w[2 * k + 1] = v.y;
+    } else {
+      const unsigned int* q = reinterpret_cast<const unsigned int*>(p);
+      if constexpr (kGlobal) w[k] = __ldg(q); else w[k] = *q;
+    }
   }
-};
+}
 
+// Value `idx` of the chunk's interleaved input as f32, before scaling.
+template <typename Tin>
+__device__ __forceinline__ float value(const uint32_t* w, int idx) {
+  if constexpr (sizeof(Tin) == 1) {
+    return static_cast<float>((w[idx >> 2] >> (8 * (idx & 3))) & 0xffu);
+  } else if constexpr (sizeof(Tin) == 2) {
+    return static_cast<float>((w[idx >> 1] >> (16 * (idx & 1))) & 0xffffu);
+  } else {
+    return __uint_as_float(w[idx]);
+  }
+}
+
+// One 16-byte store to each plane at `out` (the chunk's first pixel of
+// plane 0); planes are `n_pix` apart.
 template <typename Tin, typename Tout>
-__global__ void planarize_kernel(const Tin* __restrict__ rows,
-                                 Tout* __restrict__ out, int64_t h,
-                                 int64_t w, float scale) {
-  const int64_t x = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  const int64_t y = blockIdx.y;
-  const int64_t c = blockIdx.z;
-  if (x >= w) return;
-  const Tin v = rows[(y * w + x) * 3 + c];
-  out[(c * h + y) * w + x] = Convert<Tin, Tout>::run(v, scale);
+__device__ __forceinline__ void store_chunk(const uint32_t* w, Tout* out,
+                                            int64_t n_pix, float scale) {
+  if constexpr (sizeof(Tout) == 1) {
+    // 16 u8 pixels: every group of 3 words (4 pixels) gives one word of each
+    // plane, bytes {0,3,6,9}, {1,4,7,10} and {2,5,8,11} of the group.
+    uint32_t r[4], g[4], b[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const uint32_t w0 = w[3 * m], w1 = w[3 * m + 1], w2 = w[3 * m + 2];
+      r[m] = __byte_perm(__byte_perm(w0, w1, 0x0630), w2, 0x5210);
+      g[m] = __byte_perm(__byte_perm(w0, w1, 0x0741), w2, 0x6210);
+      b[m] = __byte_perm(w0, __byte_perm(w1, w2, 0x0741), 0x6542);
+    }
+    *reinterpret_cast<uint4*>(out) = make_uint4(r[0], r[1], r[2], r[3]);
+    *reinterpret_cast<uint4*>(out + n_pix) = make_uint4(g[0], g[1], g[2], g[3]);
+    *reinterpret_cast<uint4*>(out + 2 * n_pix) =
+        make_uint4(b[0], b[1], b[2], b[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      *reinterpret_cast<float4*>(out + c * n_pix) =
+          make_float4(value<Tin>(w, c) * scale, value<Tin>(w, 3 + c) * scale,
+                      value<Tin>(w, 6 + c) * scale,
+                      value<Tin>(w, 9 + c) * scale);
+    }
+  }
 }
 
 template <typename Tin, typename Tout>
-cudaError_t launch(const void* rows, void* out, int64_t h, int64_t w,
+__global__ void __launch_bounds__(kThreads)
+planarize_regs(const uint8_t* __restrict__ in, Tout* __restrict__ out,
+               int64_t n_chunks, int64_t n_pix, float scale) {
+  using S = ChunkShape<Tin, Tout>;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n_chunks; i += stride) {
+    uint32_t w[S::kWords];
+    load_words<S::kLoad, true>(in + i * S::kBytes, w);
+    store_chunk<Tin, Tout>(w, out + i * S::Q, n_pix, scale);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Thread 0 of the block: arm `bar` for `bytes` and start the bulk copy.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t phase) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(phase) : "memory");
+  } while (!done);
+}
+
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads)
+planarize_bulk(const uint8_t* __restrict__ in, Tout* __restrict__ out,
+               int64_t n_chunks, int64_t n_pix, float scale) {
+  using S = ChunkShape<Tin, Tout>;
+  constexpr uint32_t kTileBytes = kThreads * S::kBytes;  // a multiple of 16
+  __shared__ __align__(128) uint8_t tile[kThreads * kMaxChunkBytes];
+  __shared__ __align__(8) uint64_t full;
+  const int64_t n_tiles = n_chunks / kThreads;  // full tiles, staged
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(smem_addr(&full)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  uint32_t phase = 0;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    if (tid == 0) bulk_load(tile, in + t * kTileBytes, kTileBytes, &full);
+    wait_phase(&full, phase);
+    phase ^= 1u;
+    uint32_t w[S::kWords];
+    load_words<S::kLoad, false>(&tile[tid * S::kBytes], w);
+    store_chunk<Tin, Tout>(w, out + (t * kThreads + tid) * S::Q, n_pix, scale);
+    __syncthreads();  // every thread is done with the tile before the next
+  }
+  // the last, partial tile (its bytes need not make a multiple of 16) is
+  // read straight from device memory
+  const int64_t i = n_tiles * kThreads + tid;
+  if (blockIdx.x == gridDim.x - 1 && i < n_chunks) {
+    uint32_t w[S::kWords];
+    load_words<S::kLoad, true>(in + i * S::kBytes, w);
+    store_chunk<Tin, Tout>(w, out + i * S::Q, n_pix, scale);
+  }
+}
+
+// ---------------------------------------------------------------- scalar
+
+// A scalar thread moves kUnroll pixels kThreads apart (so each access of a
+// warp is coalesced), all loads before any store.
+constexpr int kUnroll = 4;
+
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads)
+planarize_scalar(const Tin* __restrict__ in, Tout* __restrict__ out,
+                 int64_t n_pix, float scale) {
+  constexpr int64_t kTile = kThreads * kUnroll;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
+       base < n_pix; base += static_cast<int64_t>(gridDim.x) * kTile) {
+    Tin v[kUnroll][3];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t p = base + u * kThreads;
+      if (p < n_pix) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v[u][c] = in[3 * p + c];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t p = base + u * kThreads;
+      if (p < n_pix) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          if constexpr (sizeof(Tout) == 1) {
+            out[c * n_pix + p] = v[u][c];
+          } else {
+            out[c * n_pix + p] = static_cast<float>(v[u][c]) * scale;
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+// Blocks for `items` work items of kThreads each, up to the grid's x limit;
+// the kernels stride over anything beyond. One block per tile measured
+// faster on the H100 than one striding wave of blocks: at 8K u8 -> u8 the
+// regs kernel ran at 0.0633 instead of 0.0690 ms, the rate of the device's
+// own copy.
+unsigned blocks_for(int64_t items) {
+  const int64_t need = (items + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(need < 0x7fffffff ? need : 0x7fffffff);
+}
+
+template <typename Tin, typename Tout>
+cudaError_t launch(int variant, const void* rows, void* out, int64_t n_pix,
                    float scale, cudaStream_t stream) {
-  const int threads = 256;
-  dim3 grid(static_cast<unsigned>((w + threads - 1) / threads),
-            static_cast<unsigned>(h), 3);
-  planarize_kernel<Tin, Tout><<<grid, threads, 0, stream>>>(
-      static_cast<const Tin*>(rows), static_cast<Tout*>(out), h, w, scale);
+  const int64_t n_chunks = n_pix / ChunkShape<Tin, Tout>::Q;
+  const uint8_t* bytes = static_cast<const uint8_t*>(rows);
+  Tout* dst = static_cast<Tout*>(out);
+  if (variant == VARIANT_REGS) {
+    planarize_regs<Tin, Tout><<<blocks_for(n_chunks), kThreads, 0, stream>>>(
+        bytes, dst, n_chunks, n_pix, scale);
+  } else if (variant == VARIANT_BULK) {
+    planarize_bulk<Tin, Tout><<<blocks_for(n_chunks), kThreads, 0, stream>>>(
+        bytes, dst, n_chunks, n_pix, scale);
+  } else {
+    const int64_t tiles = (n_pix + kUnroll - 1) / kUnroll;
+    planarize_scalar<Tin, Tout><<<blocks_for(tiles), kThreads, 0, stream>>>(
+        static_cast<const Tin*>(rows), dst, n_pix, scale);
+  }
   return cudaGetLastError();
+}
+
+// The vector path's condition: whole chunks (Q = 16 pixels for a u8 output,
+// 4 for f32) and 16-byte aligned bases.
+bool vector_ok(const void* rows, const void* out, int out_kind,
+               int64_t n_pix) {
+  return reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+         n_pix % (out_kind == KIND_U8 ? 16 : 4) == 0;
 }
 
 }  // namespace
 
+// The variant gs360x_planarize launches for these pointers and sizes: the
+// kept vector variant (1 regs, 2 bulk) or 0, the scalar path.
+extern "C" int gs360x_planarize_auto_variant(const void* rows,
+                                             const void* out, int out_kind,
+                                             int64_t h, int64_t w) {
+  return vector_ok(rows, out, out_kind, h * w) ? kKeptVariant
+                                               : VARIANT_SCALAR;
+}
+
 // in_kind: 0 u8, 1 u16, 2 f32. out_kind: 0 u8 (u8 input only), 2 f32.
-// Returns a cudaError_t (0 = launched).
-extern "C" int gs360x_planarize(const void* rows, int in_kind, void* out,
-                                int out_kind, int64_t h, int64_t w,
-                                float scale, void* stream) {
+// variant: -1 the automatic choice, 0 scalar, 1 regs, 2 bulk (a vector
+// variant the input does not qualify for is refused). Returns a cudaError_t
+// (0 = launched).
+extern "C" int gs360x_planarize_variant(const void* rows, int in_kind,
+                                        void* out, int out_kind, int64_t h,
+                                        int64_t w, float scale, int variant,
+                                        void* stream) {
   if (h <= 0 || w <= 0) return 0;
-  if (h > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_pix = h * w;
+  if (variant == VARIANT_AUTO) {
+    variant = gs360x_planarize_auto_variant(rows, out, out_kind, h, w);
+  }
+  if (variant != VARIANT_SCALAR && variant != VARIANT_REGS &&
+      variant != VARIANT_BULK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (variant != VARIANT_SCALAR && !vector_ok(rows, out, out_kind, n_pix)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_kind == KIND_U8) {
     if (in_kind != KIND_U8) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch<uint8_t, uint8_t>(rows, out, h, w, scale, s));
+    return static_cast<int>(
+        launch<uint8_t, uint8_t>(variant, rows, out, n_pix, scale, s));
   }
   if (out_kind != KIND_F32) return static_cast<int>(cudaErrorInvalidValue);
   switch (in_kind) {
     case KIND_U8:
-      return static_cast<int>(launch<uint8_t, float>(rows, out, h, w, scale, s));
+      return static_cast<int>(
+          launch<uint8_t, float>(variant, rows, out, n_pix, scale, s));
     case KIND_U16:
-      return static_cast<int>(launch<uint16_t, float>(rows, out, h, w, scale, s));
+      return static_cast<int>(
+          launch<uint16_t, float>(variant, rows, out, n_pix, scale, s));
     case KIND_F32:
-      return static_cast<int>(launch<float, float>(rows, out, h, w, scale, s));
+      return static_cast<int>(
+          launch<float, float>(variant, rows, out, n_pix, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+extern "C" int gs360x_planarize(const void* rows, int in_kind, void* out,
+                                int out_kind, int64_t h, int64_t w,
+                                float scale, void* stream) {
+  return gs360x_planarize_variant(rows, in_kind, out, out_kind, h, w, scale,
+                                  VARIANT_AUTO, stream);
 }

@@ -40,6 +40,10 @@ LAUNCHES: Dict[str, int] = {"planarize": 0, "warp": 0}
 PLAIN_CALLS: Dict[str, int] = {"planarize": 0, "warp": 0}
 
 _KIND = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
+# planarize.cu's paths, by their code in the C entry: one thread per pixel;
+# 48-byte chunks loaded by each thread; 48-byte chunks staged in shared
+# memory by a bulk copy
+PLANARIZE_VARIANTS = ("scalar", "regs", "bulk")
 _INTERP = {"bilinear": 0, "bicubic": 1}
 _PROJECTION = {"perspective": 0, "fisheye_v360": 1, "equisolid": 2}
 _SCALE = {torch.uint8: 1.0 / 255.0, torch.uint16: 1.0 / 65535.0,
@@ -85,11 +89,18 @@ def planarize_rows_plain(rows: torch.Tensor, scale: float = 1.0,
 
 
 def planarize_rows(rows: torch.Tensor, scale: float = 1.0,
-                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   out_dtype: Optional[torch.dtype] = None,
+                   variant: str = "auto") -> torch.Tensor:
     """(H, 3·W) interleaved rows → planar (3, H, W), same contract as
     :func:`gs360x.kernels.warp_pallas._planarize_rows` (``out_dtype``
     None means f32). CUDA tensors run ``planarize.cu``; CPU tensors run
-    :func:`planarize_rows_plain`."""
+    :func:`planarize_rows_plain`.
+
+    ``variant`` picks the kernel's path on a CUDA tensor: ``auto`` (what
+    the main path runs: the kept vector variant where the input
+    qualifies, else ``scalar``), or one of :data:`PLANARIZE_VARIANTS`
+    forced, for comparisons; a vector variant the input does not qualify
+    for raises."""
     out_dtype = out_dtype or torch.float32
     if rows.dim() != 2 or rows.shape[1] % 3:
         raise ValueError(f"planarize_rows: expected (H, 3*W) rows, got "
@@ -98,6 +109,9 @@ def planarize_rows(rows: torch.Tensor, scale: float = 1.0,
                                                     torch.float32):
         raise ValueError(f"planarize_rows: unsupported {rows.dtype} -> "
                          f"{out_dtype}")
+    if variant != "auto" and variant not in PLANARIZE_VARIANTS:
+        raise ValueError(f"planarize_rows: variant {variant!r}: expected "
+                         f"auto or one of {', '.join(PLANARIZE_VARIANTS)}")
     if rows.device.type == "cpu":
         PLAIN_CALLS["planarize"] += 1
         return planarize_rows_plain(rows, scale, out_dtype)
@@ -108,14 +122,31 @@ def planarize_rows(rows: torch.Tensor, scale: float = 1.0,
     h, w3 = rows.shape
     out = torch.empty((3, h, w3 // 3), dtype=out_dtype, device=rows.device)
     lib = _build.load()
-    with torch.cuda.device(rows.device):
-        err = lib.gs360x_planarize(
-            ctypes.c_void_p(rows.data_ptr()), _KIND[rows.dtype],
+    args = (ctypes.c_void_p(rows.data_ptr()), _KIND[rows.dtype],
             ctypes.c_void_p(out.data_ptr()), _KIND[out_dtype], h, w3 // 3,
-            float(scale), _stream(rows))
+            float(scale))
+    with torch.cuda.device(rows.device):
+        if variant == "auto":
+            err = lib.gs360x_planarize(*args, _stream(rows))
+        else:
+            err = lib.gs360x_planarize_variant(
+                *args, PLANARIZE_VARIANTS.index(variant), _stream(rows))
     _build.check(err, "planarize")
     LAUNCHES["planarize"] += 1
     return out
+
+
+def planarize_variant(rows: torch.Tensor, out: torch.Tensor) -> str:
+    """The variant ``planarize.cu`` launches for ``rows`` → ``out`` (CUDA
+    tensors) when asked for ``auto``: the kept vector variant when H·W is
+    a multiple of the pixels per chunk (16 for a u8 output, 4 for f32) and
+    both bases are 16-byte aligned, else ``scalar``."""
+    _require_cuda(rows, "planarize_variant")
+    rows = rows.contiguous()
+    code = _build.load().gs360x_planarize_auto_variant(
+        ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        _KIND[out.dtype], rows.shape[0], rows.shape[1] // 3)
+    return PLANARIZE_VARIANTS[code]
 
 
 # --------------------------------------------------------------------------

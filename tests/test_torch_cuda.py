@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain torch versions on the card, at
-small and ragged shapes: planarize, the warp (yaw ring, and the tilted,
+small and ragged shapes: planarize (every variant and path: aligned,
+ragged, offset views, H past 65535), the warp (yaw ring, and the tilted,
 pole and fisheye geometry of the ``tests/test_warp_pallas.py`` parity
 cases of ``_warp_kernel``, ``_warp_kernel_wide3``, ``_warp_kernel_wide2``,
 ``_warp_kernel_wide`` and ``_warp_kernel_yaw``), and the remap
@@ -51,17 +52,62 @@ def _pano(dtype, h, w, dev):
     return torch.from_numpy(img.astype(dtype).reshape(h, 3 * w)).to(dev)
 
 
+# (id, H, W, storage offset in elements, takes the vector path): H·W a
+# multiple of the pixels per chunk (16 for a u8 output, 4 for f32) on an
+# aligned base goes vector; an odd H·W or an offset view goes scalar.
+# W < 4 still goes vector (chunks span rows), and H = 65537 is past the
+# 65535 rows a y grid dimension could hold.
+PLANARIZE_SHAPES = [
+    ("vector_64x768", 64, 768, 0, True),
+    ("scalar_37x301", 37, 301, 0, False),
+    ("offset_view_64x768", 64, 768, 1, False),
+    ("w_lt_p_16x3", 16, 3, 0, True),
+    ("h65537_x16", 65537, 16, 0, True),
+]
+
+
+def _planarize_cases():
+    for sid, h, w, offset, vector in PLANARIZE_SHAPES:
+        variants = ("auto", *warp_cuda.PLANARIZE_VARIANTS) if vector \
+            else ("auto", "scalar")
+        for variant in variants:
+            yield pytest.param(h, w, offset, vector, variant,
+                               id=f"{sid}-{variant}")
+
+
+def _offset_rows(dtype, h, w, offset, dev):
+    """(H, 3·W) rows of ``dtype``: a contiguous view ``offset`` elements
+    into its storage, so its base is not 16-byte aligned when offset > 0."""
+    flat = _rows(dtype, 1, h * w + 1, dev).reshape(-1)
+    return flat[offset:offset + 3 * h * w].view(h, 3 * w)
+
+
+@pytest.mark.parametrize("h,w,offset,vector,variant", _planarize_cases())
 @pytest.mark.parametrize("dtype,scale,u8_out", [
     (np.uint8, 1.0, True), (np.uint8, 1.0 / 255.0, False),
     (np.uint16, 1.0 / 65535.0, False), (np.float32, 1.0, False)])
-def test_planarize_kernel_bitwise_equals_plain(dev, dtype, scale, u8_out):
-    rows = _rows(dtype, 37, 301, dev)
+def test_planarize_kernel_bitwise_equals_plain(dev, dtype, scale, u8_out, h,
+                                               w, offset, vector, variant):
+    rows = _offset_rows(dtype, h, w, offset, dev)
+    assert rows.is_contiguous() and rows.storage_offset() == offset
     out_dtype = torch.uint8 if u8_out else torch.float32
-    got = warp_cuda.planarize_rows(rows, scale, out_dtype)
+    before = warp_cuda.LAUNCHES["planarize"]
+    got = warp_cuda.planarize_rows(rows, scale, out_dtype, variant=variant)
     ref = warp_cuda.planarize_rows_plain(rows, scale, out_dtype)
     torch.cuda.synchronize()
-    assert got.shape == ref.shape == (3, 37, 301)
+    assert warp_cuda.LAUNCHES["planarize"] == before + 1
+    assert got.shape == ref.shape == (3, h, w)
     assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+    assert (warp_cuda.planarize_variant(rows, got) != "scalar") == vector
+
+
+def test_planarize_vector_variants_refuse_ragged_input(dev):
+    for rows in (_rows(np.uint8, 37, 301, dev),
+                 _offset_rows(np.uint8, 64, 768, 1, dev)):
+        for variant in ("regs", "bulk"):
+            with pytest.raises(RuntimeError, match="planarize"):
+                warp_cuda.planarize_rows(rows, 1.0, torch.uint8,
+                                         variant=variant)
 
 
 @pytest.mark.parametrize("interp", ["bicubic", "bilinear"])

@@ -1,8 +1,9 @@
 """The port's planarize (plain version) against the JAX package's
 ``_planarize_rows`` run in interpret mode: bitwise equal, in both Pallas
 variants (MXU one-hot for u8 with H % 128 == 0, lane gathers otherwise),
-for u8 and scaled-f32 outputs. The CUDA kernel is held to the same plain
-version on the card by ``chip_smoke.py``."""
+for u8 and scaled-f32 outputs; and against numpy on an offset view and a
+single row. The CUDA kernel is held to the same plain version on the card
+by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +51,36 @@ def test_plain_planarize_bitwise_equals_pallas(dtype, h, scale, u8_out):
     assert np.array_equal(got.view(np.uint8), ref.view(np.uint8))
 
 
+PAIRS = [
+    # (id, source dtype, scale, u8 output)
+    ("u8_u8out", np.uint8, 1.0, True),
+    ("u8_f32out", np.uint8, 1.0 / 255.0, False),
+    ("u16_f32out", np.uint16, 1.0 / 65535.0, False),
+    ("f32_f32out", np.float32, 1.0, False),
+]
+
+
+@pytest.mark.parametrize("h,w,offset", [(5, 37, 1), (1, 301, 0)],
+                         ids=["offset_view", "one_row"])
+@pytest.mark.parametrize("dtype,scale,u8_out", [p[1:] for p in PAIRS],
+                         ids=[p[0] for p in PAIRS])
+def test_plain_planarize_offset_view_and_one_row_equal_numpy(
+        dtype, scale, u8_out, h, w, offset):
+    # the contract planarize.cu's scalar path is held to on the card: a
+    # view whose base is not 16-byte aligned, and a single row
+    flat = _rows(dtype, 3).reshape(-1)[:3 * h * w + offset]
+    rows = torch.from_numpy(flat)[offset:].view(h, 3 * w)
+    assert rows.storage_offset() == offset
+    want = flat[offset:].reshape(h, w, 3).transpose(2, 0, 1)
+    if not u8_out:
+        want = want.astype(np.float32) * np.float32(scale)
+    got = warp_cuda.planarize_rows(
+        rows, scale, torch.uint8 if u8_out else torch.float32).numpy()
+    assert got.shape == (3, h, w) and got.dtype == want.dtype
+    assert np.array_equal(got.view(np.uint8),
+                          np.ascontiguousarray(want).view(np.uint8))
+
+
 def test_wrapper_runs_plain_version_on_cpu_tensors():
     warp_cuda.reset_counters()
     rows = torch.from_numpy(_rows(np.uint8, 16))
@@ -66,3 +97,6 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         warp_cuda.planarize_rows(torch.zeros(4, 12, dtype=torch.float32),
                                  1.0, torch.uint8)
+    with pytest.raises(ValueError, match="variant"):
+        warp_cuda.planarize_rows(torch.zeros(4, 12, dtype=torch.uint8),
+                                 1.0, torch.uint8, variant="fast")
