@@ -19,7 +19,13 @@ it went through the kernels only and that its pixels are right:
   ``default``, ``fisheyelike`` and ``fisheyeXY`` presets (PNG);
 * ``gs360x-torch-dualfisheye`` on 2 synthetic 3840² pairs with the
   generated default calibration, undistorted fisheyes, the 10 SFM10
-  views and one mask pair (PNG).
+  views and one mask pair (PNG), then once more through a 33³ ``.cube``
+  LUT decode with sRGB output;
+* ``gs360x-torch-video2frames`` on a 4-frame 8K 4:2:0 Y4M (PNG at 2 fps),
+  then ``--fisheye-perspective`` on a 3840² lens Y4M;
+* ``gs360x-torch-frameselector`` on 10 8K frames of graded sharpness with
+  optical flow (Lucas–Kanade, then Farneback), and in pair mode on 4
+  3840² ``_X``/``_Y`` pairs.
 
 Phases print one line each; any failure raises and the exit code is not
 0. Without CUDA, or without the rest of the checkout, it exits non-zero
@@ -38,16 +44,26 @@ import sys
 import tempfile
 import time
 
+import concurrent.futures as cf
+import csv
+import io
+from contextlib import redirect_stdout
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from PIL import Image
 
 from gs360x_torch.core import camera as cam
-from gs360x_torch.kernels import _build, remap_cuda, warp_cuda
+from gs360x_torch.core import color as colorlib
+from gs360x_torch.kernels import _build, flow as flowk, remap_cuda
+from gs360x_torch.kernels import sharpness as sharp
 from gs360x_torch.kernels import warp as twin
+from gs360x_torch.kernels import warp_cuda
 from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
 from gs360x_torch.runtime.executor import _view_groups
-from gs360x_torch.tools import dualfisheye, perspcut
+from gs360x_torch.tools import (dualfisheye, frameselector, perspcut,
+                                video2frames)
 
 SRC_H, SRC_W = 3840, 7680                 # 8K equirect frame
 RING = [float(45 * k) for k in range(8)]  # yaw ring, 180 = the seam view
@@ -87,6 +103,13 @@ PLANARIZE_PAIRS = [("u8->u8", torch.uint8, 1.0, torch.uint8),
                    ("u16->f32", torch.uint16, 1.0 / 65535.0, torch.float32),
                    ("f32->f32", torch.float32, 1.0, torch.float32)]
 HBM_TBS = 3.35   # published H100 SXM device-memory bandwidth, TB/s
+V2F_FRAMES, V2F_FPS, V2F_RATE = 4, 4.0, 2.0   # 1 s of video, -f 2: 2 frames
+FS_FRAMES, FS_SEGMENT = 10, 5    # frameselector: 2 segments of 5 8K frames
+FS_SHARP = (2, 7)                # the one sharp frame of each segment
+FS_PAIRS, FS_PAIR_SHARP = 4, 1   # pair mode: 4 3840² pairs, pair 1 sharp
+LUT_SIZE = 33
+# score_frame on the card against the same code on the CPU
+SCORE_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -675,6 +698,389 @@ def phase_dualfisheye(dev, tmp, remap: dict) -> dict:
         f" wall {wall_s:.3f}s (set-up {setup_s:.2f}s) | launches {launches}"
         f" plain {plain} | pair 1 vs plain remap on the card: max {worst} "
         f"LSB, masks equal")
+    return {"launches": launches, "wall_s": wall_s, "in_dir": in_dir,
+            "mask_dir": mask_dir, "out_dir": out_dir, "images": images}
+
+
+def write_y4m_420(path: pathlib.Path, frames, fps: float) -> None:
+    """(H, W, 3) u8 frames on the card → a YUV4MPEG2 C420jpeg file:
+    BT.601 limited-range YUV, chroma averaged over 2×2 blocks."""
+    h, w = frames[0].shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F{int(fps)}:1 Ip A1:1 C420jpeg\n"
+                .encode("ascii"))
+        for frame in frames:
+            rgb = frame.to(torch.float32)
+            r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+            y = 0.299 * r + 0.587 * g + 0.114 * b
+            u = (b - y) / 1.772 * (224.0 / 255.0) + 128.0
+            v = (r - y) / 1.402 * (224.0 / 255.0) + 128.0
+            y = y * (219.0 / 255.0) + 16.0
+            planes = [y] + [F.avg_pool2d(c[None, None], 2)[0, 0]
+                            for c in (u, v)]
+            f.write(b"FRAME\n")
+            for plane in planes:
+                f.write(torch.round(plane).clamp(0, 255).to(torch.uint8)
+                        .cpu().numpy().tobytes())
+
+
+def _lsb_check(got: np.ndarray, ref: torch.Tensor, label: str) -> tuple:
+    """Output file pixels (H, W, 3) against a quantized (3, H, W) plain
+    reference: (max LSB, share of pixels > 0 LSB apart); fails past 1 LSB
+    or past ``LSB_SHARE_TOL`` of pixels."""
+    diff = (torch.from_numpy(got.astype(np.int32)).to(ref.device)
+            - ref.permute(1, 2, 0)).abs()
+    worst = int(diff.max())
+    share = float((diff > 0).any(dim=-1).float().mean())
+    if worst > 1 or share > LSB_SHARE_TOL:
+        raise AssertionError(f"{label}: {worst} LSB from the plain path, "
+                             f"{share:.4%} of pixels differ")
+    return worst, share
+
+
+def phase_video2frames(dev, tmp) -> dict:
+    """gs360x-torch-video2frames on an 8K 4:2:0 Y4M, then with
+    --fisheye-perspective on a 3840² lens Y4M: launches, and the files
+    against the plain versions on the card."""
+    t0 = time.perf_counter()
+    clips = {"8K": tmp / "pano8k.y4m", "fisheye": tmp / "lens.y4m"}
+    write_y4m_420(clips["8K"], [lonlat_frame(SRC_H, SRC_W, 0.3 * k, dev)
+                                for k in range(V2F_FRAMES)], V2F_FPS)
+    write_y4m_420(clips["fisheye"], [fisheye_frame(FISH, 20 + k, dev)
+                                     for k in range(V2F_FRAMES)], V2F_FPS)
+    setup_s = time.perf_counter() - t0
+    hfov = cam.hfov_from_focal_mm(8.0, 36.0)     # the tool's defaults
+    cut = video2frames.FisheyeCut(FISH, hfov, 190.0, "equisolid", dev)
+    out = {}
+    for label, clip in clips.items():
+        out_dir = tmp / f"v2f_{label}"
+        args = ["-i", str(clip), "-o", str(out_dir), "-f", str(V2F_RATE),
+                "-e", "png", "--device", dev.type, "--stats"]
+        if label == "fisheye":
+            args.append("--fisheye-perspective")
+        warp_cuda.reset_counters()
+        remap_cuda.reset_counters()
+        t0 = time.perf_counter()
+        rc = video2frames.main(args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES}
+        plain = {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS}
+        if rc != 0:
+            raise AssertionError(f"video2frames {label} exited {rc}")
+        n = int(V2F_FRAMES / V2F_FPS * V2F_RATE)
+        want = {"planarize": n, "warp": 0,
+                "remap": n if label == "fisheye" else 0}
+        if launches != want:
+            raise AssertionError(f"video2frames {label}: launches "
+                                 f"{launches}, expected {want}")
+        if any(plain.values()):
+            raise AssertionError(f"video2frames {label}: plain versions "
+                                 f"ran on the main path: {plain}")
+        names = sorted(p.name for p in out_dir.iterdir())
+        if names != [f"out_{i:07d}.png" for i in range(n)]:
+            raise AssertionError(f"video2frames {label}: outputs {names}")
+        # every file against the plain versions on the card
+        worst, share = 0, 0.0
+        for idx, _t, rgb in video2frames.decoded_frames(clip, fps=V2F_RATE):
+            rows = torch.from_numpy(rgb.reshape(rgb.shape[0], -1)).to(dev)
+            ref = colorlib.video_color_move_planar(
+                warp_cuda.planarize_rows_plain(rows, 1.0 / 255.0,
+                                               torch.float32))
+            if label == "fisheye":
+                prep = cut.prepared(FISH, FISH)
+                ref = remap_cuda.remap_planes_plain(
+                    ref, prep.map_x, prep.map_y, prep.valid,
+                    interp="bicubic", fill=0.0)[0]
+            lsb = _lsb_check(read_png(out_dir / f"out_{idx:07d}.png"),
+                             quantize(ref), f"video2frames {label} {idx}")
+            worst, share = max(worst, lsb[0]), max(share, lsb[1])
+        out[label] = {"launches": launches, "wall_s": wall_s}
+        log(f"[video2frames] {label} ({clip.name}, {V2F_FRAMES} frames at "
+            f"{V2F_FPS:g} fps, -f {V2F_RATE:g}): {n} PNGs, wall "
+            f"{wall_s:.3f}s | launches {launches} plain {plain} | vs plain "
+            f"versions on the card: max {worst} LSB, {share:.5%} of pixels "
+            f"differ")
+    planes = warp_cuda.planarize_rows(
+        lonlat_frame(SRC_H, SRC_W, 0.0, dev).reshape(SRC_H, -1),
+        1.0 / 255.0, torch.float32)
+    move_ms = cuda_ms(lambda: colorlib.video_color_move_planar(planes))
+    lens = warp_cuda.planarize_rows(fisheye_frame(FISH, 3, dev)
+                                    .reshape(FISH, -1), 1.0 / 255.0,
+                                    torch.float32)
+    prep = cut.prepared(FISH, FISH)
+    got = prep(lens, interp="bicubic", fill=0.0)
+    ref = remap_cuda.remap_planes_plain(lens, prep.map_x, prep.map_y,
+                                        prep.valid, interp="bicubic",
+                                        fill=0.0)[0]
+    err = float((got - ref).abs().max())
+    if err > REMAP_F32_TOL:
+        raise AssertionError(f"fisheye remap: f32 diff {err}")
+    remap_ms = cuda_ms(lambda: prep(lens, interp="bicubic", fill=0.0))
+    plain_ms = cuda_ms(lambda: remap_cuda.remap_planes_plain(
+        lens, prep.map_x, prep.map_y, prep.valid, interp="bicubic",
+        fill=0.0))
+    log(f"[video2frames] 8K colour move (Rec.709 -> SMPTE-170M + sRGB, f32 "
+        f"planes) {move_ms:.4f} ms | fisheye -> perspective {FISH}² "
+        f"bicubic: max|diff| f32 {err:.3e}, kernel {remap_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms | set-up (Y4M writes) {setup_s:.2f}s")
+    return out
+
+
+def texture_frame(h: int, w: int, shift: int, dev) -> torch.Tensor:
+    """(3, H, W) f32 in [0, 1]: structure from 4 px to 400 px, so that a
+    box blur lowers every sharpness metric and the flow's ≤320 px grays
+    still hold corners; shifted ``shift`` px to the right."""
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                            torch.arange(w, device=dev, dtype=torch.float32)
+                            - shift, indexing="ij")
+    fine = torch.sin(xs / 1.3) * torch.cos(ys / 1.7)
+    coarse = torch.sin(xs / 400.0) * torch.cos(ys / 300.0) \
+        + 0.5 * torch.sin((xs + ys) / 250.0)
+    img = torch.stack([0.5 + 0.15 * fine + 0.2 * coarse,
+                       0.5 + 0.15 * fine * torch.sin(ys / 90.0)
+                       + 0.2 * coarse,
+                       0.5 - 0.2 * coarse + 0.1 * fine])
+    return img.clamp(0.0, 1.0)
+
+
+def _write_graded(pool, path: pathlib.Path, img: torch.Tensor, radius: int):
+    """A box blur of ``radius`` (0: sharp) on the card, then a PNG written
+    by ``pool``."""
+    if radius:
+        img = F.avg_pool2d(img[None], 2 * radius + 1, stride=1,
+                           padding=radius, count_include_pad=False)[0]
+    u8 = torch.round(img * 255.0).to(torch.uint8).permute(1, 2, 0)
+    pixels = u8.contiguous().cpu().numpy()
+    return pool.submit(lambda: Image.fromarray(pixels).save(
+        path, compress_level=1))
+
+
+def _run_frameselector(args, label: str, want_planarize: int) -> tuple:
+    warp_cuda.reset_counters()
+    remap_cuda.reset_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = frameselector.main(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES}
+    plain = {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS}
+    if rc != 0:
+        raise AssertionError(f"frameselector {label} exited {rc}: "
+                             f"{buf.getvalue()[-2000:]}")
+    want = {"planarize": want_planarize, "warp": 0, "remap": 0}
+    if launches != want:
+        raise AssertionError(f"frameselector {label}: launches {launches}, "
+                             f"expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"frameselector {label}: plain versions ran "
+                             f"on the main path: {plain}")
+    stats = [line for line in buf.getvalue().splitlines()
+             if line.startswith("[STATS]")]
+    return launches, wall_s, stats[-1] if stats else ""
+
+
+def _kept(csv_path: pathlib.Path, column: str = "filename") -> list:
+    with open(csv_path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    flows = [float(r["flow_motion"]) for r in rows]
+    if not all(math.isfinite(x) for x in flows):
+        raise AssertionError(f"{csv_path.name}: non-finite flow {flows}")
+    return [r[column] for r in rows if r["selected(1=keep)"] == "1"], flows
+
+
+def phase_frameselector(dev, tmp) -> dict:
+    """gs360x-torch-frameselector on 10 8K frames (one sharp frame per
+    segment of 5, the rest box-blurred with growing radius, the scene
+    panning 48 px a frame) with Lucas–Kanade flow, then Farneback, then
+    pair mode on 4 3840² pairs; score_frame on the card against the CPU;
+    device times of the scoring and the flows."""
+    frames_dir, pairs_dir = tmp / "fs_frames", tmp / "fs_pairs"
+    frames_dir.mkdir()
+    pairs_dir.mkdir()
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        writes = []
+        for k in range(FS_FRAMES):
+            radius = 0 if k in FS_SHARP else 1 + k % FS_SEGMENT
+            writes.append(_write_graded(
+                pool, frames_dir / f"frame_{k:04d}.png",
+                texture_frame(SRC_H, SRC_W, 48 * k, dev), radius))
+        for k in range(FS_PAIRS):
+            for lens in "XY":
+                writes.append(_write_graded(
+                    pool, pairs_dir / f"pair_{k:04d}_{lens}.png",
+                    texture_frame(FISH, FISH, 16 * k + (lens == "Y") * 7,
+                                  dev), 0 if k == FS_PAIR_SHARP else 1 + k))
+        for write in writes:
+            write.result()
+    setup_s = time.perf_counter() - t0
+    runs, lines = {}, []
+    for method in ("lucas_kanade", "farneback"):
+        csv_path = tmp / f"fs_{method}.csv"
+        launches, wall_s, stats = _run_frameselector(
+            ["-i", str(frames_dir), "-n", str(FS_SEGMENT),
+             "--compute_optical_flow", "--flow_method", method, "-d", "-c",
+             str(csv_path), "--device", dev.type, "--stats"], method,
+            FS_FRAMES)
+        kept, flows = _kept(csv_path)
+        want = {f"frame_{k:04d}.png" for k in FS_SHARP}
+        if not want <= set(kept):
+            raise AssertionError(f"frameselector {method}: kept {kept}, "
+                                 f"the sharp frames are {sorted(want)}")
+        runs[method] = {"launches": launches, "wall_s": wall_s}
+        lines.append(f"{method}: kept {kept}, flow {min(flows):.3f}.."
+                     f"{max(flows):.3f} px, wall {wall_s:.3f}s, {stats}")
+    csv_path = tmp / "fs_pairs.csv"
+    launches, wall_s, stats = _run_frameselector(
+        ["-i", str(pairs_dir), "-n", str(FS_PAIRS), "-d", "-c",
+         str(csv_path), "--device", dev.type, "--stats"], "pairs",
+        2 * FS_PAIRS)
+    kept, _flows = _kept(csv_path)
+    if kept != [f"pair_{FS_PAIR_SHARP:04d}"]:
+        raise AssertionError(f"frameselector pairs: kept {kept}")
+    runs["pairs"] = {"launches": launches, "wall_s": wall_s}
+    lines.append(f"pairs: kept {kept}, wall {wall_s:.3f}s, {stats}")
+    for line in lines:
+        log(f"[frameselector] {line}")
+
+    # score_frame of 2 frames on the card against the CPU, and its times
+    worst = 0.0
+    for k in FS_SHARP[0], FS_SHARP[0] + 1:
+        img = read_png(frames_dir / f"frame_{k:04d}.png")
+        gray = frameselector.device_gray(img, dev)
+        ys, xs = sharp.crop_by_ratio(tuple(gray.shape),
+                                     frameselector.DEFAULT_CROP_RATIO)
+        gray = gray[ys, xs].contiguous()
+        got = torch.stack(sharp.score_frame(gray, None, metric="hybrid",
+                                            use_mask=False)).cpu()
+        ref = torch.stack(sharp.score_frame(gray.cpu(), None,
+                                            metric="hybrid", use_mask=False))
+        rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-12)).max())
+        worst = max(worst, rel)
+        if not torch.allclose(got, ref, rtol=SCORE_RTOL, atol=1e-6):
+            raise AssertionError(f"score_frame frame {k}: card {got.tolist()}"
+                                 f" vs CPU {ref.tolist()}")
+    parts = {
+        "score_frame hybrid": lambda: sharp.score_frame(
+            gray, None, metric="hybrid", use_mask=False),
+        "lapvar": lambda: sharp.laplacian_variance(gray),
+        "tenengrad": lambda: sharp.tenengrad(gray),
+        "fft": lambda: sharp.fft_energy(gray),
+    }
+    ms = {name: cuda_ms(fn, reps=5, batches=3) for name, fn in parts.items()}
+    small = []
+    for k in (0, 1):
+        g = frameselector._load_gray(frames_dir / f"frame_{k:04d}.png")
+        g = sharp.downscale_max_long(g, frameselector.FLOW_DOWNSCALE)
+        ys, xs = sharp.crop_by_ratio(g.shape, frameselector.FLOW_CROP_RATIO)
+        small.append(torch.from_numpy(np.ascontiguousarray(g[ys, xs]))
+                     .to(dev))
+    lk_ms = launch_ms(lambda: flowk.mean_flow_magnitude(*small), reps=5)
+    fb_ms = launch_ms(lambda: flowk.mean_flow_magnitude_farneback(*small),
+                      reps=5)
+    log(f"[frameselector] score_frame on the card vs CPU ({gray.shape[1]}x"
+        f"{gray.shape[0]} crop of 8K, 2 frames): max rel diff {worst:.3e} | "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f" | per pair ({small[0].shape[1]}x{small[0].shape[0]} grays): LK "
+        f"{lk_ms:.4f} ms, Farneback {fb_ms:.4f} ms | set-up (PNG writes) "
+        f"{setup_s:.2f}s")
+    return runs
+
+
+def write_cube(path: pathlib.Path, n: int, seed: int) -> None:
+    """A .cube file of a seeded smooth colour function (red fastest)."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.6, 1.4, 3)
+    g = np.linspace(0.0, 1.0, n)
+    b, gg, r = np.meshgrid(g, g, g, indexing="ij")   # file order
+    table = np.stack([r ** a[0] * (0.9 + 0.1 * gg),
+                      gg ** a[1] * (0.85 + 0.15 * b),
+                      b ** a[2] * (0.8 + 0.2 * r)], -1).reshape(-1, 3)
+    lines = [f'TITLE "chip smoke {seed}"', f"LUT_3D_SIZE {n}"]
+    lines += [f"{x:.6f} {y:.6f} {z:.6f}" for x, y, z in table]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def phase_dualfisheye_lut(dev, tmp, remap: dict, dfe: dict) -> dict:
+    """The dualfisheye phase's pairs once more through a 33³ .cube with
+    sRGB output: launches, and pair 1 against the plain path on the
+    card."""
+    cube = tmp / "decode.cube"
+    write_cube(cube, LUT_SIZE, 5)
+    out_dir = tmp / "dfe_lut"
+    warp_cuda.reset_counters()
+    remap_cuda.reset_counters()
+    t0 = time.perf_counter()
+    rc = dualfisheye.main([
+        "--input-dir", str(dfe["in_dir"]), "--output-dir", str(out_dir),
+        "--save-fisheye-output", "--perspective-ext", ".png",
+        "--mask-input-dir", str(dfe["mask_dir"]), "--input-lut", str(cube),
+        "--lut-output-color-space", "srgb", "--report-json",
+        str(tmp / "report_lut.json"), "--device", dev.type, "--stats"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES}
+    plain = {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS}
+    report = json.loads((tmp / "report_lut.json").read_text())
+    if rc != 0 or report["failed"] != 0 or report["processed"] != 2:
+        raise AssertionError(f"dualfisheye --input-lut exited {rc}, "
+                             f"report {report}")
+    want = {"planarize": 4, "warp": 0, "remap": 10}
+    if launches != want:
+        raise AssertionError(f"dualfisheye --input-lut launches {launches}, "
+                             f"expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the main path: {plain}")
+
+    lut = colorlib.load_cube_lut(cube)
+    table = colorlib.lut_table(lut, dev)
+
+    def plain_planes(img):
+        rows = torch.from_numpy(img.reshape(img.shape[0], -1)).to(dev)
+        planes = warp_cuda.planarize_rows_plain(rows, 1.0 / 255.0,
+                                                torch.float32)
+        return colorlib.rec709_to_srgb(
+            colorlib.apply_cube_lut_planar(planes, lut, table))
+
+    def plain_remap(planes, mx, my, valid, interp):
+        return quantize(remap_cuda.remap_planes_plain(
+            planes, torch.as_tensor(mx, device=dev)[None],
+            torch.as_tensor(my, device=dev)[None],
+            torch.as_tensor(valid, device=dev)[None], interp=interp,
+            fill=0.0)[0])
+
+    planes = {lens: plain_planes(dfe["images"][f"osmo_0001_{lens}.png"])
+              for lens in "XY"}
+    cache = remap["cache"]
+    worst, share = 0, 0.0
+    checks = [(f"osmo_0001_{lens}.png", planes[lens],
+               (cache.map_x, cache.map_y, cache.valid)) for lens in "XY"]
+    for spec in remap["specs"]:
+        m = remap["views"][spec["view_id"]]
+        checks.append((f"perspective/images/osmo_0001_{spec['view_id']}.png",
+                       planes[m["lens_key"]],
+                       (m["map_x"], m["map_y"], m["valid"])))
+    for name, src, maps in checks:
+        lsb = _lsb_check(read_png(out_dir / name),
+                         plain_remap(src, *maps, "catmull-rom"),
+                         f"dualfisheye --input-lut {name}")
+        worst, share = max(worst, lsb[0]), max(share, lsb[1])
+    masks_equal = all(
+        np.array_equal(read_png(out_dir / "perspective" / "masks" / p.name),
+                       read_png(p))
+        for p in (dfe["out_dir"] / "perspective" / "masks").iterdir())
+    if not masks_equal:
+        raise AssertionError("dualfisheye --input-lut: masks differ from "
+                             "the run without a LUT")
+    lut_ms = cuda_ms(lambda: colorlib.apply_cube_lut_planar(
+        planes["X"], lut, table))
+    log(f"[dualfisheye-lut] 2 pairs {FISH}² through a {LUT_SIZE}³ .cube + "
+        f"sRGB: wall {wall_s:.3f}s | launches {launches} plain {plain} | "
+        f"pair 1 vs plain path on the card: max {worst} LSB, {share:.5%} of "
+        f"pixels differ, masks equal | LUT apply {FISH}² {lut_ms:.4f} ms")
     return {"launches": launches, "wall_s": wall_s}
 
 
@@ -711,10 +1117,14 @@ def main() -> int:
                                         "fisheyeXY"),
         }
         dfe = phase_dualfisheye(dev, tmp, remap)
+        dfe_lut = phase_dualfisheye_lut(dev, tmp, remap, dfe)
+        v2f = phase_video2frames(dev, tmp)
+        fsel = phase_frameselector(dev, tmp)
 
     def total(kernel: str) -> int:
         return sum(r["launches"].get(kernel, 0)
-                   for r in [*runs.values(), dfe])
+                   for r in [*runs.values(), dfe, dfe_lut, *v2f.values(),
+                             *fsel.values()])
 
     checks = remap["checks"]
 

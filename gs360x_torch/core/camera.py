@@ -143,3 +143,28 @@ def equirect_uv(rays: torch.Tensor, width: int, height: int
     u = (phi / math.pi + 1.0) * (width / 2.0) - 0.5
     v = (theta / (math.pi / 2.0) + 1.0) * (height / 2.0) - 0.5
     return u, v
+
+
+def fisheye_uv(rays: torch.Tensor, width: int, height: int, dfov_deg: float,
+               *, model: str = "equidistant"
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Map unit rays to circular-fisheye pixel coords (``equidistant``:
+    r = θ / half-FOV; ``equisolid``: r = sin(θ/2) / sin(half-FOV/2)).
+    Returns (u, v, valid): valid inside the image circle and the FOV."""
+    x, y, z = rays[..., 0], rays[..., 1], rays[..., 2]
+    theta = torch.acos(torch.clamp(z, -1.0, 1.0))
+    half_fov = math.radians(dfov_deg) / 2.0
+    if model == "equidistant":
+        r = theta / half_fov
+    elif model == "equisolid":
+        r = torch.sin(theta / 2.0) / math.sin(half_fov / 2.0)
+    else:
+        raise ValueError(f"unknown fisheye model: {model!r}")
+    h = torch.sqrt(x * x + y * y)
+    safe_h = torch.where(h > 1e-12, h, torch.ones_like(h))
+    nx = r * x / safe_h
+    ny = r * y / safe_h
+    valid = (r <= 1.0) & (theta <= half_fov)
+    u = (nx + 1.0) * (width / 2.0) - 0.5
+    v = (ny + 1.0) * (height / 2.0) - 0.5
+    return u, v, valid

@@ -327,3 +327,33 @@ def warp_equirect_to_views(src: torch.Tensor, yaws, pitches, rolls, *,
         as_f32(rolls).reshape(-1), src_w, src_h, device=dev)
     return remap(src, u, v, interp=interp, wrap_x=True, pole_reflect=True,
                  valid=valid)
+
+
+# --------------------------------------------------------------------------
+# Single-lens fisheye → perspective (Video2Frames)
+# --------------------------------------------------------------------------
+
+
+def fisheye_perspective_maps(size: int, hfov_deg: float, dfov_deg: float,
+                             model: str, src_w: int, src_h: int,
+                             device: Optional[torch.device] = None):
+    """Source maps of :func:`warp_fisheye_to_perspective`: (u, v, valid),
+    each (size, size), for a circular-fisheye source of ``src_w``×``src_h``
+    whose optical axis the square perspective view shares. Built once per
+    geometry and handed to ``remap_cuda.PreparedRemap`` on the card; the
+    rim (``valid``) is computed here and nowhere else."""
+    vfov = cam.vfov_from_hfov(hfov_deg, size, size)
+    rays = cam.perspective_rays(size, size, hfov_deg, vfov, device=device)
+    return cam.fisheye_uv(rays, src_w, src_h, dfov_deg, model=model)
+
+
+def warp_fisheye_to_perspective(src: torch.Tensor, size: int,
+                                hfov_deg: float, dfov_deg: float, *,
+                                model: str = "equisolid",
+                                interp: str = "bicubic") -> torch.Tensor:
+    """Single-lens fisheye → perspective transform, the plain version:
+    (H, W, C) float source → (size, size, C), 0 outside the lens."""
+    u, v, valid = fisheye_perspective_maps(size, hfov_deg, dfov_deg, model,
+                                           src.shape[1], src.shape[0],
+                                           device=src.device)
+    return remap(src, u, v, interp=interp, wrap_x=False, valid=valid)

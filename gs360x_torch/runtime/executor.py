@@ -129,6 +129,17 @@ def _quantize_device(arr: torch.Tensor, bit_depth: int) -> torch.Tensor:
     return torch.round(torch.clamp(arr, 0.0, 1.0) * scale).to(dt)
 
 
+def upload_rows(frame: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A decoded (H, W, 3) host frame on ``device`` as (H, W·3) rows in its
+    own dtype: one host→device copy of the frame's bytes."""
+    h, w = frame.shape[:2]
+    with warnings.catch_warnings():
+        # decoders hand out read-only arrays; nothing here writes to them
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(
+            np.ascontiguousarray(frame).reshape(h, w * 3)).to(device)
+
+
 def _view_groups(views) -> Dict[tuple, List[int]]:
     """Views that share one warp launch: same projection, size and FOV.
     Maps ``(projection, w, h, hfov, vfov)`` to view indices."""
@@ -160,12 +171,7 @@ def _warp_frame_views(frame: np.ndarray, views, *, interp: str,
     outputs.
     """
     results: List = [None] * len(views)
-    h, w = frame.shape[:2]
-    with warnings.catch_warnings():
-        # decoders hand out read-only arrays; nothing here writes to them
-        warnings.filterwarnings("ignore", message=".*not writable.*")
-        rows = torch.from_numpy(
-            np.ascontiguousarray(frame).reshape(h, w * 3)).to(device)
+    rows = upload_rows(frame, device)
 
     warp = (warp_cuda.warp_equirect_to_views_plain if backend == "xla"
             else warp_cuda.warp_equirect_to_views_cuda)

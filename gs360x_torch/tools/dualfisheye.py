@@ -16,10 +16,16 @@ uploaded once and kept resident; masks co-warp through the same maps with
 ``nearest``; outputs are quantized on the device (``rint(clip·255)``) and
 fetched once per launch. ``--device cpu`` runs the plain versions.
 
-Not ported yet, and refused with exit code 2: ``--input-lut`` /
-``--input-color-profile osmo360-dlogm`` (the ``.cube`` decode, ROADMAP
-A.8) and ``--camera-extrinsics-xml`` / ``--metadata-only`` (the
-perspective Metashape XML + COLMAP export, ROADMAP A.7).
+``--input-lut`` (or ``--input-color-profile osmo360-dlogm`` with
+``--dlogm-lut``) decodes each lens image on the device before the remaps:
+planarize to f32 planes (×1/255, or ×1/65535 for 16-bit), the trilinear
+``.cube`` apply (:func:`gs360x_torch.core.color.apply_cube_lut_planar`,
+the table resident on the device), then the Rec.709 → sRGB curve when
+``--lut-output-color-space srgb``.
+
+Not ported yet, and refused with exit code 2: ``--camera-extrinsics-xml``
+/ ``--metadata-only`` (the perspective Metashape XML + COLMAP export,
+ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -44,10 +50,13 @@ from gs360x.io.image import (AsyncImageWriter, from_float01, read_image,
 from gs360x.runtime.profiling import StageTimers
 from gs360x.runtime.throttle import AdaptiveLimiter, MemoryMonitor
 from gs360x.templates import default_osmo360_calibration_path
+from gs360x_torch.core import color as colorlib
 from gs360x_torch.device import DEVICE_CHOICES, resolve_device
-from gs360x_torch.kernels import _build, remap_cuda
+from gs360x_torch.kernels import _build, remap_cuda, warp_cuda
 from gs360x_torch.rig.presets import parse_sensor_dimensions
-from gs360x_torch.runtime.executor import _quantize_device
+from gs360x_torch.runtime.executor import (_quantize_device,
+                                           upload_rows)
+
 
 # The reference accepts exactly {"equisolid_fisheye"} (its shipped Osmo 360
 # template and every real Metashape fisheye export use that type;
@@ -446,6 +455,35 @@ def device_remap(image: np.ndarray, map_x, map_y, valid, *, interp: str,
     return out[..., 0] if image.ndim == 2 else out
 
 
+def prepare_input_planes(img: np.ndarray, input_lut, lut_output_color_space:
+                         str, *, device: torch.device,
+                         table: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """One decoded lens image → planar source of the remaps on ``device``:
+    the port of :func:`gs360x.tools.dualfisheye.prepare_input_image`,
+    which returns the same values as (H, W, 3) floats on the host.
+
+    Without a LUT: :func:`remap_cuda.source_planes` (u8 planes stay bytes).
+    With one: (3, H, W) f32 planes scaled to [0, 1] by ``planarize.cu``,
+    the trilinear LUT (``table``: :func:`colorlib.lut_table` on
+    ``device``), then Rec.709 → sRGB when ``lut_output_color_space`` is
+    ``srgb``."""
+    if input_lut is None:
+        return remap_cuda.source_planes(img, img.shape[0], img.shape[1],
+                                        device)
+    if img.ndim != 3 or img.shape[2] != 3 \
+            or img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"LUT decode: expected an (H, W, 3) u8/u16 image, "
+                         f"got {img.shape} {img.dtype}")
+    scale = 1.0 / 255.0 if img.dtype == np.uint8 else 1.0 / 65535.0
+    planes = warp_cuda.planarize_rows(upload_rows(img, device), scale,
+                                      torch.float32)
+    planes = colorlib.apply_cube_lut_planar(planes, input_lut, table)
+    if lut_output_color_space == "srgb":
+        planes = colorlib.rec709_to_srgb(planes)
+    return planes
+
+
 class _LensViews:
     """The SFM10 views one lens serves, as one resident
     :class:`~gs360x_torch.kernels.remap_cuda.PreparedRemapBatch` per source
@@ -497,8 +535,7 @@ def create_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--suffixes", default="_X,_Y")
     ap.add_argument("--ext", default="jpg,jpeg,png,tif,tiff")
     ap.add_argument("--input-lut", default=None,
-                    help=".cube 3D LUT applied on load (D-Log M decode; not "
-                         "ported yet: refused, ROADMAP A.8)")
+                    help=".cube 3D LUT applied on load (D-Log M decode)")
     ap.add_argument("--lut-output-color-space",
                     choices=("srgb", "rec709", "passthrough"),
                     default="srgb")
@@ -561,10 +598,6 @@ def create_arg_parser() -> argparse.ArgumentParser:
 
 def _deferred_flag_error(args) -> Optional[str]:
     """The flags whose modules are not ported yet, or None."""
-    if args.input_lut or args.input_color_profile == "osmo360-dlogm":
-        return ("--input-lut / --input-color-profile osmo360-dlogm: the "
-                ".cube LUT decode is not ported to the GPU tool yet "
-                "(ROADMAP A.8)")
     if args.metadata_only or args.camera_extrinsics_xml:
         return ("--metadata-only / --camera-extrinsics-xml: the perspective "
                 "Metashape XML + COLMAP export is not ported to the GPU "
@@ -586,6 +619,15 @@ def _main(argv=None) -> int:
     device = resolve_device(args.device)
     interp = {"nearest": "nearest", "linear": "bilinear",
               "cubic": "catmull-rom"}[args.interpolation]
+
+    # legacy profile -> LUT mapping, as the JAX tool does it
+    if args.input_color_profile == "osmo360-dlogm" and not args.input_lut:
+        if not args.dlogm_lut:
+            print("[ERR] --input-color-profile osmo360-dlogm requires "
+                  "--dlogm-lut (the D-Log M .cube is user-supplied)",
+                  file=sys.stderr)
+            return 2
+        args.input_lut = args.dlogm_lut
 
     deferred = _deferred_flag_error(args)
     if deferred:
@@ -645,6 +687,16 @@ def _main(argv=None) -> int:
         return 0
     print(f"[INFO] {len(pairs)} pair(s)")
 
+    input_lut = None
+    if args.input_lut:
+        try:
+            input_lut = colorlib.load_cube_lut(args.input_lut)
+            print(f"[INFO] LUT loaded: {args.input_lut} "
+                  f"(size {input_lut.size})")
+        except (OSError, ValueError) as exc:
+            print(f"[ERR] failed to load LUT: {exc}", file=sys.stderr)
+            return 1
+
     zoom = None if str(args.undistort_zoom).lower() == "auto" \
         else float(args.undistort_zoom)
 
@@ -698,6 +750,9 @@ def _main(argv=None) -> int:
     fill = args.mask_value / 255.0
     report = {"pairs": [], "processed": 0, "failed": 0}
     timers = StageTimers()
+    # the LUT's table goes to the device once per run
+    lut_table = (colorlib.lut_table(input_lut, device)
+                 if input_lut is not None else None)
 
     # the model mask (or all-valid) of every map, fixed for the run, so
     # the device caches key on stable arrays
@@ -767,19 +822,26 @@ def _main(argv=None) -> int:
                  img_x, img_y, mask_x, mask_y) = fut.result()
 
                 outputs = []
-                if args.save_color_corrected_output:
-                    color_dir.mkdir(parents=True, exist_ok=True)
-                    writer.submit(color_dir / xp.name,
-                                  from_float01(to_float01(img_x)))
-                    writer.submit(color_dir / yp.name,
-                                  from_float01(to_float01(img_y)))
-
-                # each lens image goes to the device, planar, once
+                # each lens image goes to the device, planar, once (and
+                # through the LUT decode there, when one is given)
                 with timers.stage("upload"):
                     planes = {
-                        lens: remap_cuda.source_planes(img, img.shape[0],
-                                                       img.shape[1], device)
+                        lens: prepare_input_planes(
+                            img, input_lut, args.lut_output_color_space,
+                            device=device, table=lut_table)
                         for lens, img in (("X", img_x), ("Y", img_y))}
+
+                if args.save_color_corrected_output:
+                    color_dir.mkdir(parents=True, exist_ok=True)
+                    for lens, path, img in (("X", xp, img_x),
+                                            ("Y", yp, img_y)):
+                        if input_lut is None:
+                            writer.submit(color_dir / path.name,
+                                          from_float01(to_float01(img)))
+                        else:
+                            writer.submit(color_dir / path.name,
+                                          _quantize_device(planes[lens], 8)
+                                          .cpu().numpy(), planar=True)
 
                 if args.fisheye_output:
                     for lens, path, sid in (("X", xp, sid_x),

@@ -4,7 +4,11 @@ ragged, offset views, H past 65535), the warp (yaw ring, and the tilted,
 pole and fisheye geometry of the ``tests/test_warp_pallas.py`` parity
 cases of ``_warp_kernel``, ``_warp_kernel_wide3``, ``_warp_kernel_wide2``,
 ``_warp_kernel_wide`` and ``_warp_kernel_yaw``), and the remap
-(``chip_smoke.py`` covers the main paths' full shapes). Marked ``cuda``: each test skips without a card. On a machine
+(``chip_smoke.py`` covers the main paths' full shapes); and the slice's
+new paths on the card against the same code on the CPU (rtol 1e-4): the
+fisheye→perspective maps through ``remap.cu``, the planar ``.cube`` apply,
+the FrameSelector gray (bitwise) and ``score_frame`` for every metric, and
+both optical flows. Marked ``cuda``: each test skips without a card. On a machine
 with one, run (the JAX-side conftest is not needed)::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -16,7 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from gs360x_torch.core import color as colorlib
+from gs360x_torch.kernels import flow as flowk
 from gs360x_torch.kernels import remap_cuda, warp_cuda
+from gs360x_torch.kernels import sharpness as sharp
+from gs360x_torch.kernels import warp as twin
+from gs360x_torch.tools import frameselector, video2frames
+
+CPU = torch.device("cpu")
+RTOL = 1e-4
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +278,114 @@ def test_remap_kernel_matches_plain(dev, interp, dtype, channels):
                                       device=dev)(planes, interp=interp,
                                                   fill=0.3)
     assert torch.equal(single, got[1])
+
+
+@pytest.mark.parametrize("model", ["equidistant", "equisolid"])
+def test_fisheye_perspective_remap_matches_plain(dev, model):
+    # Video2Frames' --fisheye-perspective: maps built on the card, one
+    # remap.cu launch, against the plain version on the CPU over the same
+    # maps; the card's maps against the CPU's at 1e-4 px, the rim's
+    # validity apart only where |r - 1| < 1e-6
+    rng = np.random.default_rng(4)
+    src = rng.random((3, 120, 160), dtype=np.float32)
+    cut = video2frames.FisheyeCut(96, 100.0, 190.0, model, dev)
+    before = remap_cuda.LAUNCHES["remap"]
+    got = cut(torch.from_numpy(src).to(dev))
+    torch.cuda.synchronize()
+    assert remap_cuda.LAUNCHES["remap"] == before + 1
+    prep = cut.prepared(120, 160)
+    maps = [t[0].cpu() for t in (prep.map_x, prep.map_y, prep.valid)]
+    ref = remap_cuda.remap_planes_plain(
+        torch.from_numpy(src), *[m[None] for m in maps], interp="bicubic",
+        fill=0.0)[0]
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=RTOL,
+                               atol=1e-5)
+    u, v, valid = twin.fisheye_perspective_maps(96, 100.0, 190.0, model,
+                                                160, 120)
+    assert float((maps[0] - u).abs().max()) <= 1e-4
+    assert float((maps[1] - v).abs().max()) <= 1e-4
+    assert int((maps[2] != valid).sum()) <= 8
+
+
+def test_video2frames_frame_matches_cpu(dev):
+    rng = np.random.default_rng(5)
+    frame = rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)
+    for keep in (False, True):
+        got = video2frames.frame_to_device(frame, device=dev,
+                                           keep_rec709=keep, fisheye=None,
+                                           bits=8)
+        ref = video2frames.frame_to_device(frame, device=CPU,
+                                           keep_rec709=keep, fisheye=None,
+                                           bits=8)
+        diff = (got.cpu().int() - ref.int()).abs()
+        assert int(diff.max()) <= 1
+        assert float((diff > 0).float().mean()) <= 0.001
+
+
+@pytest.mark.parametrize("n", [2, 17, 33])
+def test_apply_cube_lut_planar_matches_cpu(dev, n):
+    rng = np.random.default_rng(n)
+    table = rng.random((n, n, n, 3), dtype=np.float32)
+    lut = colorlib.CubeLUT(size=n, table=table)
+    planes = rng.uniform(-0.05, 1.05, (3, 57, 91)).astype(np.float32)
+    got = colorlib.apply_cube_lut_planar(
+        torch.from_numpy(planes).to(dev), lut,
+        colorlib.lut_table(lut, dev))
+    ref = colorlib.apply_cube_lut_planar(torch.from_numpy(planes), lut)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=RTOL,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_frameselector_gray_bitwise_matches_cpu(dev, dtype):
+    rng = np.random.default_rng(6)
+    img = rng.integers(0, np.iinfo(dtype).max + 1, (75, 131, 3), dtype=dtype)
+    got = frameselector.device_gray(img, dev)
+    ref = frameselector.device_gray(img, CPU)
+    assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("metric", list(sharp.METRICS))
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_score_frame_matches_cpu(dev, metric, use_mask):
+    rng = np.random.default_rng(7)
+    gray = (rng.random((96, 160)) * 255).astype(np.float32)
+    mask = sharp.circle_mask(96, 160)
+    got = sharp.score_frame(torch.from_numpy(gray).to(dev), mask.to(dev),
+                            metric=metric, use_mask=use_mask)
+    ref = sharp.score_frame(torch.from_numpy(gray), mask, metric=metric,
+                            use_mask=use_mask)
+    for g, r in zip(got, ref):
+        assert float(g) == pytest.approx(float(r), rel=RTOL, abs=1e-6)
+
+
+def _flow_pair(shape, shift, seed):
+    rng = np.random.default_rng(seed)
+    img = rng.random(shape) * 255
+    p = np.pad(img, 2, mode="edge")
+    img = sum(p[i:i + shape[0], j:j + shape[1]]
+              for i in range(5) for j in range(5)) / 25.0
+    img = img.astype(np.float32)
+    return img, np.roll(img, shift, (0, 1))
+
+
+@pytest.mark.parametrize("method", ["lucas_kanade", "farneback"])
+def test_flows_match_cpu(dev, method):
+    prev, curr = _flow_pair((115, 192), (3, 5), 8)
+    fn = (flowk.mean_flow_magnitude if method == "lucas_kanade"
+          else flowk.mean_flow_magnitude_farneback)
+    got = fn(torch.from_numpy(prev).to(dev), torch.from_numpy(curr).to(dev))
+    ref = fn(torch.from_numpy(prev), torch.from_numpy(curr))
+    assert got == pytest.approx(ref, rel=RTOL, abs=1e-4)
+    if method == "farneback":
+        f_dev = flowk.farneback_flow(torch.from_numpy(prev).to(dev),
+                                     torch.from_numpy(curr).to(dev))
+        f_cpu = flowk.farneback_flow(torch.from_numpy(prev),
+                                     torch.from_numpy(curr))
+        np.testing.assert_allclose(f_dev.cpu().numpy(), f_cpu.numpy(),
+                                   rtol=RTOL, atol=1e-3)
+    else:
+        pts, valid = flowk.shi_tomasi_corners(torch.from_numpy(prev).to(dev))
+        ref_pts, ref_valid = flowk.shi_tomasi_corners(torch.from_numpy(prev))
+        assert torch.equal(valid.cpu(), ref_valid)
+        assert torch.equal(pts.cpu()[valid.cpu()], ref_pts[ref_valid])

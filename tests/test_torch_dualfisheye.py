@@ -5,7 +5,10 @@ maps, SFM10 layout, per-view lens choice and maps, pairing), the device
 remap within 1 LSB, and the whole CLI (``--device cpu``, the plain
 versions): the same files, images within 1 LSB, masks equal, the same
 report JSON and exit codes; ``--dry-run``, a missing XML, and the
-deferred LUT / metadata flags refused with exit code 2."""
+deferred metadata flags refused with exit code 2. The ``.cube`` LUT decode
+(``--input-lut`` with each output colour space, ``--input-color-profile
+osmo360-dlogm`` with ``--dlogm-lut``) against the JAX CLI: images within 1
+LSB, masks equal, the same exit codes and messages."""
 
 import dataclasses
 import json
@@ -15,10 +18,13 @@ import pytest
 import torch
 
 from gs360x.io import image as im
+from gs360x.core import color as jcolor
 from gs360x.tools import dualfisheye as jdf
+from gs360x_torch.core import color as tcolor
 from gs360x_torch.kernels import remap_cuda, warp_cuda
 from gs360x_torch.tools import dualfisheye as tdf
 from test_dualfisheye import CALIB_XML, make_calib, synth_fisheye
+from test_torch_color import _smooth_table, write_cube
 
 torch.set_num_threads(1)
 
@@ -205,9 +211,6 @@ def test_missing_xml_and_input_exit_codes(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--input-lut", "x.cube"], "A.8"),
-    (["--input-color-profile", "osmo360-dlogm", "--dlogm-lut", "x.cube"],
-     "A.8"),
     (["--metadata-only", "--camera-extrinsics-xml", "a.xml"], "A.7"),
     (["--camera-extrinsics-xml", "a.xml"], "A.7")])
 def test_deferred_flags_are_refused(calib_xml, tmp_path, capsys, flags,
@@ -217,3 +220,97 @@ def test_deferred_flags_are_refused(calib_xml, tmp_path, capsys, flags,
     assert rc == 2
     err = capsys.readouterr().err
     assert err.startswith("[ERR]") and f"ROADMAP {item}" in err
+
+
+# --- the .cube LUT decode ----------------------------------------------------
+
+@pytest.fixture
+def cube(tmp_path):
+    return write_cube(tmp_path / "dlogm.cube", _smooth_table(9, 4))
+
+
+def _assert_outputs_match(ref_out, got_out):
+    ref_files = sorted(p.relative_to(ref_out) for p in ref_out.rglob("*.png"))
+    got_files = sorted(p.relative_to(got_out) for p in got_out.rglob("*.png"))
+    assert got_files == ref_files and ref_files
+    for rel in ref_files:
+        ref = im.read_image(ref_out / rel).astype(np.int32)
+        got = im.read_image(got_out / rel).astype(np.int32)
+        assert got.shape == ref.shape, rel
+        if rel.parts[:2] == ("perspective", "masks"):
+            assert np.array_equal(got, ref), rel
+        else:
+            assert int(np.abs(got - ref).max()) <= 1, rel
+    return ref_files
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("space", ["srgb", "rec709", "passthrough"])
+def test_prepare_input_planes_match_jax(tmp_path, cube, dtype, space):
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, np.iinfo(dtype).max + 1, (24, 20, 3), dtype=dtype)
+    path = tmp_path / "lens.png"
+    im.write_image(path, img)
+    ref = jdf.prepare_input_image(path, jcolor.load_cube_lut(cube), space)
+    warp_cuda.reset_counters()
+    got = tdf.prepare_input_planes(im.read_image(path),
+                                   tcolor.load_cube_lut(cube), space,
+                                   device=CPU)
+    assert warp_cuda.PLAIN_CALLS["planarize"] == 1
+    assert got.dtype == torch.float32 and got.shape == (3, 24, 20)
+    np.testing.assert_allclose(got.permute(1, 2, 0).numpy(), ref, rtol=0,
+                               atol=1e-6)
+    # without a LUT: the source planes of the remaps, as before
+    plain = tdf.prepare_input_planes(im.read_image(path), None, space,
+                                     device=CPU)
+    np.testing.assert_allclose(
+        im.to_float01(plain.permute(1, 2, 0).numpy()),
+        jdf.prepare_input_image(path, None, space), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--lut-output-color-space", "srgb"],
+    ["--lut-output-color-space", "passthrough",
+     "--save-color-corrected-output"],
+    ["--input-color-profile", "osmo360-dlogm", "--dlogm-lut", "{cube}"]])
+def test_lut_cli_matches_jax(calib_xml, tmp_path, cube, flags):
+    in_dir, mask_dir = _pair_dir(tmp_path, calib_xml, masks=True)
+    flags = [f.replace("{cube}", str(cube)) for f in flags]
+    if "--dlogm-lut" not in flags:
+        flags = ["--input-lut", str(cube)] + flags
+    common = ["--input-dir", str(in_dir), "--camera-xml", str(calib_xml),
+              "--perspective-size", "64", "--save-fisheye-output",
+              "--perspective-ext", ".png", "--mask-input-dir",
+              str(mask_dir)] + flags
+    ref_out, got_out = tmp_path / "jax", tmp_path / "torch"
+    assert jdf.main(common + ["--output-dir", str(ref_out)]) == 0
+    remap_cuda.reset_counters()
+    warp_cuda.reset_counters()
+    assert tdf.main(common + ["--output-dir", str(got_out),
+                              "--device", "cpu"]) == 0
+    # one planarize per lens image, into the LUT; the remaps as without one
+    assert warp_cuda.PLAIN_CALLS["planarize"] == 2
+    assert remap_cuda.PLAIN_CALLS["remap"] == 6
+    files = _assert_outputs_match(ref_out, got_out)
+    n_color = 2 if "--save-color-corrected-output" in flags else 0
+    assert len(files) == 2 + 10 + 10 + n_color
+
+
+def test_lut_errors_match_jax(calib_xml, tmp_path, capsys):
+    base = ["--camera-xml", str(calib_xml), "--input-dir", str(tmp_path),
+            "--input-color-profile", "osmo360-dlogm"]
+    assert jdf.main(base) == 2
+    ref_err = capsys.readouterr().err
+    assert tdf.main(base + ["--device", "cpu"]) == 2
+    assert capsys.readouterr().err == ref_err
+    assert "requires --dlogm-lut" in ref_err
+    in_dir, _ = _pair_dir(tmp_path, calib_xml, masks=False)
+    bad = tmp_path / "bad.cube"
+    bad.write_text("LUT_3D_SIZE 2\n0 0 0\n")
+    args = ["--camera-xml", str(calib_xml), "--input-dir", str(in_dir),
+            "--input-lut", str(bad), "--output-dir", str(tmp_path / "o")]
+    assert jdf.main(args) == 1
+    ref_err = capsys.readouterr().err
+    assert tdf.main(args + ["--device", "cpu"]) == 1
+    assert capsys.readouterr().err == ref_err
+    assert ref_err.startswith("[ERR] failed to load LUT")

@@ -1,5 +1,6 @@
 """The port never imports JAX: every ``gs360x_torch`` module (the remap
-path and the dual-fisheye tool named explicitly), and ``chip_smoke`` as a
+path, the dual-fisheye, Video2Frames and FrameSelector tools, and the
+sharpness and flow modules named explicitly), and ``chip_smoke`` as a
 module, import in a fresh interpreter with no ``jax`` in ``sys.modules``
 afterwards, and of the JAX package ``gs360x`` only its JAX-free host
 modules. A subprocess, because this test process has already imported JAX. ``chip_smoke.py`` itself imports nothing of
@@ -44,9 +45,13 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert seen["n_modules"] >= 17, seen
+    assert seen["n_modules"] >= 22, seen
     assert {"gs360x_torch.kernels.remap_cuda",
-            "gs360x_torch.tools.dualfisheye"} <= set(seen["names"])
+            "gs360x_torch.tools.dualfisheye",
+            "gs360x_torch.tools.video2frames",
+            "gs360x_torch.tools.frameselector",
+            "gs360x_torch.kernels.sharpness",
+            "gs360x_torch.kernels.flow"} <= set(seen["names"])
     assert seen["jax"] == [], seen["jax"]
     assert set(seen["gs360x"]) <= ALLOWED_GS360X, seen["gs360x"]
 
