@@ -23,9 +23,17 @@ it went through the kernels only and that its pixels are right:
   LUT decode with sRGB output;
 * ``gs360x-torch-video2frames`` on a 4-frame 8K 4:2:0 Y4M (PNG at 2 fps),
   then ``--fisheye-perspective`` on a 3840² lens Y4M;
-* ``gs360x-torch-frameselector`` on 10 8K frames of graded sharpness with
+* ``gs360x-torch-frameselector`` on 6 8K frames of graded sharpness with
   optical flow (Lucas–Kanade, then Farneback), and in pair mode on 4
-  3840² ``_X``/``_Y`` pairs.
+  3840² ``_X``/``_Y`` pairs;
+* ``gs360x-torch-ms360xml --persp-cut`` on a Metashape spherical XML of the
+  2 8K frames at the tool's default preset (``full360coverage``, 12 views
+  of 1600² a frame), then ``--format all --points-ply`` (host only);
+* ``gs360x-torch-dualfisheye --camera-extrinsics-xml`` on the 2 pairs
+  (the pixels of the run without the flag, plus the perspective Metashape
+  XML and ``sparse/0``), then ``--metadata-only``;
+* ``python -m gs360x_torch.tools.micro_ops``: the 14 primitive kernels of
+  ``micro_ops.cu``, each first held to its plain version on the card.
 
 Phases print one line each; any failure raises and the exit code is not
 0. Without CUDA, or without the rest of the checkout, it exits non-zero
@@ -56,14 +64,22 @@ from PIL import Image
 
 from gs360x_torch.core import camera as cam
 from gs360x_torch.core import color as colorlib
+from gs360x_torch import native
+from gs360x_torch.io import image as imagelib
+from gs360x_torch.io import ply as plyio
+from gs360x_torch.io.formats import colmap_text
+from gs360x_torch.io.formats import metashape as msxml
 from gs360x_torch.kernels import _build, flow as flowk, remap_cuda
+from gs360x_torch.kernels import micro_ops_cuda as mo
 from gs360x_torch.kernels import sharpness as sharp
 from gs360x_torch.kernels import warp as twin
 from gs360x_torch.kernels import warp_cuda
 from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
 from gs360x_torch.runtime.executor import _view_groups
-from gs360x_torch.tools import (dualfisheye, frameselector, perspcut,
-                                video2frames)
+from gs360x_torch.runtime.profiling import cuda_ms
+from gs360x_torch.tools import (dualfisheye, frameselector, ms360xml,
+                                perspcut, video2frames)
+from gs360x_torch.tools import micro_ops as micro_ops_tool
 
 SRC_H, SRC_W = 3840, 7680                 # 8K equirect frame
 RING = [float(45 * k) for k in range(8)]  # yaw ring, 180 = the seam view
@@ -103,9 +119,23 @@ PLANARIZE_PAIRS = [("u8->u8", torch.uint8, 1.0, torch.uint8),
                    ("u16->f32", torch.uint16, 1.0 / 65535.0, torch.float32),
                    ("f32->f32", torch.float32, 1.0, torch.float32)]
 HBM_TBS = 3.35   # published H100 SXM device-memory bandwidth, TB/s
+FP32_TFLOPS = 67.0   # published H100 SXM f32 rate outside the tensor cores
+# f32 operations per output pixel of the resampling kernels, for the
+# operations side of a bound: 3 channels x 16 taps x (mul + add), the two
+# 4-tap weight sets (~40), the ray, its rotation and the lon/lat or lens
+# trigonometry (~80); bilinear and nearest do less
+CUBIC_FLOPS_PER_PX = 3 * 16 * 2 + 40 + 80
+# the plain versions take 5-55 ms a call: fewer repeats than the kernels
+PLAIN_TIMING = dict(reps=3, batches=3, warmup=1)
+# ms360xml --persp-cut writes JPEG (q98, 4:4:4: the cut's default, which
+# the tool's flags cannot change). A 1-LSB flip before the encode spreads
+# over its 8x8 block, so the files are held to the JPEG of the plain
+# twin's views at the [e2e] share gate (<= 1% of pixels more than 1 LSB
+# apart) and at JPEG_MAX_LSB at most
+JPEG_MAX_LSB = 8
 V2F_FRAMES, V2F_FPS, V2F_RATE = 4, 4.0, 2.0   # 1 s of video, -f 2: 2 frames
-FS_FRAMES, FS_SEGMENT = 10, 5    # frameselector: 2 segments of 5 8K frames
-FS_SHARP = (2, 7)                # the one sharp frame of each segment
+FS_FRAMES, FS_SEGMENT = 6, 3     # frameselector: 2 segments of 3 8K frames
+FS_SHARP = (1, 4)                # the one sharp frame of each segment
 FS_PAIRS, FS_PAIR_SHARP = 4, 1   # pair mode: 4 3840² pairs, pair 1 sharp
 LUT_SIZE = 33
 # score_frame on the card against the same code on the CPU
@@ -114,26 +144,6 @@ SCORE_RTOL = 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int = 10, batches: int = 5, warmup: int = 2) -> float:
-    """Device time of one ``fn`` in ms: CUDA events around ``reps`` runs
-    back to back, so the host's work for the next launch overlaps the
-    device's run; the median over ``batches`` such means."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / reps)
-    return statistics.median(times)
 
 
 def launch_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -207,6 +217,9 @@ def phase_device() -> dict:
     log(f"[device] {name} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | kernels built in {_build.build_seconds:.2f}s "
         f"(load {load_s:.2f}s)")
+    log("[device] host library (native/gs360x_native.cpp, interleave and "
+        "YUV on the CPU): " + ("built with g++ and loaded"
+                               if native.HAS_NATIVE else "numpy fallback"))
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
@@ -228,6 +241,21 @@ def _planarize_rows_input(h: int, w: int, dtype, offset: int, seed: int,
         flat = torch.randint(0, 256, (n,), generator=gen, dtype=dtype,
                              device=dev)
     return flat[offset:].view(h, 3 * w)
+
+
+def _planarize_library(rows: torch.Tensor, h: int, w: int, scale: float,
+                       out_dtype):
+    """The one PyTorch call that computes planarize on ``rows``: a strided
+    copy for an exact de-interleave, ``torch.mul`` into planes when the
+    scale is fused (None for u16, which takes two calls). Timed beside
+    the kernel; the port never calls it."""
+    hwc = rows.view(h, w, 3).permute(2, 0, 1)
+    planes = torch.empty((3, h, w), dtype=out_dtype, device=rows.device)
+    if rows.dtype == out_dtype and scale == 1.0:
+        return lambda: planes.copy_(hwc)
+    if rows.dtype == torch.uint16:      # torch has no uint16 arithmetic
+        return None
+    return lambda: torch.mul(hwc, scale, out=planes)
 
 
 def phase_planarize(dev) -> dict:
@@ -257,6 +285,8 @@ def phase_planarize(dev) -> dict:
                                                           out_dtype))
             plain_ms = cuda_ms(lambda: warp_cuda.planarize_rows_plain(
                 rows, scale, out_dtype))
+            library = _planarize_library(rows, h, w, scale, out_dtype)
+            library_ms = cuda_ms(library) if library else None
             other_ms = {v: cuda_ms(lambda v=v: warp_cuda.planarize_rows(
                 rows, scale, out_dtype, variant=v)) for v in others}
             moved = h * w * 3 * (rows.element_size() + got.element_size())
@@ -276,11 +306,17 @@ def phase_planarize(dev) -> dict:
                 f"({', '.join([kept + ' (main path)', *others])}) | kernel "
                 f"{kept} {ms:.4f} ms ({gbs:.1f} GB/s, {gbs / HBM_TBS / 10:.1f}"
                 f"% of {HBM_TBS} TB/s; bound {bound_ms:.4f} ms), plain "
-                f"{plain_ms:.4f} ms{' | ' + extra if extra else ''}")
+                f"{plain_ms:.4f} ms, one torch call "
+                + (f"{library_ms:.4f} ms" if library else "n/a")
+                + (f" | {extra}" if extra else ""))
             stats[(label, pair)] = {"max_abs_err": err, "ms": ms,
-                                    "plain_ms": plain_ms}
+                                    "plain_ms": plain_ms,
+                                    "bound_ms": bound_ms, "bound_by": "bytes",
+                                    "library_ms": library_ms}
             del rows, ref, got, outs
-    return stats[(PLANARIZE_SHAPES[0][0], PLANARIZE_PAIRS[0][0])]
+    main_shape = PLANARIZE_SHAPES[0][0]
+    return {"exact": stats[(main_shape, "u8->u8")],
+            "scaled": stats[(main_shape, "u8->f32")]}
 
 
 def _compare_warp(rows: torch.Tensor, geom: dict, interp: str, smooth: bool,
@@ -310,6 +346,70 @@ def _compare_warp(rows: torch.Tensor, geom: dict, interp: str, smooth: bool,
     return err
 
 
+def _resample_bound(bytes_moved: int, op_pixels: int) -> dict:
+    """The least time the card could take for a resampling launch: the
+    bytes it must move (each input read once, the output written once)
+    over the memory rate, or its f32 operations (``op_pixels`` sampled
+    output pixels) over the f32 rate."""
+    by_bytes = bytes_moved / (HBM_TBS * 1e9)
+    by_ops = op_pixels * CUBIC_FLOPS_PER_PX / (FP32_TFLOPS * 1e9)
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
+
+
+def _touched_texels(u: torch.Tensor, v: torch.Tensor, valid, src_h: int,
+                    src_w: int, interp: str, equirect: bool) -> int:
+    """The distinct source texels under the tap windows of the output
+    pixels at (u, v) (no tap where ``valid`` is False), by the plain
+    samplers' own boundary rules: on an equirect source columns wrap and
+    rows reflect over the poles, on a lens image both clamp. These are the
+    source bytes a launch must read: a view set covers a band of the
+    frame, seldom the whole of it."""
+    offsets = {"nearest": (0,), "bilinear": (0, 1)}.get(interp, (-1, 0, 1, 2))
+    base = torch.round if interp == "nearest" else torch.floor
+    x0, y0 = base(u).to(torch.int64), base(v).to(torch.int64)
+    if valid is not None:
+        keep = valid.expand_as(u)
+        x0, y0 = x0[keep], y0[keep]
+    seen = torch.zeros(src_h * src_w, dtype=torch.bool, device=u.device)
+    for dy in offsets:
+        if equirect:
+            yi, over = twin._reflect_y(y0 + dy, src_h)
+            shift = twin._half_shift(over, src_w)
+        else:
+            yi, shift = torch.clamp(y0 + dy, 0, src_h - 1), 0
+        for dx in offsets:
+            xi = twin._wrap_x(x0 + dx + shift, src_w, equirect)
+            seen[(yi * src_w + xi).reshape(-1)] = True
+    return int(seen.sum())
+
+
+def _sampled_pixels(u: torch.Tensor, valid) -> int:
+    return u.numel() if valid is None else int(valid.expand_as(u).sum())
+
+
+def _warp_bound(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                valid, interp: str = "bicubic") -> dict:
+    """Bound of one warp launch over the (V, h, w) source coordinates of
+    its views: the touched texels of every plane read once, the f32 views
+    written once."""
+    texels = _touched_texels(u, v, valid, SRC_H, SRC_W, interp, True)
+    per_texel = planes.numel() * planes.element_size() // (SRC_H * SRC_W)
+    bound = _resample_bound(texels * per_texel + u.numel() * 3 * 4,
+                            _sampled_pixels(u, valid))
+    bound["source_share"] = texels / (SRC_H * SRC_W)
+    return bound
+
+
+def _ring_uv(geom: dict, dev) -> tuple:
+    ring = torch.tensor(RING, dtype=torch.float32, device=dev)
+    return twin.view_uv_from_equirect(
+        geom["width"], geom["height"], geom["hfov_deg"], geom["vfov_deg"],
+        "perspective", ring, torch.zeros_like(ring), torch.zeros_like(ring),
+        SRC_W, SRC_H, device=dev)
+
+
 def phase_warp(dev) -> dict:
     smooth = lonlat_frame(SRC_H, SRC_W, 0.3, dev).reshape(SRC_H, SRC_W * 3)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -331,30 +431,40 @@ def phase_warp(dev) -> dict:
     ms = cuda_ms(lambda: warp_cuda.warp_planes(
         planes, RING, zeros, zeros, interp="bicubic", **HEADLINE))
     plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
-        src_f32, RING, zeros, zeros, interp="bicubic", **HEADLINE))
+        src_f32, RING, zeros, zeros, interp="bicubic", **HEADLINE),
+        **PLAIN_TIMING)
     bil_ms = cuda_ms(lambda: warp_cuda.warp_planes(
         planes, RING, zeros, zeros, interp="bilinear", **HEADLINE))
     bil_plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
-        src_f32, RING, zeros, zeros, interp="bilinear", **HEADLINE))
+        src_f32, RING, zeros, zeros, interp="bilinear", **HEADLINE),
+        **PLAIN_TIMING)
     main_ms = cuda_ms(lambda: warp_cuda.warp_planes(
         planes, RING, zeros, zeros, interp="bicubic", **MAIN))
     main_plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
-        src_f32, RING, zeros, zeros, interp="bicubic", **MAIN))
+        src_f32, RING, zeros, zeros, interp="bicubic", **MAIN),
+        **PLAIN_TIMING)
     log(f"[warp] headline 8x1920x1080 from 8K u8: bicubic kernel {ms:.4f} ms "
         f"({8000.0 / ms:.1f} views/s), plain {plain_ms:.4f} ms | bilinear "
         f"kernel {bil_ms:.4f} ms, plain {bil_plain_ms:.4f} ms | main-path "
         f"8x1600x1600 bicubic kernel {main_ms:.4f} ms, plain "
         f"{main_plain_ms:.4f} ms")
+    head_bound = _warp_bound(planes, *_ring_uv(HEADLINE, dev))
+    main_bound = _warp_bound(planes, *_ring_uv(MAIN, dev))
+    log(f"[warp] bounds: headline {head_bound['bound_ms']:.4f} ms "
+        f"({head_bound['bound_by']}, {head_bound['source_share']:.1%} of the "
+        f"source touched), main-path {main_bound['bound_ms']:.4f} ms "
+        f"({main_bound['bound_by']}, {main_bound['source_share']:.1%})")
     return {"headline": {"max_abs_err": max(errs), "ms": ms,
-                         "plain_ms": plain_ms},
+                         "plain_ms": plain_ms, **head_bound},
             "main": {"max_abs_err": main_err, "ms": main_ms,
-                     "plain_ms": main_plain_ms}}
+                     "plain_ms": main_plain_ms, **main_bound}}
 
 
-def _preset_plan(preset: str, size, files, out_dir: pathlib.Path):
+def _preset_plan(preset: str, size, files, out_dir: pathlib.Path,
+                 ext: str = "png"):
     """A preset's plan and its view groups as the executor launches them:
     [((projection, w, h, hfov, vfov), [job index, ...]), ...]."""
-    cfg = PerspCutConfig(preset=preset, size=size or 1600, ext="png",
+    cfg = PerspCutConfig(preset=preset, size=size or 1600, ext=ext,
                          size_explicit=size is not None)
     plan = build_view_plan(cfg, files, out_dir)
     return plan, list(_view_groups([job.view for job in plan.jobs]).items())
@@ -381,7 +491,7 @@ def _compare_views(rows, planes, src_f32, key, yaws, pitches, rolls,
         raise AssertionError(f"warp {label}: non-finite output")
     lsb = (quantize(got) - quantize(ref)).abs()
     share = float((lsb > 1).float().mean())
-    _u, v, _valid = twin.view_uv_from_equirect(
+    u, v, valid = twin.view_uv_from_equirect(
         width, height, hfov, vfov, projection,
         *[torch.tensor(a, dtype=torch.float32, device=rows.device)
           for a in (yaws, pitches, rolls)], SRC_W, SRC_H,
@@ -402,13 +512,16 @@ def _compare_views(rows, planes, src_f32, key, yaws, pitches, rolls,
     ms = cuda_ms(lambda: warp_cuda.warp_planes(
         planes, yaws, pitches, rolls, **kw))
     plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
-        src_f32, yaws, pitches, rolls, **kw))
+        src_f32, yaws, pitches, rolls, **kw), **PLAIN_TIMING)
+    bound = _warp_bound(planes, u, v, valid)
     log(f"[warp] {label} ({len(yaws)}x{width}x{height} {projection} "
         f"hfov {hfov:.2f}): max|diff| f32 {err:.3e}, max {max_lsb} LSB "
         f"({polar_n} polar pixels: f32 {polar_err:.3e}, max {polar_lsb} "
         f"LSB), {share:.5%} of "
         f"pixels > 1 LSB, rim-mask disagreements {rim} | "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+        f"{bound['source_share']:.1%} of the source touched)")
     if rim > RIM_TOL:
         raise AssertionError(f"warp {label}: {rim} rim pixels disagree")
     if max_lsb > ORACLE_LSB or share > ORACLE_SHARE:
@@ -416,7 +529,7 @@ def _compare_views(rows, planes, src_f32, key, yaws, pitches, rolls,
                              "of pixels > 1 LSB")
     if smooth_gate and err > F32_TOL:
         raise AssertionError(f"warp {label}: f32 diff {err}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def phase_warp_tilted(dev) -> dict:
@@ -448,7 +561,10 @@ def phase_warp_tilted(dev) -> dict:
     }
 
 
-def _remap_check(prep_call, plain_call, label: str, exact: bool) -> dict:
+def _remap_check(prep_call, plain_call, label: str, exact: bool,
+                 bytes_in: int, op_pixels: int) -> dict:
+    """``bytes_in``: the source texels and the map entries the launch must
+    read (:func:`_remap_bytes_in`); the output is counted from the result."""
     got = prep_call()
     ref = plain_call()
     torch.cuda.synchronize()
@@ -457,12 +573,62 @@ def _remap_check(prep_call, plain_call, label: str, exact: bool) -> dict:
     err = float((got - ref).abs().max())
     lsb = int((quantize(got) - quantize(ref)).abs().max())
     ms = cuda_ms(prep_call)
-    plain_ms = cuda_ms(plain_call)
+    plain_ms = cuda_ms(plain_call, **PLAIN_TIMING)
+    bound = _resample_bound(bytes_in + got.numel() * 4, op_pixels)
     log(f"[remap] {label}: max|diff| f32 {err:.3e}, quantized max {lsb} LSB"
-        f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
     if err > REMAP_F32_TOL or lsb > (0 if exact else 1):
         raise AssertionError(f"remap {label}: f32 {err}, {lsb} LSB")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def _remap_bytes_in(prep, planes: torch.Tensor, interp: str) -> tuple:
+    """(bytes a remap launch must read, output pixels it samples): the
+    touched texels of every source plane, the valid plane, and the two map
+    entries of each valid pixel."""
+    texels = _touched_texels(prep.map_x, prep.map_y, prep.valid, prep.src_h,
+                             prep.src_w, interp, False)
+    sampled = _sampled_pixels(prep.map_x, prep.valid)
+    maps = sampled * (prep.map_x.element_size() + prep.map_y.element_size())
+    if prep.valid is not None:
+        maps += prep.valid.numel() * prep.valid.element_size()
+    return (texels * planes.shape[0] * planes.element_size() + maps, sampled)
+
+
+def _bilinear_vs_grid_sample(und, planes_f32: torch.Tensor) -> dict:
+    """The bilinear remap has a library counterpart: ``F.grid_sample``
+    (bilinear, border padding, ``align_corners=True``) over the same maps
+    in normalized units. Timed beside ``remap.cu`` at the undistort shape
+    and held to it where the map is valid (``grid_sample`` knows no valid
+    mask or fill); the port never calls it. The catmull-rom and Lagrange
+    kernels have none: ``grid_sample``'s bicubic is the a = -0.75 kernel,
+    another function."""
+    src_h, src_w = planes_f32.shape[1:]
+    grid = torch.stack([und.map_x[0] * (2.0 / (src_w - 1)) - 1.0,
+                        und.map_y[0] * (2.0 / (src_h - 1)) - 1.0], -1)[None]
+    src = planes_f32[None]
+
+    def library():
+        return F.grid_sample(src, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    got = und(planes_f32, interp="bilinear")
+    ref = library()[0]
+    valid = und.valid[0] if und.valid is not None else \
+        torch.ones_like(got[0], dtype=torch.bool)
+    err = float(((got - ref).abs() * valid).max())
+    # grid_sample recomputes pixel coordinates from the normalized grid in
+    # f32: ~1e-3 px at 3840 px, times the frame's gradient (noise of 5 LSB
+    # between neighbours); a wrong convention would be off by > 0.05
+    if err > 1e-2:
+        raise AssertionError(f"remap bilinear vs grid_sample: {err}")
+    ms = cuda_ms(lambda: und(planes_f32, interp="bilinear"))
+    library_ms = cuda_ms(library)
+    log(f"[remap] undistort {src_h}² bilinear f32 source: kernel {ms:.4f} "
+        f"ms, F.grid_sample {library_ms:.4f} ms, max|diff| on valid pixels "
+        f"{err:.3e}")
+    return {"ms": ms, "library_ms": library_ms, "max_abs_err": err}
 
 
 def phase_remap(dev) -> dict:
@@ -496,33 +662,51 @@ def phase_remap(dev) -> dict:
             planes, prep.map_x, prep.map_y, prep.valid, interp=interp,
             fill=0.0)
 
+    def check(prep, planes, interp, label, exact=False):
+        call = (lambda: prep(planes)) if prep is not und else \
+            (lambda: prep(planes, interp=interp)[None])
+        return _remap_check(call, lambda: plain(prep, planes, interp), label,
+                            exact, *_remap_bytes_in(prep, planes, interp))
+
     out = {
-        "undistort_f32": _remap_check(
-            lambda: und(planes_f32, interp="catmull-rom")[None],
-            lambda: plain(und, planes_f32, "catmull-rom"),
-            f"undistort {FISH}² catmull-rom f32 source", False),
-        "undistort": _remap_check(
-            lambda: und(planes_u8, interp="catmull-rom")[None],
-            lambda: plain(und, planes_u8, "catmull-rom"),
-            f"undistort {FISH}² catmull-rom u8 source", False),
-        "batch_f32": _remap_check(
-            lambda: batch(planes_f32), lambda: plain(batch, planes_f32,
-                                                     "catmull-rom"),
-            f"SFM10 batch 10x{SFM10_SIZE}² catmull-rom f32 source", False),
-        "batch": _remap_check(
-            lambda: batch(planes_u8), lambda: plain(batch, planes_u8,
-                                                    "catmull-rom"),
-            f"SFM10 batch 10x{SFM10_SIZE}² catmull-rom u8 source", False),
-        "mask": _remap_check(
-            lambda: nearest(mask_planes), lambda: plain(nearest, mask_planes,
-                                                        "nearest"),
-            f"SFM10 mask batch 10x{SFM10_SIZE}² nearest C=1", True),
+        "undistort_f32": check(und, planes_f32, "catmull-rom",
+                               f"undistort {FISH}² catmull-rom f32 source"),
+        "undistort": check(und, planes_u8, "catmull-rom",
+                           f"undistort {FISH}² catmull-rom u8 source"),
+        "batch_f32": check(batch, planes_f32, "catmull-rom",
+                           f"SFM10 batch 10x{SFM10_SIZE}² catmull-rom f32 "
+                           f"source"),
+        "batch": check(batch, planes_u8, "catmull-rom",
+                       f"SFM10 batch 10x{SFM10_SIZE}² catmull-rom u8 source"),
+        "mask": check(nearest, mask_planes, "nearest",
+                      f"SFM10 mask batch 10x{SFM10_SIZE}² nearest C=1",
+                      exact=True),
     }
+    out["bilinear_library"] = _bilinear_vs_grid_sample(und, planes_f32)
     log(f"[remap] default Osmo 360 calibration, auto zoom "
         f"{cache.undistort_zoom:.4f}; maps built on the host in "
         f"{maps_s:.2f}s")
     return {"checks": out, "calib": calib, "cache": cache, "specs": specs,
             "views": views}
+
+
+def _counters() -> tuple:
+    """(launches, plain calls) of every kernel wrapper, merged."""
+    return ({**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES, **mo.LAUNCHES},
+            {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS,
+             **mo.PLAIN_CALLS})
+
+
+def _reset_counters() -> None:
+    warp_cuda.reset_counters()
+    remap_cuda.reset_counters()
+    mo.reset_counters()
+
+
+def _launches(planarize: int = 0, warp: int = 0, remap: int = 0) -> dict:
+    """The launch counts a main-path phase expects (no micro_ops launch)."""
+    return {"planarize": planarize, "warp": warp, "remap": remap,
+            "micro_ops": 0}
 
 
 def phase_perspcut(dev, src_dir: pathlib.Path, frames: dict, tmp,
@@ -536,19 +720,17 @@ def phase_perspcut(dev, src_dir: pathlib.Path, frames: dict, tmp,
     plan, groups = _preset_plan(preset, size, [src_dir / f"{stem}.png"],
                                 out_dir)
 
-    warp_cuda.reset_counters()
-    remap_cuda.reset_counters()
+    _reset_counters()
     t0 = time.perf_counter()
     rc = perspcut.main(args)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES}
-    plain = {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS}
+    launches, plain = _counters()
     if rc != 0:
         raise AssertionError(f"perspcut --preset {preset} exited {rc}")
     # one planarize and one warp per (view group, frame)
-    want = {"planarize": E2E_FRAMES * len(groups),
-            "warp": E2E_FRAMES * len(groups), "remap": 0}
+    want = _launches(planarize=E2E_FRAMES * len(groups),
+                     warp=E2E_FRAMES * len(groups))
     if launches != want:
         raise AssertionError(f"{preset}: kernel launches {launches}, "
                              f"expected {want}")
@@ -621,8 +803,7 @@ def phase_dualfisheye(dev, tmp, remap: dict) -> dict:
                     mask_dir / name, compress_level=1)
     setup_s = time.perf_counter() - t0
 
-    warp_cuda.reset_counters()
-    remap_cuda.reset_counters()
+    _reset_counters()
     t0 = time.perf_counter()
     rc = dualfisheye.main([
         "--input-dir", str(in_dir), "--output-dir", str(out_dir),
@@ -631,14 +812,13 @@ def phase_dualfisheye(dev, tmp, remap: dict) -> dict:
         str(tmp / "report.json"), "--device", dev.type, "--stats"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES}
-    plain = {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS}
+    launches, plain = _counters()
     report = json.loads((tmp / "report.json").read_text())
     if rc != 0 or report["failed"] != 0 or report["processed"] != 2:
         raise AssertionError(f"dualfisheye exited {rc}, report {report}")
     # per pair: 2 lens planarizes; 2 undistorts + 2 lens view groups,
     # + 2 mask groups for the pair with masks
-    want = {"planarize": 4, "warp": 0, "remap": 10}
+    want = _launches(planarize=4, remap=10)
     if launches != want:
         raise AssertionError(f"dualfisheye launches {launches}, expected "
                              f"{want}")
@@ -758,19 +938,17 @@ def phase_video2frames(dev, tmp) -> dict:
                 "-e", "png", "--device", dev.type, "--stats"]
         if label == "fisheye":
             args.append("--fisheye-perspective")
-        warp_cuda.reset_counters()
-        remap_cuda.reset_counters()
+        _reset_counters()
         t0 = time.perf_counter()
         rc = video2frames.main(args)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = {**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES}
-        plain = {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS}
+        launches, plain = _counters()
         if rc != 0:
             raise AssertionError(f"video2frames {label} exited {rc}")
         n = int(V2F_FRAMES / V2F_FPS * V2F_RATE)
-        want = {"planarize": n, "warp": 0,
-                "remap": n if label == "fisheye" else 0}
+        want = _launches(planarize=n,
+                         remap=n if label == "fisheye" else 0)
         if launches != want:
             raise AssertionError(f"video2frames {label}: launches "
                                  f"{launches}, expected {want}")
@@ -857,20 +1035,18 @@ def _write_graded(pool, path: pathlib.Path, img: torch.Tensor, radius: int):
 
 
 def _run_frameselector(args, label: str, want_planarize: int) -> tuple:
-    warp_cuda.reset_counters()
-    remap_cuda.reset_counters()
+    _reset_counters()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with redirect_stdout(buf):
         rc = frameselector.main(args)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES}
-    plain = {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS}
+    launches, plain = _counters()
     if rc != 0:
         raise AssertionError(f"frameselector {label} exited {rc}: "
                              f"{buf.getvalue()[-2000:]}")
-    want = {"planarize": want_planarize, "warp": 0, "remap": 0}
+    want = _launches(planarize=want_planarize)
     if launches != want:
         raise AssertionError(f"frameselector {label}: launches {launches}, "
                              f"expected {want}")
@@ -892,8 +1068,8 @@ def _kept(csv_path: pathlib.Path, column: str = "filename") -> list:
 
 
 def phase_frameselector(dev, tmp) -> dict:
-    """gs360x-torch-frameselector on 10 8K frames (one sharp frame per
-    segment of 5, the rest box-blurred with growing radius, the scene
+    """gs360x-torch-frameselector on 6 8K frames (one sharp frame per
+    segment of 3, the rest box-blurred with growing radius, the scene
     panning 48 px a frame) with Lucas–Kanade flow, then Farneback, then
     pair mode on 4 3840² pairs; score_frame on the card against the CPU;
     device times of the scoring and the flows."""
@@ -1011,8 +1187,7 @@ def phase_dualfisheye_lut(dev, tmp, remap: dict, dfe: dict) -> dict:
     cube = tmp / "decode.cube"
     write_cube(cube, LUT_SIZE, 5)
     out_dir = tmp / "dfe_lut"
-    warp_cuda.reset_counters()
-    remap_cuda.reset_counters()
+    _reset_counters()
     t0 = time.perf_counter()
     rc = dualfisheye.main([
         "--input-dir", str(dfe["in_dir"]), "--output-dir", str(out_dir),
@@ -1022,13 +1197,12 @@ def phase_dualfisheye_lut(dev, tmp, remap: dict, dfe: dict) -> dict:
         str(tmp / "report_lut.json"), "--device", dev.type, "--stats"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES}
-    plain = {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS}
+    launches, plain = _counters()
     report = json.loads((tmp / "report_lut.json").read_text())
     if rc != 0 or report["failed"] != 0 or report["processed"] != 2:
         raise AssertionError(f"dualfisheye --input-lut exited {rc}, "
                              f"report {report}")
-    want = {"planarize": 4, "warp": 0, "remap": 10}
+    want = _launches(planarize=4, remap=10)
     if launches != want:
         raise AssertionError(f"dualfisheye --input-lut launches {launches}, "
                              f"expected {want}")
@@ -1084,6 +1258,277 @@ def phase_dualfisheye_lut(dev, tmp, remap: dict, dfe: dict) -> dict:
     return {"launches": launches, "wall_s": wall_s}
 
 
+def _spherical_xml(path: pathlib.Path, labels) -> None:
+    """A Metashape alignment XML of one camera a label, each at its own
+    position and heading (4x4 camera-to-world transforms)."""
+    cams = []
+    for k, label in enumerate(labels):
+        c, s_ = math.cos(0.4 * k), math.sin(0.4 * k)
+        mat = [c, 0.0, s_, 1.5 * k, 0.0, 1.0, 0.0, 0.25 * k,
+               -s_, 0.0, c, -0.5 * k, 0.0, 0.0, 0.0, 1.0]
+        cams.append(f'   <camera id="{k}" label="{label}" sensor_id="0">\n'
+                    f'    <transform>{" ".join(repr(v) for v in mat)}'
+                    f'</transform>\n   </camera>')
+    path.write_text(
+        "<?xml version='1.0'?>\n<document version=\"1.2.0\">\n"
+        " <chunk label=\"smoke\" enabled=\"true\">\n"
+        "  <sensors next_id=\"1\"><sensor id=\"0\" type=\"spherical\"/>"
+        "</sensors>\n"
+        f"  <cameras next_id=\"{len(cams)}\">\n" + "\n".join(cams)
+        + "\n  </cameras>\n </chunk>\n</document>\n")
+
+
+def phase_ms360xml(dev, src_dir: pathlib.Path, frames: dict, tmp) -> dict:
+    """gs360x-torch-ms360xml --persp-cut on a spherical XML of the 8K
+    frames, at the tool's defaults (preset full360coverage, 1600 px JPEG
+    views, the card): the perspective XML, the cut's launches, its files
+    against the plain twin; then --format all --points-ply (host only)."""
+    xml = tmp / "cameras_360.xml"
+    _spherical_xml(xml, sorted(frames))
+    out_dir, cut_dir = tmp / "ms_out", tmp / "ms_cut"
+    preset = "full360coverage"
+    stem = sorted(frames)[0]
+    # the cut's own plan: 12 views of 1600 px, written as JPEG
+    plan, groups = _preset_plan(preset, None, [src_dir / f"{stem}.png"],
+                                cut_dir, ext="jpg")
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    rc = ms360xml.main([str(xml), "--format", "metashape", "--persp-cut",
+                        "--cut-input", str(src_dir), "--cut-out",
+                        str(cut_dir), "-o", str(out_dir)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, plain = _counters()
+    if rc != 0:
+        raise AssertionError(f"ms360xml --persp-cut exited {rc}")
+    n_views = len(plan.jobs)
+    want = _launches(planarize=E2E_FRAMES * len(groups),
+                     warp=E2E_FRAMES * len(groups))
+    if launches != want:
+        raise AssertionError(f"ms360xml: kernel launches {launches}, "
+                             f"expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"ms360xml: plain versions ran on the main "
+                             f"path: {plain}")
+    records, width, height = msxml.read_perspective_xml(
+        out_dir / "perspective_cams.xml")
+    if len(records) != E2E_FRAMES * n_views or (width, height) != (1600, 1600):
+        raise AssertionError(f"ms360xml: {len(records)} cameras of "
+                             f"{width}x{height} in the perspective XML")
+    written = sorted(p.name for p in cut_dir.iterdir())
+    labels = sorted(f"{r['name']}" for r in records)
+    if len(written) != E2E_FRAMES * n_views or \
+            [pathlib.Path(n).stem for n in written] != \
+            [pathlib.Path(n).stem for n in labels]:
+        raise AssertionError(f"ms360xml: the cut wrote {len(written)} files "
+                             f"({written[:3]}...), the XML names "
+                             f"{labels[:3]}...")
+
+    # frame 1's files against the JPEG of the plain twin's views
+    rows = torch.from_numpy(frames[stem][1].reshape(SRC_H, SRC_W * 3)).to(dev)
+    worst, share = 0, 0.0
+    for (projection, w, h, hfov, vfov), idxs in groups:
+        ref = quantize(warp_cuda.warp_equirect_to_views_plain(
+            rows, *_angles(plan, idxs), width=w, height=h, hfov_deg=hfov,
+            vfov_deg=vfov, projection=projection, interp="bicubic",
+            planar=True)).permute(0, 2, 3, 1).to(torch.uint8).cpu().numpy()
+        for j, i in enumerate(idxs):
+            name = plan.jobs[i].output_name
+            ref_path = tmp / f"ms_ref_{name}"
+            imagelib.write_image(ref_path, ref[j])
+            diff = np.abs(imagelib.read_image(cut_dir / name).astype(np.int32)
+                          - imagelib.read_image(ref_path).astype(np.int32))
+            if diff.shape != (h, w, 3):
+                raise AssertionError(f"{name}: shape {diff.shape}")
+            worst = max(worst, int(diff.max()))
+            share = max(share, float((diff > 1).mean()))
+    if worst > JPEG_MAX_LSB or share > ORACLE_SHARE:
+        raise AssertionError(f"ms360xml cut: {worst} LSB from the JPEG of "
+                             f"the plain warp, {share:.4%} of pixels > 1 LSB")
+
+    # the host-only exports, with a small point cloud
+    rng = np.random.default_rng(12)
+    ply = tmp / "points.ply"
+    plyio.save_ply_xyz_rgb(ply, rng.normal(size=(2000, 3)).astype(np.float32),
+                           rng.integers(0, 256, (2000, 3), dtype=np.uint8))
+    all_dir = tmp / "ms_all"
+    _reset_counters()
+    t0 = time.perf_counter()
+    rc = ms360xml.main([str(xml), "--format", "all", "--points-ply", str(ply),
+                        "--pc-rotate-x-plus180", "-o", str(all_dir)])
+    all_s = time.perf_counter() - t0
+    if rc != 0 or any(_counters()[0].values()):
+        raise AssertionError(f"ms360xml --format all exited {rc}, launches "
+                             f"{_counters()[0]}")
+    model = colmap_text.read_model(all_dir / "sparse" / "0")
+    xmps = list((all_dir / "cameras_RealityScan").glob("*.xmp"))
+    tf = json.loads((all_dir / "transforms.json").read_text())
+    xyz, _rgb = plyio.load_ply_xyz_rgb(
+        all_dir / "pointcloud_for_transforms.ply")
+    n_cams = E2E_FRAMES * n_views
+    if (len(model.images), len(model.points), len(xmps), len(tf["frames"]),
+            xyz.shape) != (n_cams, 2000, n_cams, n_cams, (2000, 3)) \
+            or not (all_dir / "perspective_cams.xml").is_file():
+        raise AssertionError("ms360xml --format all: outputs incomplete")
+    log(f"[ms360xml] --persp-cut, preset {preset}, {E2E_FRAMES} 8K frames: "
+        f"{len(records)} cameras in the perspective XML, {len(written)} JPEG "
+        f"views of {width}x{height}, wall {wall_s:.3f}s | launches {launches}"
+        f" plain {plain} | frame 1 vs the JPEG of the plain warp: max "
+        f"{worst} LSB, {share:.5%} of pixels > 1 LSB | --format all "
+        f"--points-ply: transforms.json, sparse/0 ({len(model.images)} images"
+        f", {len(model.points)} points), {len(xmps)} XMP, rotated PLY in "
+        f"{all_s:.2f}s, no launch")
+    return {"launches": launches, "wall_s": wall_s}
+
+
+def _metadata_files(root: pathlib.Path) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*"))
+            if p.is_file() and p.suffix in (".xml", ".txt")}
+
+
+def phase_dualfisheye_xml(dev, tmp, dfe: dict) -> dict:
+    """The dualfisheye phase's run again with --camera-extrinsics-xml: the
+    same launches and byte-equal pixel files, plus the perspective
+    Metashape XML and sparse/0; then --metadata-only: the same metadata,
+    no launch."""
+    names = sorted(dfe["images"])
+    xml = tmp / "rig_extrinsics.xml"
+    _spherical_xml(xml, [pathlib.Path(n).stem for n in names])
+    out_dir, meta_dir = tmp / "dfe_xml", tmp / "dfe_meta"
+    common = ["--perspective-ext", ".png", "--camera-extrinsics-xml",
+              str(xml)]
+    _reset_counters()
+    t0 = time.perf_counter()
+    rc = dualfisheye.main([
+        "--input-dir", str(dfe["in_dir"]), "--output-dir", str(out_dir),
+        "--save-fisheye-output", "--mask-input-dir", str(dfe["mask_dir"]),
+        "--report-json", str(tmp / "report_xml.json"), "--stats"] + common)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, plain = _counters()
+    report = json.loads((tmp / "report_xml.json").read_text())
+    if rc != 0 or report["failed"] != 0 or report["processed"] != 2:
+        raise AssertionError(f"dualfisheye --camera-extrinsics-xml exited "
+                             f"{rc}, report {report}")
+    want = dfe["launches"]
+    if launches != want:
+        raise AssertionError(f"dualfisheye --camera-extrinsics-xml launches "
+                             f"{launches}, expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the main path: {plain}")
+    pngs = sorted(p.relative_to(dfe["out_dir"])
+                  for p in dfe["out_dir"].rglob("*.png"))
+    if len(pngs) != 34 or any(
+            (out_dir / rel).read_bytes() != (dfe["out_dir"] / rel).read_bytes()
+            for rel in pngs):
+        raise AssertionError("dualfisheye --camera-extrinsics-xml: pixel "
+                             "files differ from the run without the flag")
+    meta = _metadata_files(out_dir)
+    persp = out_dir / "perspective"
+    model = colmap_text.read_model(persp / "sparse" / "0")
+    records, width, _h = msxml.read_perspective_xml(
+        persp / "perspective_cams.xml")
+    n_pairs = len(names) // 2
+    if sorted(meta) != sorted(f"perspective/{n}" for n in (
+            "perspective_cams.xml", "sparse/0/cameras.txt",
+            "sparse/0/images.txt", "sparse/0/points3D.txt")) \
+            or len(model.images) != 10 * n_pairs \
+            or len(records) != 10 * n_pairs or width != SFM10_SIZE:
+        raise AssertionError(f"dualfisheye pose export: files {sorted(meta)},"
+                             f" {len(model.images)} images")
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    rc = dualfisheye.main(["--metadata-only", "--output-dir", str(meta_dir)]
+                          + common)
+    meta_s = time.perf_counter() - t0
+    meta_launches, meta_plain = _counters()
+    if rc != 0 or any(meta_launches.values()) or any(meta_plain.values()):
+        raise AssertionError(f"dualfisheye --metadata-only exited {rc}, "
+                             f"launches {meta_launches}, plain {meta_plain}")
+    only = _metadata_files(meta_dir)
+    if {f"perspective/{k}": v for k, v in only.items()} != meta:
+        raise AssertionError("dualfisheye --metadata-only: metadata differs "
+                             "from the pixel run's")
+    log(f"[dualfisheye-xml] 2 pairs {FISH}² with --camera-extrinsics-xml: "
+        f"wall {wall_s:.3f}s | launches {launches} plain {plain} | "
+        f"{len(pngs)} pixel files byte-equal to the run without the flag | "
+        f"perspective XML + sparse/0: {len(model.images)} cameras of "
+        f"{width} px | --metadata-only: the same {len(only)} files in "
+        f"{meta_s:.2f}s, launches {meta_launches}")
+    return {"launches": launches, "wall_s": wall_s}
+
+
+def phase_micro_ops(dev) -> dict:
+    """Each of the 14 micro_ops kernels against its plain version on the
+    card (movers bitwise, arithmetic at 1e-6, the products at 1e-5 a step
+    and at most 8 steps), both timed at grid 2048, reps 64; then the tool
+    itself, whose lines are printed."""
+    inputs = mo.make_inputs(dev)
+    worst_rel, total_ms, total_plain_ms, ops_bound, bytes_moved = \
+        0.0, 0.0, 0.0, 0.0, 0
+    parts = []
+    for key, op in mo.OPS.items():
+        tensors = [inputs[name] for name in op.inputs]
+        loops = mo.bench_loops(op)
+        check = min(loops, mo.MATMUL_CHECK_LOOPS) \
+            if key.startswith("matmul") else loops
+        got = mo.micro_op(key, tensors, check, op.grid or mo.GRID)
+        ref = op.plain(*tensors, check)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"micro_ops {key}: non-finite output")
+        err = float((got - ref).abs().max())
+        rel = err / max(float(ref.abs().max()), 1e-30)
+        tol = mo.rel_tolerance(key, check)
+        if (tol == 0.0 and not torch.equal(got, ref)) or rel > tol:
+            raise AssertionError(f"micro_ops {key}: kernel vs plain rel "
+                                 f"{rel:.3e} (abs {err:.3e}), gate {tol:g}")
+        worst_rel = max(worst_rel, rel)
+        grid = op.grid or mo.GRID
+        ms = cuda_ms(lambda: mo.micro_op(key, tensors, loops, grid))
+        plain_ms = cuda_ms(lambda: op.plain(*tensors, loops),
+                           **PLAIN_TIMING)
+        total_ms += ms
+        total_plain_ms += plain_ms
+        ops_bound += grid * loops * op.flops_per_loop / (FP32_TFLOPS * 1e9)
+        bytes_moved += sum(t.numel() * t.element_size() for t in tensors) \
+            + got.numel() * 4
+        parts.append(f"{key} {'bitwise' if tol == 0.0 else f'rel {rel:.1e}'}"
+                     f" ({ms:.4f} / {plain_ms:.4f} ms)")
+    log("[micro_ops] kernel vs plain on the card at the benchmark depth "
+        f"(products at {mo.MATMUL_CHECK_LOOPS} steps), kernel / plain ms of "
+        "one launch (the plain version computes one block, the kernel "
+        f"{mo.GRID}): " + ", ".join(parts))
+
+    _reset_counters()
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = micro_ops_tool.main([])
+    torch.cuda.synchronize()
+    launches, plain = _counters()
+    lines = buf.getvalue().splitlines()
+    if rc != 0 or sum("ns/op" in ln for ln in lines) != len(mo.OPS):
+        raise AssertionError(f"micro_ops tool exited {rc}: {lines[-5:]}")
+    if launches["micro_ops"] < len(mo.OPS) or any(plain.values()):
+        raise AssertionError(f"micro_ops tool: launches {launches}, plain "
+                             f"{plain}")
+    for line in lines:
+        log(f"[micro_ops] {line}")
+    by_bytes = bytes_moved / (HBM_TBS * 1e9)
+    # the products grow by ~64x a step, so the row's error is the worst of
+    # the 14 taken relative to max|plain|, which is O(1) for the other 12
+    log(f"[micro_ops] worst kernel-vs-plain error of the 14, relative to "
+        f"max|plain|: {worst_rel:.3e}")
+    return {"launches": launches, "max_abs_err": worst_rel, "ms": total_ms,
+            "plain_ms": total_plain_ms,
+            "bound_ms": max(ops_bound, by_bytes),
+            "bound_by": "operations" if ops_bound >= by_bytes else "bytes",
+            "library_ms": None}
+
+
 def main() -> int:
     info = phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1120,49 +1565,64 @@ def main() -> int:
         dfe_lut = phase_dualfisheye_lut(dev, tmp, remap, dfe)
         v2f = phase_video2frames(dev, tmp)
         fsel = phase_frameselector(dev, tmp)
+        ms_xml = phase_ms360xml(dev, src_dir, frames, tmp)
+        dfe_xml = phase_dualfisheye_xml(dev, tmp, dfe)
+    micro = phase_micro_ops(dev)
 
     def total(kernel: str) -> int:
         return sum(r["launches"].get(kernel, 0)
                    for r in [*runs.values(), dfe, dfe_lut, *v2f.values(),
-                             *fsel.values()])
+                             *fsel.values(), ms_xml, dfe_xml, micro])
 
     checks = remap["checks"]
 
     def row(name, source, replaces, kernel, stats):
         return {"name": name, "route": "cuda",
                 "source": f"gs360x_torch/csrc/{source}",
-                "replaces": f"gs360x/kernels/{replaces}",
+                "replaces": replaces,
                 "launches": total(kernel),
                 "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
-                "plain_ms": stats["plain_ms"]}
+                "plain_ms": stats["plain_ms"],
+                "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
+                "library_ms": stats["library_ms"]}
 
     kernels = [
-        row("planarize (_planarize_mxu_kernel)", "planarize.cu",
-            "warp_pallas.py:3234", "planarize", plan),
-        row("planarize (_planarize_kernel)", "planarize.cu",
-            "warp_pallas.py:3193", "planarize", plan),
+        row("planarize (_planarize_mxu_kernel: 8K u8 -> u8)", "planarize.cu",
+            "gs360x/kernels/warp_pallas.py:3234", "planarize", plan["exact"]),
+        row("planarize (_planarize_kernel: 8K u8 -> f32 x1/255)",
+            "planarize.cu", "gs360x/kernels/warp_pallas.py:3193", "planarize",
+            plan["scaled"]),
         row("warp_equirect (_warp_kernel_yaw2: yaw ring 8x1920x1080)",
-            "warp_equirect.cu", "warp_pallas.py:1032", "warp",
+            "warp_equirect.cu", "gs360x/kernels/warp_pallas.py:1032", "warp",
             warp["headline"]),
         row("warp_equirect (_warp_kernel_yaw: yaw ring 8x1600x1600)",
-            "warp_equirect.cu", "warp_pallas.py:734", "warp", warp["main"]),
+            "warp_equirect.cu", "gs360x/kernels/warp_pallas.py:734", "warp",
+            warp["main"]),
         row("warp_equirect (_warp_kernel: pitched full360coverage)",
-            "warp_equirect.cu", "warp_pallas.py:613", "warp",
+            "warp_equirect.cu", "gs360x/kernels/warp_pallas.py:613", "warp",
             tilted["pitched"]),
         row("warp_equirect (_warp_kernel_wide3: fisheyeXY hemispheres)",
-            "warp_equirect.cu", "warp_pallas.py:2814", "warp",
+            "warp_equirect.cu", "gs360x/kernels/warp_pallas.py:2814", "warp",
             tilted["fisheye"]),
         row("warp_equirect (_warp_kernel_wide2: pole view)",
-            "warp_equirect.cu", "warp_pallas.py:1671", "warp",
+            "warp_equirect.cu", "gs360x/kernels/warp_pallas.py:1671", "warp",
             tilted["pole"]),
         row("warp_equirect (_warp_kernel_wide: equisolid view)",
-            "warp_equirect.cu", "warp_pallas.py:1182", "warp",
+            "warp_equirect.cu", "gs360x/kernels/warp_pallas.py:1182", "warp",
             tilted["equisolid"]),
         row("remap (_remap_kernel: undistort 3840²)", "remap.cu",
-            "remap_pallas.py:110", "remap", checks["undistort"]),
+            "gs360x/kernels/remap_pallas.py:110", "remap",
+            checks["undistort"]),
         row("remap (_remap_kernel_wide3: SFM10 10x1750²)", "remap.cu",
-            "remap_pallas.py:283", "remap", checks["batch"]),
+            "gs360x/kernels/remap_pallas.py:283", "remap", checks["batch"]),
+        row("micro_ops (bench: 14 primitives, grid 2048, reps 64; error "
+            "relative to max|plain|)",
+            "micro_ops.cu", "micro_ops.py:22", "micro_ops", micro),
     ]
+    if any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError("a kernel of the main paths was never launched: "
+                             + str([k["name"] for k in kernels
+                                    if k["launches"] <= 0]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"],

@@ -9,13 +9,16 @@ names so each module's counterpart is easy to find:
 - :mod:`gs360x_torch.kernels` — the plain torch warp twin, the hand-written
   CUDA kernels (``csrc/``) and their build, sharpness metrics and optical
   flow
-- :mod:`gs360x_torch.runtime` — the RenderPlan executor
+- :mod:`gs360x_torch.io`      — image, video and PLY files and the camera
+  formats (Metashape XML, COLMAP text, transforms.json, RealityScan)
+- :mod:`gs360x_torch.native`  — bindings of the C++ host library
+- :mod:`gs360x_torch.runtime` — the RenderPlan executor, stage timers,
+  cancellation and the memory throttle
 - :mod:`gs360x_torch.tools`   — CLI entry points (``--device {cuda,cpu}``)
 
-The package imports ``torch`` and never ``jax``. Host modules of
-:mod:`gs360x` that are themselves JAX-free (``gs360x.io.image``,
-``gs360x.io.video``, ``gs360x.runtime.profiling``,
-``gs360x.runtime.cancel``, ``gs360x.native``) are reused by import.
+The package imports ``torch``, never ``jax``, and nothing of :mod:`gs360x`:
+the host modules it shares with that package (image and video IO, the
+camera formats, pose algebra) are its own copies under the same names.
 """
 
 __version__ = "0.1.0"

@@ -82,6 +82,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gs360x_remap.argtypes = [vp, i32, i32, i32, i32, vp, vp, vp, i32,
                                  vp, i32, i32, i32, f32, f32, vp]
     lib.gs360x_remap.restype = i32
+    lib.gs360x_micro_op.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i32,
+                                    i32, vp]
+    lib.gs360x_micro_op.restype = i32
     lib.gs360x_cuda_error_string.argtypes = [i32]
     lib.gs360x_cuda_error_string.restype = ctypes.c_char_p
 

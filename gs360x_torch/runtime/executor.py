@@ -30,9 +30,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from gs360x.io import image as imagelib
-from gs360x.io import video as videolib
-from gs360x.runtime.profiling import StageTimers
+from gs360x_torch.io import image as imagelib
+from gs360x_torch.io import video as videolib
+from gs360x_torch.runtime.profiling import StageTimers
 from gs360x_torch.core import color as colorlib
 from gs360x_torch.kernels import warp_cuda
 from gs360x_torch.rig.spec import RenderPlan

@@ -23,9 +23,11 @@ planarize to f32 planes (×1/255, or ×1/65535 for 16-bit), the trilinear
 the table resident on the device), then the Rec.709 → sRGB curve when
 ``--lut-output-color-space srgb``.
 
-Not ported yet, and refused with exit code 2: ``--camera-extrinsics-xml``
-/ ``--metadata-only`` (the perspective Metashape XML + COLMAP export,
-ROADMAP A.7).
+``--camera-extrinsics-xml`` writes the perspective Metashape XML and a
+COLMAP text model (``sparse/0``) from the rig's poses and the SFM10 layout
+beside the pixels; ``--metadata-only`` writes only those. Both are host
+code (:mod:`gs360x_torch.core.pose`, :mod:`gs360x_torch.io.formats`) and
+launch nothing.
 """
 
 from __future__ import annotations
@@ -45,17 +47,22 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from gs360x.io.image import (AsyncImageWriter, from_float01, read_image,
-                             to_float01)
-from gs360x.runtime.profiling import StageTimers
-from gs360x.runtime.throttle import AdaptiveLimiter, MemoryMonitor
-from gs360x.templates import default_osmo360_calibration_path
 from gs360x_torch.core import color as colorlib
+from gs360x_torch.core import pose as posemath
+from gs360x_torch.core.pose import CV_TO_GL
 from gs360x_torch.device import DEVICE_CHOICES, resolve_device
+from gs360x_torch.io import ply as plyio
+from gs360x_torch.io.formats import colmap_text
+from gs360x_torch.io.formats import metashape as msxml
+from gs360x_torch.io.formats.model import ColmapModel, Image, Point3
+from gs360x_torch.io.image import (AsyncImageWriter, from_float01, read_image,
+                                   to_float01)
 from gs360x_torch.kernels import _build, remap_cuda, warp_cuda
 from gs360x_torch.rig.presets import parse_sensor_dimensions
-from gs360x_torch.runtime.executor import (_quantize_device,
-                                           upload_rows)
+from gs360x_torch.runtime.executor import _quantize_device, upload_rows
+from gs360x_torch.runtime.profiling import StageTimers
+from gs360x_torch.runtime.throttle import AdaptiveLimiter, MemoryMonitor
+from gs360x_torch.templates import default_osmo360_calibration_path
 
 
 # The reference accepts exactly {"equisolid_fisheye"} (its shipped Osmo 360
@@ -408,8 +415,9 @@ def resolve_sensor_ids(camera_to_sensor, sensor_map, base, x_path, y_path,
 
 
 def default_calibration_path() -> pathlib.Path:
-    """The generated DJI Osmo 360 starter calibration (``gs360x.templates``,
-    cached under ``~/.gs360x``), used when no ``--camera-xml`` is given."""
+    """The generated DJI Osmo 360 starter calibration
+    (``gs360x_torch.templates``, cached under ``~/.gs360x``), used when no
+    ``--camera-xml`` is given."""
     return default_osmo360_calibration_path()
 
 
@@ -525,8 +533,7 @@ def create_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("-i", "--input-dir", default=None,
                     help="Folder of _X/_Y fisheye pairs")
     ap.add_argument("--metadata-only", action="store_true",
-                    help="Export metadata without processing pixels (not "
-                         "ported yet: refused, ROADMAP A.7)")
+                    help="Export metadata without processing pixels")
     ap.add_argument("-x", "--camera-xml", default=None,
                     help="Metashape calibration XML (fisheye sensors); "
                          "defaults to the generated Osmo 360 starter "
@@ -582,8 +589,7 @@ def create_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lens-x-yaw-deg", type=float, default=0.0)
     ap.add_argument("--lens-y-yaw-deg", type=float, default=180.0)
     ap.add_argument("--camera-extrinsics-xml", default=None,
-                    help="Metashape alignment XML for metadata export (not "
-                         "ported yet: refused, ROADMAP A.7)")
+                    help="Metashape alignment XML for metadata export")
     ap.add_argument("--pointcloud-ply", default=None)
     ap.add_argument("--mask-input-dir", default=None)
     ap.add_argument("--perspective-metashape-xml-name",
@@ -596,13 +602,60 @@ def create_arg_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _deferred_flag_error(args) -> Optional[str]:
-    """The flags whose modules are not ported yet, or None."""
-    if args.metadata_only or args.camera_extrinsics_xml:
-        return ("--metadata-only / --camera-extrinsics-xml: the perspective "
-                "Metashape XML + COLMAP export is not ported to the GPU "
-                "tool yet (ROADMAP A.7)")
-    return None
+def export_perspective_camera_metadata(args, specs, out_dir) -> None:
+    """Rig extrinsics XML + SFM10 layout → perspective Metashape XML +
+    COLMAP text under ``sparse/0`` (host numpy f64; no device work)."""
+    xml_path = pathlib.Path(args.camera_extrinsics_xml).expanduser().resolve()
+    if not xml_path.is_file():
+        raise ValueError(f"Camera extrinsics XML not found: {xml_path}")
+    cameras = msxml.read_spherical_cameras(xml_path)
+
+    hfov = specs[0]["hfov_deg"]
+    size = int(specs[0]["width"])
+    f_px = (args.perspective_focal_mm
+            / (compute_sensor_w_mm(args.perspective_sensor_mm) / size))
+    model = ColmapModel()
+    cam_id = model.add_camera("PINHOLE", size, size,
+                              [f_px, f_px, size * 0.5, size * 0.5])
+    suffixes = args.suffixes.split(",")
+    x_suffix = suffixes[0] if suffixes else "_X"
+    y_suffix = suffixes[1] if len(suffixes) > 1 else "_Y"
+    ext = args.perspective_ext.lstrip(".")
+    seen_bases = set()
+    idx = 1
+    for _cid, label, mat in cameras:
+        base, key = split_stem_suffix(label, x_suffix, y_suffix)
+        if key != "X" or base in seen_bases:
+            continue  # the X lens pose anchors the rig
+        seen_bases.add(base)
+        base_gl = np.asarray(mat, np.float64) @ CV_TO_GL
+        for spec in specs:
+            r_rel = posemath.mat4_from_rt(posemath.yaw_pitch_to_rot_gl(
+                spec["yaw_deg"], spec["pitch_deg"]))
+            c2w_gl = base_gl @ r_rel
+            name = f"{base}_{spec['view_id']}.{ext}"
+            model.images.append(Image.from_c2w_gl(idx, c2w_gl, cam_id, name))
+            idx += 1
+    if not model.images:
+        raise ValueError("no X-lens camera poses found in extrinsics XML")
+
+    if args.pointcloud_ply:
+        xyz, rgb = plyio.load_ply_xyz_rgb(args.pointcloud_ply)
+        model.points = [Point3(i + 1, float(p[0]), float(p[1]), float(p[2]),
+                               int(c[0]), int(c[1]), int(c[2]))
+                        for i, (p, c) in enumerate(zip(xyz, rgb))]
+
+    out_xml = out_dir / args.perspective_metashape_xml_name
+    msxml.write_perspective_xml(out_xml, model)
+    print(f"[OK] perspective Metashape XML: {out_xml}")
+    colmap_dir = out_dir / "sparse" / "0"
+    colmap_text.write_model(colmap_dir, model)
+    print(f"[OK] perspective COLMAP: {colmap_dir}")
+
+
+def compute_sensor_w_mm(sensor_mm: str) -> float:
+    dims = parse_sensor_dimensions(sensor_mm)
+    return dims[0] if dims else 36.0
 
 
 def main(argv=None) -> int:
@@ -628,11 +681,6 @@ def _main(argv=None) -> int:
                   file=sys.stderr)
             return 2
         args.input_lut = args.dlogm_lut
-
-    deferred = _deferred_flag_error(args)
-    if deferred:
-        print(f"[ERR] {deferred}", file=sys.stderr)
-        return 2
 
     if args.camera_xml:
         xml_path = pathlib.Path(args.camera_xml).expanduser().resolve()
@@ -663,6 +711,18 @@ def _main(argv=None) -> int:
             pathlib.Path(args.input_dir).expanduser().resolve() / "undistorted"
             if args.input_dir else xml_path.parent / "dualfisheye_out")
     out_dir.mkdir(parents=True, exist_ok=True)
+
+    if args.metadata_only:
+        if not args.camera_extrinsics_xml:
+            print("[ERR] --metadata-only requires --camera-extrinsics-xml",
+                  file=sys.stderr)
+            return 1
+        try:
+            export_perspective_camera_metadata(args, specs, out_dir)
+        except ValueError as exc:
+            print(f"[ERR] {exc}", file=sys.stderr)
+            return 1
+        return 0
 
     if not args.input_dir:
         print("[ERR] --input-dir is required unless --metadata-only",
@@ -892,6 +952,13 @@ def _main(argv=None) -> int:
                 print(f"[WARN] pair {base} failed: {exc}", file=sys.stderr)
                 report["failed"] += 1
             print(f"[{pi}/{len(resolved)}] {base}", flush=True)
+
+    if args.camera_extrinsics_xml:
+        try:
+            export_perspective_camera_metadata(args, specs, persp_dir)
+        except ValueError as exc:
+            print(f"[ERR] {exc}", file=sys.stderr)
+            return 1
 
     if args.report_json:
         pathlib.Path(args.report_json).write_text(json.dumps(report,

@@ -42,8 +42,8 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from gs360x.io.image import read_image
-from gs360x.runtime.profiling import StageTimers
+from gs360x_torch.io.image import read_image
+from gs360x_torch.runtime.profiling import StageTimers
 from gs360x_torch.device import DEVICE_CHOICES, resolve_device
 from gs360x_torch.kernels import flow as flowk
 from gs360x_torch.kernels import sharpness as sharp
@@ -885,7 +885,7 @@ def _main(argv=None) -> int:
     # cooperative cancellation: SIGINT (KeyboardInterrupt) or a lone 'q'
     # on stdin (reference gs360_FrameSelector.py:202-222)
     cancel = threading.Event()
-    from gs360x.runtime.cancel import start_cancel_listener
+    from gs360x_torch.runtime.cancel import start_cancel_listener
     start_cancel_listener(cancel)
 
     metrics = [FrameMetrics() for _ in range(total)]
@@ -922,7 +922,7 @@ def _main(argv=None) -> int:
     else:
         import concurrent.futures as cf
 
-        from gs360x.runtime.throttle import AdaptiveLimiter, MemoryMonitor
+        from gs360x_torch.runtime.throttle import AdaptiveLimiter, MemoryMonitor
 
         if device.type == "cuda":
             # build the kernels once, before the scoring threads start

@@ -23,7 +23,7 @@ import sys
 import threading
 from typing import List
 
-from gs360x.io.image import IMAGE_EXTS
+from gs360x_torch.io.image import IMAGE_EXTS
 from gs360x_torch.device import DEVICE_CHOICES, resolve_device
 from gs360x_torch.rig.presets import (PRESET_CHOICES, PerspCutConfig,
                                       build_view_plan)
@@ -217,7 +217,7 @@ def main(argv=None) -> int:
         out_dir = (pathlib.Path(args.out_dir).resolve() if args.out_dir
                    else input_path.parent / f"{input_path.stem}_geometry")
         try:
-            from gs360x.io.video import probe_video
+            from gs360x_torch.io.video import probe_video
             args.video_bit_depth = probe_video(input_path).bit_depth
         except Exception:
             args.video_bit_depth = 8
@@ -274,7 +274,7 @@ def main(argv=None) -> int:
         pass  # not the main thread
 
     # interactive 'q' cancel on a TTY (shared across long-running tools)
-    from gs360x.runtime.cancel import start_cancel_listener
+    from gs360x_torch.runtime.cancel import start_cancel_listener
     start_cancel_listener(stop_event)
 
     from gs360x_torch.runtime.executor import run_plan

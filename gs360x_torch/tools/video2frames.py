@@ -30,9 +30,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from gs360x.io import video as vio
-from gs360x.io.image import AsyncImageWriter
-from gs360x.runtime.profiling import StageTimers
+from gs360x_torch.io import video as vio
+from gs360x_torch.io.image import AsyncImageWriter
+from gs360x_torch.runtime.profiling import StageTimers
 from gs360x_torch.core import camera as cam
 from gs360x_torch.core import color as colorlib
 from gs360x_torch.device import DEVICE_CHOICES, resolve_device
@@ -137,7 +137,7 @@ class FisheyeCut:
 def decoded_frames(path, *, fps: float, start: float = 0.0,
                    end: Optional[float] = None, stream: Optional[int] = None):
     """(index, t, rgb) of every frame the tool extracts: the decoder of
-    :mod:`gs360x.io.video` (Y4M, MJPEG-AVI, or ffmpeg where present)
+    :mod:`gs360x_torch.io.video` (Y4M, MJPEG-AVI, or ffmpeg where present)
     resampled to ``fps``."""
     return vio.iter_frames(path, fps=fps, start=start, end=end,
                            stream=stream)

@@ -8,7 +8,9 @@ cases of ``_warp_kernel``, ``_warp_kernel_wide3``, ``_warp_kernel_wide2``,
 new paths on the card against the same code on the CPU (rtol 1e-4): the
 fisheye→perspective maps through ``remap.cu``, the planar ``.cube`` apply,
 the FrameSelector gray (bitwise) and ``score_frame`` for every metric, and
-both optical flows. Marked ``cuda``: each test skips without a card. On a machine
+both optical flows; and the 14 ``micro_ops`` kernels against their plain
+versions (movers bitwise, arithmetic at 1e-6, the products at 1e-5 a step
+and at most 8 steps). Marked ``cuda``: each test skips without a card. On a machine
 with one, run (the JAX-side conftest is not needed)::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -22,6 +24,7 @@ import torch
 
 from gs360x_torch.core import color as colorlib
 from gs360x_torch.kernels import flow as flowk
+from gs360x_torch.kernels import micro_ops_cuda as mo
 from gs360x_torch.kernels import remap_cuda, warp_cuda
 from gs360x_torch.kernels import sharpness as sharp
 from gs360x_torch.kernels import warp as twin
@@ -389,3 +392,55 @@ def test_flows_match_cpu(dev, method):
         ref_pts, ref_valid = flowk.shi_tomasi_corners(torch.from_numpy(prev))
         assert torch.equal(valid.cpu(), ref_valid)
         assert torch.equal(pts.cpu()[valid.cpu()], ref_pts[ref_valid])
+
+
+# --- micro_ops: every primitive's kernel against its plain version ----------
+
+@pytest.mark.parametrize("loops", [1, 8])
+@pytest.mark.parametrize("key", list(mo.OPS))
+def test_micro_op_kernel_matches_plain(dev, key, loops):
+    op = mo.OPS[key]
+    inputs = mo.make_inputs(dev)
+    tensors = [inputs[name] for name in op.inputs]
+    mo.reset_counters()
+    got = mo.micro_op(key, tensors, loops, grid=7)
+    torch.cuda.synchronize()
+    assert mo.LAUNCHES["micro_ops"] == 1 and mo.PLAIN_CALLS["micro_ops"] == 0
+    ref = op.plain(*tensors, loops)
+    assert got.shape == ref.shape == op.out_shape and got.dtype == ref.dtype
+    assert bool(torch.isfinite(got).all())
+    tol = mo.rel_tolerance(key, loops)
+    if tol == 0.0:
+        assert torch.equal(got, ref)
+    else:
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def test_micro_op_grid_and_zero_reps(dev):
+    """Every block stores the same block: the grid does not enter the
+    result; zero applications return the primitive's start value."""
+    inputs = mo.make_inputs(dev)
+    tensors = [inputs[n] for n in mo.OPS["chunk"].inputs]
+    one = mo.micro_op("chunk", tensors, 2, grid=1)
+    many = mo.micro_op("chunk", tensors, 2, grid=300)
+    assert torch.equal(one, many)
+    assert torch.equal(mo.micro_op("mul8", [inputs["a8"]], 0), inputs["a8"])
+    assert torch.equal(mo.micro_op("gather_sub8",
+                                   [inputs["a8"], inputs["ridx8"]], 0),
+                       torch.zeros_like(inputs["a8"]))
+
+
+def test_micro_op_products_run_at_the_benchmark_depth(dev):
+    """64 dependent products overflow f32 in the plain version and in the
+    kernel alike; the kernel still launches and returns."""
+    inputs = mo.make_inputs(dev)
+    out = mo.micro_op("matmul8", [inputs["a8"], inputs["a128"]], mo.OP_REPS,
+                      grid=4)
+    torch.cuda.synchronize()
+    assert out.shape == (8, 128) and not bool(torch.isfinite(out).all())
+
+
+def test_micro_op_refuses_mixed_devices(dev):
+    inputs = mo.make_inputs(dev)
+    with pytest.raises(ValueError):
+        mo.micro_op("where", [inputs["a8"], inputs["ridx8"].cpu()], 2)

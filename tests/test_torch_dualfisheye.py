@@ -4,8 +4,10 @@ the host-side numpy code exactly (calibration parse, auto-zoom, undistort
 maps, SFM10 layout, per-view lens choice and maps, pairing), the device
 remap within 1 LSB, and the whole CLI (``--device cpu``, the plain
 versions): the same files, images within 1 LSB, masks equal, the same
-report JSON and exit codes; ``--dry-run``, a missing XML, and the
-deferred metadata flags refused with exit code 2. The ``.cube`` LUT decode
+report JSON and exit codes; ``--dry-run``, a missing XML, and the pose
+export (``--camera-extrinsics-xml``, ``--metadata-only``: the perspective
+Metashape XML and ``sparse/0`` byte-equal to the JAX tool's, the same
+error exits). The ``.cube`` LUT decode
 (``--input-lut`` with each output colour space, ``--input-color-profile
 osmo360-dlogm`` with ``--dlogm-lut``) against the JAX CLI: images within 1
 LSB, masks equal, the same exit codes and messages."""
@@ -210,16 +212,122 @@ def test_missing_xml_and_input_exit_codes(tmp_path):
         jdf.main(no_input) == 1
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--metadata-only", "--camera-extrinsics-xml", "a.xml"], "A.7"),
-    (["--camera-extrinsics-xml", "a.xml"], "A.7")])
-def test_deferred_flags_are_refused(calib_xml, tmp_path, capsys, flags,
-                                    item):
-    rc = tdf.main(["--camera-xml", str(calib_xml), "--input-dir",
-                   str(tmp_path), "--device", "cpu"] + flags)
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert err.startswith("[ERR]") and f"ROADMAP {item}" in err
+# --- the pose export (--camera-extrinsics-xml, --metadata-only) --------------
+
+EXTRINSICS_XML = """<?xml version='1.0'?>
+<document><chunk>
+ <sensors next_id="1"><sensor id="0" type="fisheye"/></sensors>
+ <cameras next_id="4">
+  <camera id="0" label="frame_0001_X">
+   <transform>1 0 0 0.5 0 1 0 -0.25 0 0 1 2 0 0 0 1</transform>
+  </camera>
+  <camera id="1" label="frame_0001_Y">
+   <transform>-1 0 0 0.5 0 1 0 -0.25 0 0 -1 2 0 0 0 1</transform>
+  </camera>
+  <camera id="2" label="frame_0002_X">
+   <transform>0 0 1 3 0 1 0 0 -1 0 0 1 0 0 0 1</transform>
+  </camera>
+  <camera id="3" label="frame_0002_Y">
+   <transform>0 0 -1 3 0 1 0 0 1 0 0 1 0 0 0 1</transform>
+  </camera>
+ </cameras>
+</chunk></document>"""
+
+
+def _metadata_files(out_dir):
+    """The pose export's files under ``out_dir``: relative path → bytes."""
+    files = {p.relative_to(out_dir): p.read_bytes()
+             for p in sorted(out_dir.rglob("*"))
+             if p.is_file() and (p.suffix in (".xml", ".txt"))}
+    assert files
+    return files
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--perspective-ext", ".png", "--suffixes", "_X,_Y",
+     "--perspective-focal-mm", "18", "--perspective-sensor-mm", "36x24",
+     "--perspective-metashape-xml-name", "rig.xml"],
+    ["--pointcloud-ply", "POINTS"],
+])
+def test_metadata_only_matches_jax(calib_xml, tmp_path, extra):
+    """--metadata-only: the perspective Metashape XML and ``sparse/0`` are
+    byte-equal to the JAX tool's; nothing runs on a device."""
+    ext_xml = tmp_path / "align.xml"
+    ext_xml.write_text(EXTRINSICS_XML)
+    if "POINTS" in extra:
+        from gs360x.io import ply as jply
+        rng = np.random.default_rng(3)
+        ply = tmp_path / "points.ply"
+        jply.save_ply_xyz_rgb(ply, rng.normal(size=(12, 3)),
+                              rng.integers(0, 256, (12, 3), dtype=np.uint8))
+        extra = [str(ply) if x == "POINTS" else x for x in extra]
+    common = ["--camera-xml", str(calib_xml), "--metadata-only",
+              "--camera-extrinsics-xml", str(ext_xml), "--perspective-size",
+              "64"] + extra
+    ref_out, got_out = tmp_path / "jax", tmp_path / "torch"
+    assert jdf.main(common + ["--output-dir", str(ref_out)]) == 0
+    remap_cuda.reset_counters()
+    warp_cuda.reset_counters()
+    assert tdf.main(common + ["--output-dir", str(got_out), "--device",
+                              "cpu"]) == 0
+    assert not any(remap_cuda.PLAIN_CALLS.values())
+    assert not any(warp_cuda.PLAIN_CALLS.values())
+    ref, got = _metadata_files(ref_out), _metadata_files(got_out)
+    assert sorted(got) == sorted(ref)
+    assert len(ref) == 1 + 3          # the XML, cameras/images/points3D.txt
+    for rel, data in ref.items():
+        assert got[rel] == data, rel
+
+
+def test_camera_extrinsics_xml_beside_the_pixels_matches_jax(calib_xml,
+                                                             tmp_path):
+    """--camera-extrinsics-xml on a pixel run: metadata byte-equal to the
+    JAX tool's under ``perspective/``, pixels as without the flag."""
+    in_dir, _ = _pair_dir(tmp_path, calib_xml, masks=False)
+    ext_xml = tmp_path / "align.xml"
+    ext_xml.write_text(EXTRINSICS_XML)
+    common = ["--input-dir", str(in_dir), "--camera-xml", str(calib_xml),
+              "--perspective-size", "64", "--perspective-ext", ".png"]
+    flag = ["--camera-extrinsics-xml", str(ext_xml)]
+    ref_out, got_out, bare_out = (tmp_path / "jax", tmp_path / "torch",
+                                  tmp_path / "bare")
+    assert jdf.main(common + flag + ["--output-dir", str(ref_out)]) == 0
+    assert tdf.main(common + flag + ["--output-dir", str(got_out),
+                                     "--device", "cpu"]) == 0
+    assert tdf.main(common + ["--output-dir", str(bare_out), "--device",
+                              "cpu"]) == 0
+    ref, got = _metadata_files(ref_out), _metadata_files(got_out)
+    assert sorted(got) == sorted(ref) and len(ref) == 4
+    for rel, data in ref.items():
+        assert rel.parts[0] == "perspective"
+        assert got[rel] == data, rel
+    assert not list(bare_out.rglob("*.xml"))
+    images = sorted(p.relative_to(bare_out) for p in bare_out.rglob("*.png"))
+    assert len(images) == 10
+    for rel in images:
+        assert (got_out / rel).read_bytes() == (bare_out / rel).read_bytes()
+
+
+@pytest.mark.parametrize("case", ["no-extrinsics", "missing-file",
+                                  "no-x-lens"])
+def test_metadata_errors_match_jax(calib_xml, tmp_path, capsys, case):
+    """The pose export's error exits and ``[ERR]`` lines are the JAX
+    tool's."""
+    args = ["--camera-xml", str(calib_xml), "--metadata-only",
+            "--output-dir", str(tmp_path / "o"), "--perspective-size", "64"]
+    if case == "missing-file":
+        args += ["--camera-extrinsics-xml", str(tmp_path / "none.xml")]
+    elif case == "no-x-lens":
+        ext_xml = tmp_path / "align.xml"
+        ext_xml.write_text(EXTRINSICS_XML.replace("_X", "_Q"))
+        args += ["--camera-extrinsics-xml", str(ext_xml)]
+    ref_rc = jdf.main(args)
+    ref_err = capsys.readouterr().err
+    got_rc = tdf.main(args + ["--device", "cpu"])
+    got_err = capsys.readouterr().err
+    assert got_rc == ref_rc == 1
+    assert got_err == ref_err and got_err.startswith("[ERR]")
 
 
 # --- the .cube LUT decode ----------------------------------------------------

@@ -1,10 +1,10 @@
-"""The port never imports JAX: every ``gs360x_torch`` module (the remap
-path, the dual-fisheye, Video2Frames and FrameSelector tools, and the
-sharpness and flow modules named explicitly), and ``chip_smoke`` as a
-module, import in a fresh interpreter with no ``jax`` in ``sys.modules``
-afterwards, and of the JAX package ``gs360x`` only its JAX-free host
-modules. A subprocess, because this test process has already imported JAX. ``chip_smoke.py`` itself imports nothing of
-``gs360x``."""
+"""The port never imports JAX, and nothing of the JAX package: every
+``gs360x_torch`` module (the remap path, the tools, the sharpness and flow
+modules, the host IO and camera-format copies named explicitly), and
+``chip_smoke`` as a module, import in a fresh interpreter with no ``jax``
+and no ``gs360x`` module in ``sys.modules`` afterwards. A subprocess,
+because this test process has already imported JAX. No source file of the
+port, nor ``chip_smoke.py``, names ``gs360x`` or ``jax`` in an import."""
 
 import ast
 import json
@@ -12,15 +12,12 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
-# the JAX-free host modules of gs360x the port may reuse by import, and
-# the package __init__s on their way
-ALLOWED_GS360X = {
-    "gs360x", "gs360x.io", "gs360x.io.image", "gs360x.io.video",
-    "gs360x.runtime", "gs360x.runtime.profiling", "gs360x.runtime.cancel",
-    "gs360x.native", "gs360x.templates", "gs360x.runtime.throttle",
-}
+# the modules of gs360x the port may import: none
+ALLOWED_GS360X = set()
 
 PROBE = """
 import importlib, json, pkgutil, sys
@@ -45,8 +42,19 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert seen["n_modules"] >= 22, seen
+    assert seen["n_modules"] >= 40, seen
     assert {"gs360x_torch.kernels.remap_cuda",
+            "gs360x_torch.kernels.micro_ops_cuda",
+            "gs360x_torch.tools.micro_ops",
+            "gs360x_torch.tools.ms360xml",
+            "gs360x_torch.tools.camconvert",
+            "gs360x_torch.io.image", "gs360x_torch.io.video",
+            "gs360x_torch.io.ply", "gs360x_torch.io.formats.hub",
+            "gs360x_torch.native", "gs360x_torch.templates",
+            "gs360x_torch.runtime.profiling",
+            "gs360x_torch.runtime.cancel",
+            "gs360x_torch.runtime.throttle",
+            "gs360x_torch.core.pose",
             "gs360x_torch.tools.dualfisheye",
             "gs360x_torch.tools.video2frames",
             "gs360x_torch.tools.frameselector",
@@ -56,14 +64,48 @@ def test_port_imports_no_jax():
     assert set(seen["gs360x"]) <= ALLOWED_GS360X, seen["gs360x"]
 
 
-def test_chip_smoke_imports_nothing_of_the_jax_package():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+FORBIDDEN_ROOTS = {"gs360x", "jax", "jaxlib", "flax"}
+
+
+def imported_roots(path: pathlib.Path) -> set:
+    """Top-level names of every import statement of one source file,
+    wherever it stands (module level or inside a function)."""
+    tree = ast.parse(path.read_text())
     imported = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             imported.update(alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom):
             imported.add(node.module or "")
-    roots = {name.split(".")[0] for name in imported}
+    return {name.split(".")[0] for name in imported}
+
+
+def port_sources() -> list:
+    return sorted((ROOT / "gs360x_torch").rglob("*.py"))
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    roots = imported_roots(ROOT / "chip_smoke.py")
     assert "gs360x_torch" in roots
-    assert not roots & {"gs360x", "jax", "jaxlib", "flax"}, sorted(roots)
+    assert not roots & FORBIDDEN_ROOTS, sorted(roots)
+
+
+PACKAGES = ["core", "io", "kernels", "native", "rig", "runtime", "tools"]
+
+
+def test_every_port_source_is_in_a_checked_package():
+    parts = {p.relative_to(ROOT / "gs360x_torch").parts for p in port_sources()}
+    assert len(parts) >= 40
+    assert {p[0] for p in parts if len(p) > 1} == set(PACKAGES)
+
+
+@pytest.mark.parametrize("package", PACKAGES + ["*.py"])
+def test_port_package_imports_nothing_of_the_jax_package(package):
+    """One case a subpackage, and one for the modules at the port's root."""
+    base = ROOT / "gs360x_torch"
+    sources = sorted(base.glob("*.py")) if package == "*.py" else \
+        [p for p in port_sources() if p.relative_to(base).parts[0] == package]
+    assert sources, package
+    for path in sources:
+        roots = imported_roots(path)
+        assert not roots & FORBIDDEN_ROOTS, (path, sorted(roots))

@@ -20,6 +20,7 @@ from gs360x.io import image as im
 from gs360x.io import video as vio
 from gs360x.kernels import warp as jwarp
 from gs360x.tools import video2frames as jv2f
+from gs360x_torch.io import video as tvio
 from gs360x_torch.kernels import remap_cuda, warp_cuda
 from gs360x_torch.kernels import warp as twin
 from gs360x_torch.tools import video2frames as tv2f
@@ -156,8 +157,10 @@ def test_sixteen_bit_branch(tmp_path, clip, monkeypatch):
         for i, f in enumerate(frames16):
             yield i, i / 3.0, f
 
-    monkeypatch.setattr(vio, "probe_video", lambda path: info16)
-    monkeypatch.setattr(vio, "iter_frames", iter16)
+    # each package reads through its own copy of io.video
+    for module in (vio, tvio):
+        monkeypatch.setattr(module, "probe_video", lambda path: info16)
+        monkeypatch.setattr(module, "iter_frames", iter16)
     ref_out, got_out = tmp_path / "jax", tmp_path / "torch"
     args = ["-i", str(clip), "-f", "3", "-e", "png"]
     assert jv2f.main(args + ["-o", str(ref_out)]) == 0
