@@ -8,10 +8,12 @@ Run from the root of a checkout on a machine with a card::
 It builds the hand-written CUDA kernels from ``gs360x_torch/csrc`` (into
 ``build/gs360x_torch/``), holds each kernel against its plain torch
 version on the card at the main paths' shapes and times both (planarize
-for every input/output type and every variant on an 8K frame, a 3840²
-lens image and a ragged, unaligned view; the equirect warp on yaw-ring,
-pitched, pole and fisheye views of an 8K frame; the remap on the Osmo 360
-undistort map and the 10 SFM10 maps),
+for every input/output type, the RGBX texel mode and every variant on an 8K
+frame, a 3840² lens image and a ragged, unaligned view; the equirect warp
+on yaw-ring, pitched, pole and fisheye views of an 8K frame; the remap on
+the Osmo 360 undistort map and the 10 SFM10 maps; warp and remap with the
+f32 store against the plain version and with the u8 / u16 store bitwise
+against the plain quantize of the f32 store),
 then drives each main path once through the port's CLIs and checks that
 it went through the kernels only and that its pixels are right:
 
@@ -36,8 +38,9 @@ it went through the kernels only and that its pixels are right:
   ``micro_ops.cu``, each first held to its plain version on the card.
 
 Phases print one line each; any failure raises and the exit code is not
-0. Without CUDA, or without the rest of the checkout, it exits non-zero
-and prints no result. The last line is the JSON result.
+0. Without CUDA, or without the rest of the checkout (it then says what it
+lacks), it exits non-zero and prints no result. The last line is the JSON
+result.
 """
 
 from __future__ import annotations
@@ -62,24 +65,32 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
-from gs360x_torch.core import camera as cam
-from gs360x_torch.core import color as colorlib
-from gs360x_torch import native
-from gs360x_torch.io import image as imagelib
-from gs360x_torch.io import ply as plyio
-from gs360x_torch.io.formats import colmap_text
-from gs360x_torch.io.formats import metashape as msxml
-from gs360x_torch.kernels import _build, flow as flowk, remap_cuda
-from gs360x_torch.kernels import micro_ops_cuda as mo
-from gs360x_torch.kernels import sharpness as sharp
-from gs360x_torch.kernels import warp as twin
-from gs360x_torch.kernels import warp_cuda
-from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
-from gs360x_torch.runtime.executor import _view_groups
-from gs360x_torch.runtime.profiling import cuda_ms
-from gs360x_torch.tools import (dualfisheye, frameselector, ms360xml,
-                                perspcut, video2frames)
-from gs360x_torch.tools import micro_ops as micro_ops_tool
+try:
+    from gs360x_torch.core import camera as cam
+    from gs360x_torch.core import color as colorlib
+    from gs360x_torch import native
+    from gs360x_torch.io import image as imagelib
+    from gs360x_torch.io import ply as plyio
+    from gs360x_torch.io.formats import colmap_text
+    from gs360x_torch.io.formats import metashape as msxml
+    from gs360x_torch.kernels import _build, flow as flowk, remap_cuda
+    from gs360x_torch.kernels import micro_ops_cuda as mo
+    from gs360x_torch.kernels import sharpness as sharp
+    from gs360x_torch.kernels import warp as twin
+    from gs360x_torch.kernels import warp_cuda
+    from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
+    from gs360x_torch.runtime.executor import _view_groups
+    from gs360x_torch.runtime.profiling import cuda_ms
+    from gs360x_torch.tools import (dualfisheye, frameselector, ms360xml,
+                                    perspcut, video2frames)
+    from gs360x_torch.tools import micro_ops as micro_ops_tool
+except ModuleNotFoundError as exc:
+    if not (exc.name or "").startswith("gs360x_torch"):
+        raise
+    raise SystemExit(
+        f"chip_smoke: {exc}. Run it from the root of a checkout: it drives "
+        "the gs360x_torch package beside it and builds the kernels from "
+        "gs360x_torch/csrc") from None
 
 SRC_H, SRC_W = 3840, 7680                 # 8K equirect frame
 RING = [float(45 * k) for k in range(8)]  # yaw ring, 180 = the seam view
@@ -121,10 +132,14 @@ PLANARIZE_PAIRS = [("u8->u8", torch.uint8, 1.0, torch.uint8),
 HBM_TBS = 3.35   # published H100 SXM device-memory bandwidth, TB/s
 FP32_TFLOPS = 67.0   # published H100 SXM f32 rate outside the tensor cores
 # f32 operations per output pixel of the resampling kernels, for the
-# operations side of a bound: 3 channels x 16 taps x (mul + add), the two
-# 4-tap weight sets (~40), the ray, its rotation and the lon/lat or lens
-# trigonometry (~80); bilinear and nearest do less
-CUBIC_FLOPS_PER_PX = 3 * 16 * 2 + 40 + 80
+# operations side of a bound: 3 channels x 16 taps x (mul + add) and the two
+# 4-tap weight sets (~40) of a cubic pixel, 3 x 4 x 2 and two weights (~10)
+# of a bilinear one, the scale alone of a nearest one; the warp adds the
+# ray, its rotation and the lon/lat or lens trigonometry (~80), which the
+# remap, whose coordinates come from maps, does not have
+TAP_FLOPS_PER_PX = {"bicubic": 3 * 16 * 2 + 40, "catmull-rom": 3 * 16 * 2 + 40,
+                    "bilinear": 3 * 4 * 2 + 10, "nearest": 3}
+WARP_RAY_FLOPS_PER_PX = 80
 # the plain versions take 5-55 ms a call: fewer repeats than the kernels
 PLAIN_TIMING = dict(reps=3, batches=3, warmup=1)
 # ms360xml --persp-cut writes JPEG (q98, 4:4:4: the cut's default, which
@@ -220,9 +235,16 @@ def phase_device() -> dict:
     log("[device] host library (native/gs360x_native.cpp, interleave and "
         "YUV on the CPU): " + ("built with g++ and loaded"
                                if native.HAS_NATIVE else "numpy fallback"))
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[ptxas] {line.strip()}")
+    report = _build.ptxas_report()
+    for fn, _regs, _spill, text in report:
+        log(f"[ptxas] {fn}: {text}")
+    spilling = [fn for fn, _regs, spill, _text in report if spill]
+    log(f"[ptxas] {len(report)} kernels, "
+        f"{min((r[1] for r in report), default=0)}-"
+        f"{max((r[1] for r in report), default=0)} registers, "
+        f"{len(spilling)} with spills")
+    if spilling:
+        raise AssertionError(f"ptxas spilled registers in {spilling}")
     return {"kind": name, "smi": smi}
 
 
@@ -258,13 +280,47 @@ def _planarize_library(rows: torch.Tensor, h: int, w: int, scale: float,
     return lambda: torch.mul(hwc, scale, out=planes)
 
 
+def _check_texelize(label: str, h: int, w: int, offset: int, dev) -> dict:
+    """The texel mode (u8 rows -> RGBX texels) at one shape: bitwise against
+    its plain version on every path the shape allows, timed against its
+    bound (3 bytes read and 4 written a pixel)."""
+    rows = _planarize_rows_input(h, w, torch.uint8, offset, 99, dev)
+    ref = warp_cuda.texelize_rows_plain(rows)
+    got = warp_cuda.texelize_rows(rows)
+    kept = warp_cuda.planarize_variant(rows, got)
+    others = ["scalar"] if kept != "scalar" else []
+    outs = {v: warp_cuda.texelize_rows(rows, variant=v) for v in others}
+    torch.cuda.synchronize()
+    for variant, out in [(kept, got), *outs.items()]:
+        if not torch.equal(out, ref):
+            raise AssertionError(f"planarize {label} u8->texels {variant}: "
+                                 "kernel != plain")
+    ms = cuda_ms(lambda: warp_cuda.texelize_rows(rows))
+    plain_ms = cuda_ms(lambda: warp_cuda.texelize_rows_plain(rows))
+    other_ms = {v: cuda_ms(lambda v=v: warp_cuda.texelize_rows(
+        rows, variant=v)) for v in others}
+    moved = h * w * (3 + 4)
+    gbs = moved / ms / 1e6
+    bound_ms = moved / (HBM_TBS * 1e9)
+    log(f"[planarize] {label} u8->texels (RGBX): bitwise equal "
+        f"({', '.join([kept + ' (main path)', *others])}) | kernel {kept} "
+        f"{ms:.4f} ms ({gbs:.1f} GB/s, {gbs / HBM_TBS / 10:.1f}% of "
+        f"{HBM_TBS} TB/s; bound {bound_ms:.4f} ms), plain = one torch call "
+        f"(F.pad) {plain_ms:.4f} ms"
+        + "".join(f" | {v} {t:.4f} ms" for v, t in other_ms.items()))
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": plain_ms}
+
+
 def phase_planarize(dev) -> dict:
-    """Every (in, out) pair at the main paths' shapes and one ragged,
-    unaligned shape: bitwise against the plain version, for the variant
-    the main path takes and for every other variant the shape allows;
-    each timed beside the plain version."""
+    """Every (in, out) pair and the texel mode at the main paths' shapes
+    and one ragged, unaligned shape: bitwise against the plain version, for
+    the variant the main path takes and for every other variant the shape
+    allows; each timed beside the plain version."""
     stats = {}
     for label, h, w, offset in PLANARIZE_SHAPES:
+        stats[(label, "texels")] = _check_texelize(label, h, w, offset, dev)
         for pair, dtype, scale, out_dtype in PLANARIZE_PAIRS:
             rows = _planarize_rows_input(h, w, dtype, offset, len(stats), dev)
             ref = warp_cuda.planarize_rows_plain(rows, scale, out_dtype)
@@ -292,10 +348,9 @@ def phase_planarize(dev) -> dict:
             moved = h * w * 3 * (rows.element_size() + got.element_size())
             gbs = moved / ms / 1e6
             bound_ms = moved / (HBM_TBS * 1e9)
-            extra = ", ".join(
-                f"{v}{'' if v == 'scalar' else ' (variant not kept)'} "
-                f"{t:.4f} ms" for v, t in other_ms.items())
-            if not stats:   # 8K u8 -> u8: also timed one launch at a time
+            extra = ", ".join(f"{v} {t:.4f} ms" for v, t in other_ms.items())
+            if (label, pair) == (PLANARIZE_SHAPES[0][0], "u8->u8"):
+                # also timed one launch at a time
                 one = launch_ms(lambda: warp_cuda.planarize_rows(
                     rows, scale, out_dtype))
                 one_plain = launch_ms(lambda: warp_cuda.planarize_rows_plain(
@@ -315,8 +370,50 @@ def phase_planarize(dev) -> dict:
                                     "library_ms": library_ms}
             del rows, ref, got, outs
     main_shape = PLANARIZE_SHAPES[0][0]
-    return {"exact": stats[(main_shape, "u8->u8")],
+    planes = stats[(main_shape, "u8->u8")]
+    # the u8 main paths' source pass is the texel mode; the u8 planes of the
+    # same frame stand beside it
+    return {"exact": {**stats[(main_shape, "texels")],
+                      "ms_u8_planes": planes["ms"],
+                      "bound_ms_u8_planes": planes["bound_ms"]},
             "scaled": stats[(main_shape, "u8->f32")]}
+
+
+def _check_stores(label: str, got: torch.Tensor, launch) -> None:
+    """``launch(out_dtype)`` with the u8 and the u16 store against the plain
+    four-pass quantize of the same kernel's f32 store ``got``: bitwise."""
+    for out_dtype in (torch.uint8, torch.uint16):
+        stored = launch(out_dtype)
+        torch.cuda.synchronize()
+        if stored.dtype != out_dtype or not torch.equal(
+                stored, warp_cuda.quantize_plain(got, out_dtype)):
+            raise AssertionError(f"{label}: the {out_dtype} store is not the "
+                                 "plain quantize of the f32 store")
+
+
+def _time_warp(rows: torch.Tensor, texels: torch.Tensor, got: torch.Tensor,
+               angles, kw: dict, label: str) -> dict:
+    """Device times of one view set of a u8 frame: the kernel with the f32
+    and the u8 store, the four-pass quantize of its f32 views, and source
+    pass + resample + quantize a (group, frame) by the route through u8
+    planes, the f32 store and the plain quantize, and by the image-mode
+    main path (texels, u8 store)."""
+    u8 = torch.uint8
+    ms_f32 = cuda_ms(lambda: warp_cuda.warp_texels(texels, *angles, **kw))
+    ms_u8 = cuda_ms(lambda: warp_cuda.warp_texels(texels, *angles,
+                                                  out_dtype=u8, **kw))
+    quant_ms = cuda_ms(lambda: warp_cuda.quantize_plain(got, u8))
+    unfused_ms = cuda_ms(lambda: warp_cuda.quantize_plain(
+        warp_cuda.warp_planes(warp_cuda.planarize_rows(rows, 1.0, u8),
+                              *angles, **kw), u8))
+    route_ms = cuda_ms(lambda: warp_cuda.warp_texels(
+        warp_cuda.texelize_rows(rows), *angles, out_dtype=u8, **kw))
+    log(f"[warp] {label}: kernel f32 store {ms_f32:.4f} ms, u8 store "
+        f"{ms_u8:.4f} ms, four-pass quantize of the f32 views "
+        f"{quant_ms:.4f} ms | device ms a (group, frame): planes + f32 store "
+        f"+ quantize {unfused_ms:.4f} -> texels + u8 store {route_ms:.4f}")
+    return {"ms": ms_u8, "ms_f32_out": ms_f32, "quantize_ms": quant_ms,
+            "route_unfused_ms": unfused_ms, "route_ms": route_ms}
 
 
 def _compare_warp(rows: torch.Tensor, geom: dict, interp: str, smooth: bool,
@@ -329,12 +426,17 @@ def _compare_warp(rows: torch.Tensor, geom: dict, interp: str, smooth: bool,
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"warp {label}: non-finite output")
+    _check_stores(f"warp {label} {interp}", got,
+                  lambda dt: warp_cuda.warp_equirect_to_views_cuda(
+                      rows, RING, zeros, zeros, interp=interp, planar=True,
+                      out_dtype=dt, **geom))
     err = float((got - ref).abs().max())
     lsb = (quantize(got) - quantize(ref)).abs()
     max_lsb = int(lsb.max())
     share = float((lsb > 0).float().mean())
     log(f"[warp] {label} {interp}: max|diff| f32 {err:.3e}, quantized max "
-        f"{max_lsb} LSB, {share:.5%} of pixels differ")
+        f"{max_lsb} LSB, {share:.5%} of pixels differ | u8 and u16 stores "
+        f"bitwise the plain quantize of the f32 store")
     if max_lsb > 1:
         raise AssertionError(f"warp {label} {interp}: {max_lsb} LSB apart")
     if smooth:
@@ -346,13 +448,14 @@ def _compare_warp(rows: torch.Tensor, geom: dict, interp: str, smooth: bool,
     return err
 
 
-def _resample_bound(bytes_moved: int, op_pixels: int) -> dict:
+def _resample_bound(bytes_moved: int, op_pixels: int, flops_per_px: int
+                    ) -> dict:
     """The least time the card could take for a resampling launch: the
     bytes it must move (each input read once, the output written once)
     over the memory rate, or its f32 operations (``op_pixels`` sampled
-    output pixels) over the f32 rate."""
+    output pixels of ``flops_per_px`` each) over the f32 rate."""
     by_bytes = bytes_moved / (HBM_TBS * 1e9)
-    by_ops = op_pixels * CUBIC_FLOPS_PER_PX / (FP32_TFLOPS * 1e9)
+    by_ops = op_pixels * flops_per_px / (FP32_TFLOPS * 1e9)
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None}
@@ -389,17 +492,35 @@ def _sampled_pixels(u: torch.Tensor, valid) -> int:
     return u.numel() if valid is None else int(valid.expand_as(u).sum())
 
 
-def _warp_bound(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                valid, interp: str = "bicubic") -> dict:
-    """Bound of one warp launch over the (V, h, w) source coordinates of
-    its views: the touched texels of every plane read once, the f32 views
-    written once."""
+def _store_bounds(bytes_in: int, out_values: int, op_pixels: int,
+                  flops_per_px: int) -> dict:
+    """The bound of a resampling launch with the u8 store (what the
+    image-mode main path launches), and beside it that of the f32 store."""
+    bound = _resample_bound(bytes_in + out_values, op_pixels, flops_per_px)
+    f32 = _resample_bound(bytes_in + out_values * 4, op_pixels, flops_per_px)
+    bound["bound_ms_f32_out"] = f32["bound_ms"]
+    bound["bound_by_f32_out"] = f32["bound_by"]
+    return bound
+
+
+def _warp_bound(u: torch.Tensor, v: torch.Tensor, valid,
+                interp: str = "bicubic") -> dict:
+    """Bound of one warp launch of a u8 frame over the (V, h, w) source
+    coordinates of its views: 3 bytes of every touched texel read once
+    (whatever the layout: the X byte of a texel is the design's cost, not
+    the function's need), the views written once."""
     texels = _touched_texels(u, v, valid, SRC_H, SRC_W, interp, True)
-    per_texel = planes.numel() * planes.element_size() // (SRC_H * SRC_W)
-    bound = _resample_bound(texels * per_texel + u.numel() * 3 * 4,
-                            _sampled_pixels(u, valid))
+    bound = _store_bounds(texels * 3, u.numel() * 3,
+                          _sampled_pixels(u, valid),
+                          TAP_FLOPS_PER_PX[interp] + WARP_RAY_FLOPS_PER_PX)
     bound["source_share"] = texels / (SRC_H * SRC_W)
     return bound
+
+
+def _bound_text(bound: dict) -> str:
+    return (f"u8 store {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+            f"f32 store {bound['bound_ms_f32_out']:.4f} ms "
+            f"({bound['bound_by_f32_out']})")
 
 
 def _ring_uv(geom: dict, dev) -> tuple:
@@ -425,39 +546,38 @@ def phase_warp(dev) -> dict:
                       "headline 8x1920x1080 noise")
     main_err = _compare_warp(smooth, MAIN, "bicubic", True,
                              "main-path 8x1600x1600 smooth")
-    planes = warp_cuda.planarize_rows(smooth, 1.0, torch.uint8)
+    texels = warp_cuda.texelize_rows(smooth)
     src_f32 = smooth.reshape(SRC_H, SRC_W, 3).to(torch.float32) / 255.0
     zeros = [0.0] * len(RING)
-    ms = cuda_ms(lambda: warp_cuda.warp_planes(
-        planes, RING, zeros, zeros, interp="bicubic", **HEADLINE))
-    plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
-        src_f32, RING, zeros, zeros, interp="bicubic", **HEADLINE),
-        **PLAIN_TIMING)
-    bil_ms = cuda_ms(lambda: warp_cuda.warp_planes(
-        planes, RING, zeros, zeros, interp="bilinear", **HEADLINE))
+    ring = (RING, zeros, zeros)
+    out = {}
+    for key, geom, label in (("headline", HEADLINE, "headline 8x1920x1080"),
+                             ("main", MAIN, "main-path 8x1600x1600")):
+        kw = dict(interp="bicubic", **geom)
+        got = warp_cuda.warp_texels(texels, *ring, **kw)
+        times = _time_warp(smooth, texels, got, ring, kw,
+                           f"{label} bicubic from 8K u8")
+        del got
+        plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
+            src_f32, *ring, **kw), **PLAIN_TIMING)
+        bound = _warp_bound(*_ring_uv(geom, dev))
+        log(f"[warp] {label}: plain {plain_ms:.4f} ms "
+            f"({8000.0 / times['ms']:.1f} views/s with the u8 store) | "
+            f"bounds: {_bound_text(bound)}, {bound['source_share']:.1%} of "
+            f"the source touched")
+        out[key] = {"plain_ms": plain_ms, **times, **bound}
+    bil = dict(interp="bilinear", **HEADLINE)
+    bil_ms = cuda_ms(lambda: warp_cuda.warp_texels(texels, *ring, **bil))
+    bil_u8_ms = cuda_ms(lambda: warp_cuda.warp_texels(
+        texels, *ring, out_dtype=torch.uint8, **bil))
     bil_plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
-        src_f32, RING, zeros, zeros, interp="bilinear", **HEADLINE),
-        **PLAIN_TIMING)
-    main_ms = cuda_ms(lambda: warp_cuda.warp_planes(
-        planes, RING, zeros, zeros, interp="bicubic", **MAIN))
-    main_plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
-        src_f32, RING, zeros, zeros, interp="bicubic", **MAIN),
-        **PLAIN_TIMING)
-    log(f"[warp] headline 8x1920x1080 from 8K u8: bicubic kernel {ms:.4f} ms "
-        f"({8000.0 / ms:.1f} views/s), plain {plain_ms:.4f} ms | bilinear "
-        f"kernel {bil_ms:.4f} ms, plain {bil_plain_ms:.4f} ms | main-path "
-        f"8x1600x1600 bicubic kernel {main_ms:.4f} ms, plain "
-        f"{main_plain_ms:.4f} ms")
-    head_bound = _warp_bound(planes, *_ring_uv(HEADLINE, dev))
-    main_bound = _warp_bound(planes, *_ring_uv(MAIN, dev))
-    log(f"[warp] bounds: headline {head_bound['bound_ms']:.4f} ms "
-        f"({head_bound['bound_by']}, {head_bound['source_share']:.1%} of the "
-        f"source touched), main-path {main_bound['bound_ms']:.4f} ms "
-        f"({main_bound['bound_by']}, {main_bound['source_share']:.1%})")
-    return {"headline": {"max_abs_err": max(errs), "ms": ms,
-                         "plain_ms": plain_ms, **head_bound},
-            "main": {"max_abs_err": main_err, "ms": main_ms,
-                     "plain_ms": main_plain_ms, **main_bound}}
+        src_f32, *ring, **bil), **PLAIN_TIMING)
+    log(f"[warp] headline 8x1920x1080 bilinear: kernel f32 store "
+        f"{bil_ms:.4f} ms, u8 store {bil_u8_ms:.4f} ms, plain "
+        f"{bil_plain_ms:.4f} ms")
+    out["headline"]["max_abs_err"] = max(errs)
+    out["main"]["max_abs_err"] = main_err
+    return out
 
 
 def _preset_plan(preset: str, size, files, out_dir: pathlib.Path,
@@ -475,10 +595,11 @@ def _angles(plan, idxs):
             for name in ("yaw_deg", "pitch_deg", "roll_deg")]
 
 
-def _compare_views(rows, planes, src_f32, key, yaws, pitches, rolls,
+def _compare_views(rows, texels, src_f32, key, yaws, pitches, rolls,
                    label: str, smooth_gate: bool) -> dict:
     """One view group, kernel vs plain on the card: f32 gap, LSB gate,
-    image-circle disagreements (fisheye), CUDA-event times."""
+    image-circle disagreements (fisheye), the u8 / u16 stores against the
+    plain quantize of the f32 store, CUDA-event times."""
     projection, width, height, hfov, vfov = key
     kw = dict(width=width, height=height, hfov_deg=hfov, vfov_deg=vfov,
               projection=projection, interp="bicubic")
@@ -489,6 +610,10 @@ def _compare_views(rows, planes, src_f32, key, yaws, pitches, rolls,
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"warp {label}: non-finite output")
+    _check_stores(f"warp {label}", got,
+                  lambda dt: warp_cuda.warp_equirect_to_views_cuda(
+                      rows, yaws, pitches, rolls, planar=True, out_dtype=dt,
+                      **kw))
     lsb = (quantize(got) - quantize(ref)).abs()
     share = float((lsb > 1).float().mean())
     u, v, valid = twin.view_uv_from_equirect(
@@ -509,19 +634,20 @@ def _compare_views(rows, planes, src_f32, key, yaws, pitches, rolls,
         _rays, valid = cam.fisheye_rays(width, height, hfov, model=model,
                                         device=rows.device)
         rim = int(((got == 0).all(dim=1) != ~valid[None]).sum())
-    ms = cuda_ms(lambda: warp_cuda.warp_planes(
-        planes, yaws, pitches, rolls, **kw))
+    del ref, lsb, gap
+    times = _time_warp(rows, texels, got, (yaws, pitches, rolls), kw, label)
+    del got
     plain_ms = cuda_ms(lambda: twin.warp_equirect_to_views(
         src_f32, yaws, pitches, rolls, **kw), **PLAIN_TIMING)
-    bound = _warp_bound(planes, u, v, valid)
+    bound = _warp_bound(u, v, valid)
     log(f"[warp] {label} ({len(yaws)}x{width}x{height} {projection} "
         f"hfov {hfov:.2f}): max|diff| f32 {err:.3e}, max {max_lsb} LSB "
         f"({polar_n} polar pixels: f32 {polar_err:.3e}, max {polar_lsb} "
         f"LSB), {share:.5%} of "
-        f"pixels > 1 LSB, rim-mask disagreements {rim} | "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
-        f"{bound['source_share']:.1%} of the source touched)")
+        f"pixels > 1 LSB, rim-mask disagreements {rim}, u8 and u16 stores "
+        f"bitwise the plain quantize | plain {plain_ms:.4f} ms, bounds: "
+        f"{_bound_text(bound)}, {bound['source_share']:.1%} of the source "
+        f"touched")
     if rim > RIM_TOL:
         raise AssertionError(f"warp {label}: {rim} rim pixels disagree")
     if max_lsb > ORACLE_LSB or share > ORACLE_SHARE:
@@ -529,7 +655,7 @@ def _compare_views(rows, planes, src_f32, key, yaws, pitches, rolls,
                              "of pixels > 1 LSB")
     if smooth_gate and err > F32_TOL:
         raise AssertionError(f"warp {label}: f32 diff {err}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+    return {"max_abs_err": err, "plain_ms": plain_ms, **times, **bound}
 
 
 def phase_warp_tilted(dev) -> dict:
@@ -537,7 +663,7 @@ def phase_warp_tilted(dev) -> dict:
     # kernel's "outside the image circle"
     frame = lonlat_frame(SRC_H, SRC_W, 0.3, dev).clamp_min(1)
     rows = frame.reshape(SRC_H, SRC_W * 3)
-    planes = warp_cuda.planarize_rows(rows, 1.0, torch.uint8)
+    texels = warp_cuda.texelize_rows(rows)
     src_f32 = frame.to(torch.float32) / 255.0
     files = [pathlib.Path("frame.png")]
     cover_plan, ((cover_key, cover_idx),) = _preset_plan(
@@ -549,43 +675,67 @@ def phase_warp_tilted(dev) -> dict:
     pole_key = ("perspective", 1600, 1600, cover_key[3], cover_key[4])
     solid_key = ("equisolid", 2048, 2048, 190.0, 190.0)
     return {
-        "pitched": _compare_views(rows, planes, src_f32, cover_key, *cover,
+        "pitched": _compare_views(rows, texels, src_f32, cover_key, *cover,
                                   "full360coverage --size 1600", True),
-        "pole": _compare_views(rows, planes, src_f32, pole_key, [30.0],
+        "pole": _compare_views(rows, texels, src_f32, pole_key, [30.0],
                                [90.0], [0.0], "pole view pitch 90", False),
-        "fisheye": _compare_views(rows, planes, src_f32, fish_key, *fish,
+        "fisheye": _compare_views(rows, texels, src_f32, fish_key, *fish,
                                   "fisheyeXY hemispheres", False),
-        "equisolid": _compare_views(rows, planes, src_f32, solid_key,
+        "equisolid": _compare_views(rows, texels, src_f32, solid_key,
                                     [90.0], [-20.0], [10.0],
                                     "equisolid view", False),
     }
 
 
-def _remap_check(prep_call, plain_call, label: str, exact: bool,
-                 bytes_in: int, op_pixels: int) -> dict:
-    """``bytes_in``: the source texels and the map entries the launch must
-    read (:func:`_remap_bytes_in`); the output is counted from the result."""
-    got = prep_call()
+def _remap_check(launch, plain_call, label: str, exact: bool,
+                 bytes_in: int, op_pixels: int, flops_per_px: int,
+                 routes=None) -> dict:
+    """``launch(out_dtype)`` against the plain version (f32 store, at the
+    gates) and against the plain quantize of its own f32 store (u8 and u16
+    stores, bitwise), with the times of both stores and of the four-pass
+    quantize. ``bytes_in``: the source texels and the map entries the
+    launch must read (:func:`_remap_bytes_in`); the output is counted from
+    the result. ``routes``: (planes + f32 store + quantize, texels + u8
+    store) callables of a u8 image's whole device path, timed as device ms
+    a lens."""
+    got = launch(None)
     ref = plain_call()
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"remap {label}: non-finite output")
+    _check_stores(f"remap {label}", got, launch)
     err = float((got - ref).abs().max())
     lsb = int((quantize(got) - quantize(ref)).abs().max())
-    ms = cuda_ms(prep_call)
+    del ref
+    u8 = torch.uint8
+    ms_f32 = cuda_ms(lambda: launch(None))
+    ms_u8 = cuda_ms(lambda: launch(u8))
+    quant_ms = cuda_ms(lambda: warp_cuda.quantize_plain(got, u8))
     plain_ms = cuda_ms(plain_call, **PLAIN_TIMING)
-    bound = _resample_bound(bytes_in + got.numel() * 4, op_pixels)
-    log(f"[remap] {label}: max|diff| f32 {err:.3e}, quantized max {lsb} LSB"
-        f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    bound = _store_bounds(bytes_in, got.numel(), op_pixels, flops_per_px)
+    times = {"ms": ms_u8, "ms_f32_out": ms_f32, "quantize_ms": quant_ms}
+    route = ""
+    if routes is not None:
+        times["route_unfused_ms"] = cuda_ms(routes[0])
+        times["route_ms"] = cuda_ms(routes[1])
+        route = (f" | device ms a lens: planes + f32 store + quantize "
+                 f"{times['route_unfused_ms']:.4f} -> texels + u8 store "
+                 f"{times['route_ms']:.4f}")
+    log(f"[remap] {label}: max|diff| f32 {err:.3e}, quantized max {lsb} LSB,"
+        f" u8 and u16 stores bitwise the plain quantize | kernel f32 store "
+        f"{ms_f32:.4f} ms, u8 store {ms_u8:.4f} ms, four-pass quantize "
+        f"{quant_ms:.4f} ms, plain {plain_ms:.4f} ms, bounds: "
+        f"{_bound_text(bound)}{route}")
     if err > REMAP_F32_TOL or lsb > (0 if exact else 1):
         raise AssertionError(f"remap {label}: f32 {err}, {lsb} LSB")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+    return {"max_abs_err": err, "plain_ms": plain_ms, **times, **bound}
 
 
-def _remap_bytes_in(prep, planes: torch.Tensor, interp: str) -> tuple:
-    """(bytes a remap launch must read, output pixels it samples): the
-    touched texels of every source plane, the valid plane, and the two map
+def _remap_bytes_in(prep, channels: int, element_size: int,
+                    interp: str) -> tuple:
+    """(bytes a remap launch must read, output pixels it samples, f32
+    operations a sampled pixel): the touched texels of the source (``channels`` values of ``element_size``
+    bytes each, whatever the layout), the valid plane, and the two map
     entries of each valid pixel."""
     texels = _touched_texels(prep.map_x, prep.map_y, prep.valid, prep.src_h,
                              prep.src_w, interp, False)
@@ -593,7 +743,8 @@ def _remap_bytes_in(prep, planes: torch.Tensor, interp: str) -> tuple:
     maps = sampled * (prep.map_x.element_size() + prep.map_y.element_size())
     if prep.valid is not None:
         maps += prep.valid.numel() * prep.valid.element_size()
-    return (texels * planes.shape[0] * planes.element_size() + maps, sampled)
+    return (texels * channels * element_size + maps, sampled,
+            TAP_FLOPS_PER_PX[interp] * channels // 3)
 
 
 def _bilinear_vs_grid_sample(und, planes_f32: torch.Tensor) -> dict:
@@ -644,6 +795,10 @@ def phase_remap(dev) -> dict:
     maps_s = time.perf_counter() - t0
 
     img = fisheye_frame(FISH, 3, dev)
+    rows = img.reshape(FISH, FISH * 3)
+    texels = remap_cuda.remap_source(img, FISH, FISH, dev)
+    if not warp_cuda.is_texels(texels):
+        raise AssertionError("a u8 lens image did not become texels")
     planes_u8 = remap_cuda.source_planes(img, FISH, FISH, dev)
     planes_f32 = (planes_u8.to(torch.float32) / 255.0).contiguous()
     mask = (img[..., 0] > 128).to(torch.uint8) * 255
@@ -657,31 +812,49 @@ def phase_remap(dev) -> dict:
         src_w=FISH, src_h=FISH, interp="catmull-rom", device=dev)
     nearest = batch.with_interp("nearest")
 
-    def plain(prep, planes, interp):
-        return remap_cuda.remap_planes_plain(
-            planes, prep.map_x, prep.map_y, prep.valid, interp=interp,
-            fill=0.0)
+    def call(prep, src, interp, out_dtype):
+        if prep is und:
+            return prep(src, interp=interp, out_dtype=out_dtype)[None]
+        return prep(src, out_dtype=out_dtype)
 
-    def check(prep, planes, interp, label, exact=False):
-        call = (lambda: prep(planes)) if prep is not und else \
-            (lambda: prep(planes, interp=interp)[None])
-        return _remap_check(call, lambda: plain(prep, planes, interp), label,
-                            exact, *_remap_bytes_in(prep, planes, interp))
+    def check(prep, src, interp, label, exact=False):
+        # the plain version reads planes; a texel source is the u8 image
+        planes = planes_u8 if src is texels else src
+        routes = None
+        if src is texels:   # the whole device path of a u8 lens image
+            routes = (
+                lambda: warp_cuda.quantize_plain(call(
+                    prep, warp_cuda.planarize_rows(rows, 1.0, torch.uint8),
+                    interp, None), torch.uint8),
+                lambda: call(prep, warp_cuda.texelize_rows(rows), interp,
+                             torch.uint8))
+        return _remap_check(
+            lambda dt: call(prep, src, interp, dt),
+            lambda: remap_cuda.remap_planes_plain(
+                planes, prep.map_x, prep.map_y, prep.valid, interp=interp,
+                fill=0.0),
+            label, exact,
+            *_remap_bytes_in(prep, planes.shape[0], planes.element_size(),
+                             interp), routes)
 
     out = {
         "undistort_f32": check(und, planes_f32, "catmull-rom",
-                               f"undistort {FISH}² catmull-rom f32 source"),
-        "undistort": check(und, planes_u8, "catmull-rom",
-                           f"undistort {FISH}² catmull-rom u8 source"),
+                               f"undistort {FISH}² catmull-rom f32 planes"),
+        "undistort": check(und, texels, "catmull-rom",
+                           f"undistort {FISH}² catmull-rom u8 texels"),
         "batch_f32": check(batch, planes_f32, "catmull-rom",
                            f"SFM10 batch 10x{SFM10_SIZE}² catmull-rom f32 "
-                           f"source"),
-        "batch": check(batch, planes_u8, "catmull-rom",
-                       f"SFM10 batch 10x{SFM10_SIZE}² catmull-rom u8 source"),
+                           f"planes"),
+        "batch": check(batch, texels, "catmull-rom",
+                       f"SFM10 batch 10x{SFM10_SIZE}² catmull-rom u8 "
+                       f"texels"),
         "mask": check(nearest, mask_planes, "nearest",
                       f"SFM10 mask batch 10x{SFM10_SIZE}² nearest C=1",
                       exact=True),
     }
+    planes_ms = cuda_ms(lambda: call(batch, planes_u8, "catmull-rom", None))
+    log(f"[remap] SFM10 batch from u8 planes (f32 store): {planes_ms:.4f} ms "
+        f"against {out['batch']['ms_f32_out']:.4f} ms from texels")
     out["bilinear_library"] = _bilinear_vs_grid_sample(und, planes_f32)
     log(f"[remap] default Osmo 360 calibration, auto zoom "
         f"{cache.undistort_zoom:.4f}; maps built on the host in "
@@ -691,10 +864,12 @@ def phase_remap(dev) -> dict:
 
 
 def _counters() -> tuple:
-    """(launches, plain calls) of every kernel wrapper, merged."""
+    """(launches, plain calls) of every kernel wrapper, merged; the plain
+    calls include ``quantize``, the runs of the four-pass plain quantize:
+    0 on an image-mode path, whose kernels' stores quantize."""
     return ({**warp_cuda.LAUNCHES, **remap_cuda.LAUNCHES, **mo.LAUNCHES},
             {**warp_cuda.PLAIN_CALLS, **remap_cuda.PLAIN_CALLS,
-             **mo.PLAIN_CALLS})
+             **mo.PLAIN_CALLS, **warp_cuda.QUANTIZE_PASSES})
 
 
 def _reset_counters() -> None:
@@ -952,7 +1127,9 @@ def phase_video2frames(dev, tmp) -> dict:
         if launches != want:
             raise AssertionError(f"video2frames {label}: launches "
                                  f"{launches}, expected {want}")
-        if any(plain.values()):
+        # the colour move stands between the kernels and the quantize here:
+        # one plain quantize a frame, and no plain version of a kernel
+        if plain.pop("quantize") != n or any(plain.values()):
             raise AssertionError(f"video2frames {label}: plain versions "
                                  f"ran on the main path: {plain}")
         names = sorted(p.name for p in out_dir.iterdir())
@@ -1577,6 +1754,15 @@ def main() -> int:
     checks = remap["checks"]
 
     def row(name, source, replaces, kernel, stats):
+        """A warp or remap row's ms and bound are those of the launch the
+        image-mode main path makes (u8 store); the f32 store's, the
+        four-pass quantize it replaces and the device routes stand beside
+        them. The first planarize row is the texel mode, with the u8
+        planes' time beside it."""
+        extra = {k: stats[k] for k in (
+            "ms_f32_out", "bound_ms_f32_out", "bound_by_f32_out",
+            "quantize_ms", "route_unfused_ms", "route_ms", "ms_u8_planes",
+            "bound_ms_u8_planes") if k in stats}
         return {"name": name, "route": "cuda",
                 "source": f"gs360x_torch/csrc/{source}",
                 "replaces": replaces,
@@ -1584,15 +1770,17 @@ def main() -> int:
                 "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
                 "plain_ms": stats["plain_ms"],
                 "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
-                "library_ms": stats["library_ms"]}
+                "library_ms": stats["library_ms"], **extra}
 
     kernels = [
-        row("planarize (_planarize_mxu_kernel: 8K u8 -> u8)", "planarize.cu",
+        row("planarize (_planarize_mxu_kernel: 8K u8 -> RGBX texels, the "
+            "source pass of the u8 main paths)", "planarize.cu",
             "gs360x/kernels/warp_pallas.py:3234", "planarize", plan["exact"]),
         row("planarize (_planarize_kernel: 8K u8 -> f32 x1/255)",
             "planarize.cu", "gs360x/kernels/warp_pallas.py:3193", "planarize",
             plan["scaled"]),
-        row("warp_equirect (_warp_kernel_yaw2: yaw ring 8x1920x1080)",
+        row("warp_equirect (_warp_kernel_yaw2: yaw ring 8x1920x1080, u8 "
+            "store)",
             "warp_equirect.cu", "gs360x/kernels/warp_pallas.py:1032", "warp",
             warp["headline"]),
         row("warp_equirect (_warp_kernel_yaw: yaw ring 8x1600x1600)",
@@ -1610,7 +1798,7 @@ def main() -> int:
         row("warp_equirect (_warp_kernel_wide: equisolid view)",
             "warp_equirect.cu", "gs360x/kernels/warp_pallas.py:1182", "warp",
             tilted["equisolid"]),
-        row("remap (_remap_kernel: undistort 3840²)", "remap.cu",
+        row("remap (_remap_kernel: undistort 3840², u8 store)", "remap.cu",
             "gs360x/kernels/remap_pallas.py:110", "remap",
             checks["undistort"]),
         row("remap (_remap_kernel_wide3: SFM10 10x1750²)", "remap.cu",

@@ -1,4 +1,5 @@
-// planarize: interleaved (H, 3*W) rows -> planar (3, H, W).
+// planarize: interleaved (H, 3*W) rows -> planar (3, H, W), or (u8 only)
+// -> (H, W) RGBX texels, one aligned 4-byte word a pixel with X = 0.
 //
 // Replaces gs360x/kernels/warp_pallas.py: _planarize_mxu_kernel (u8 sources
 // with H % 128 == 0, a one-hot bf16 matmul on the MXU) and _planarize_kernel
@@ -30,33 +31,34 @@
 // land 64 bytes apart, each warp store fills half of every sector, and
 // u8 -> f32 ran at 31% of the bound, slower than the scalar path.
 //
-// Two vector variants, timed against each other by chip_smoke.py:
-//   regs: each thread loads its own chunk from device memory; the sectors
-//         the three strided loads of a warp share are served by L1;
-//   bulk: a block stages the contiguous input span of its 256 chunks in
-//         shared memory with one cp.async.bulk (an mbarrier counts the
-//         bytes) and de-interleaves from there.
-// They tie at u8 -> u8 and regs is ahead on f32 outputs, so gs360x_planarize
-// launches regs (kKeptVariant), the one without a barrier.
+// Each thread of the vector path (`regs`) loads its own chunk from device
+// memory; the sectors the three strided loads of a warp share are served
+// by L1.
+//
+// The texel mode is the source pass of the u8 main paths: warp_equirect.cu
+// and remap.cu read all three channels of a tap with one 4-byte load from
+// it. It moves 3 + 4 bytes a pixel (an 8K frame: 206 MB, 0.062 ms at
+// 3.35 TB/s). Its chunk is again the pixels of one 16-byte store: 4 texels
+// from 12 input bytes (three 4-byte loads, __byte_perm for the shuffle), so
+// a warp's store covers 512 contiguous bytes.
 //
 // Ragged inputs: the vector path needs N % Q == 0 and 16-byte aligned input
-// and output bases (8K frames and 3840^2 lenses qualify). Any other input,
-// such as a view with a storage offset, takes the scalar path of this file:
-// element loads and stores, each thread four pixels 256 apart, all loads
-// before any store (the shape of torch's own copy kernel).
+// and output bases (8K frames and 3840^2 lenses qualify; the texel mode
+// needs N % 4 == 0). Any other input, such as a view with a storage offset,
+// takes the scalar path of this file: element loads and stores (one 4-byte
+// store a texel), each thread four pixels 256 apart, all loads before any
+// store (the shape of torch's own copy kernel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-enum Kind { KIND_U8 = 0, KIND_U16 = 1, KIND_F32 = 2 };
-enum Variant { VARIANT_AUTO = -1, VARIANT_SCALAR = 0, VARIANT_REGS = 1,
-               VARIANT_BULK = 2 };
+// KIND_RGBX: an output kind only, (H, W) texels of 4 bytes from a u8 input
+enum Kind { KIND_U8 = 0, KIND_U16 = 1, KIND_F32 = 2, KIND_RGBX = 3 };
+enum Variant { VARIANT_AUTO = -1, VARIANT_SCALAR = 0, VARIANT_REGS = 1 };
 
-constexpr int kKeptVariant = VARIANT_REGS;
 constexpr int kThreads = 256;
-constexpr int kMaxChunkBytes = 48;  // u8 -> u8 and f32 -> f32 chunks
 
 // ---------------------------------------------------------------- vector
 
@@ -73,25 +75,23 @@ struct ChunkShape {
 };
 
 // The chunk's input as little-endian words, from device memory (read-only
-// path) or from shared memory.
-template <int kLoad, bool kGlobal>
+// path).
+template <int kLoad>
 __device__ __forceinline__ void load_words(const uint8_t* src, uint32_t* w) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const uint8_t* p = src + k * kLoad;
     if constexpr (kLoad == 16) {
       const uint4* q = reinterpret_cast<const uint4*>(p);
-      uint4 v;
-      if constexpr (kGlobal) v = __ldg(q); else v = *q;
+      const uint4 v = __ldg(q);
       w[4 * k] = v.x; w[4 * k + 1] = v.y; w[4 * k + 2] = v.z; w[4 * k + 3] = v.w;
     } else if constexpr (kLoad == 8) {
       const uint2* q = reinterpret_cast<const uint2*>(p);
-      uint2 v;
-      if constexpr (kGlobal) v = __ldg(q); else v = *q;
+      const uint2 v = __ldg(q);
       w[2 * k] = v.x; w[2 * k + 1] = v.y;
     } else {
       const unsigned int* q = reinterpret_cast<const unsigned int*>(p);
-      if constexpr (kGlobal) w[k] = __ldg(q); else w[k] = *q;
+      w[k] = __ldg(q);
     }
   }
 }
@@ -148,71 +148,25 @@ planarize_regs(const uint8_t* __restrict__ in, Tout* __restrict__ out,
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n_chunks; i += stride) {
     uint32_t w[S::kWords];
-    load_words<S::kLoad, true>(in + i * S::kBytes, w);
+    load_words<S::kLoad>(in + i * S::kBytes, w);
     store_chunk<Tin, Tout>(w, out + i * S::Q, n_pix, scale);
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Thread 0 of the block: arm `bar` for `bytes` and start the bulk copy.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t phase) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(phase) : "memory");
-  } while (!done);
-}
-
-template <typename Tin, typename Tout>
+// Texel mode, vector path: a chunk is 4 pixels, 12 input bytes in three
+// words (R0G0B0R1 G1B1R2G2 B2R3G3B3) -> one 16-byte store of 4 RGBX texels.
 __global__ void __launch_bounds__(kThreads)
-planarize_bulk(const uint8_t* __restrict__ in, Tout* __restrict__ out,
-               int64_t n_chunks, int64_t n_pix, float scale) {
-  using S = ChunkShape<Tin, Tout>;
-  constexpr uint32_t kTileBytes = kThreads * S::kBytes;  // a multiple of 16
-  __shared__ __align__(128) uint8_t tile[kThreads * kMaxChunkBytes];
-  __shared__ __align__(8) uint64_t full;
-  const int64_t n_tiles = n_chunks / kThreads;  // full tiles, staged
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                 :: "r"(smem_addr(&full)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  uint32_t phase = 0;
-  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    if (tid == 0) bulk_load(tile, in + t * kTileBytes, kTileBytes, &full);
-    wait_phase(&full, phase);
-    phase ^= 1u;
-    uint32_t w[S::kWords];
-    load_words<S::kLoad, false>(&tile[tid * S::kBytes], w);
-    store_chunk<Tin, Tout>(w, out + (t * kThreads + tid) * S::Q, n_pix, scale);
-    __syncthreads();  // every thread is done with the tile before the next
-  }
-  // the last, partial tile (its bytes need not make a multiple of 16) is
-  // read straight from device memory
-  const int64_t i = n_tiles * kThreads + tid;
-  if (blockIdx.x == gridDim.x - 1 && i < n_chunks) {
-    uint32_t w[S::kWords];
-    load_words<S::kLoad, true>(in + i * S::kBytes, w);
-    store_chunk<Tin, Tout>(w, out + i * S::Q, n_pix, scale);
+texelize_regs(const uint8_t* __restrict__ in, uint4* __restrict__ out,
+              int64_t n_chunks) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n_chunks; i += stride) {
+    uint32_t w[3];
+    load_words<4>(in + i * 12, w);
+    out[i] = make_uint4(w[0] & 0x00ffffffu,
+                        __byte_perm(w[0], w[1], 0x0543) & 0x00ffffffu,
+                        __byte_perm(w[1], w[2], 0x0432) & 0x00ffffffu,
+                        w[2] >> 8);
   }
 }
 
@@ -255,6 +209,33 @@ planarize_scalar(const Tin* __restrict__ in, Tout* __restrict__ out,
   }
 }
 
+// Texel mode, scalar path: one pixel a thread, three byte loads and one
+// 4-byte store (the output of a fresh allocation is always 4-byte aligned;
+// the C entry refuses any other).
+__global__ void __launch_bounds__(kThreads)
+texelize_scalar(const uint8_t* __restrict__ in, uint32_t* __restrict__ out,
+                int64_t n_pix) {
+  constexpr int64_t kTile = kThreads * kUnroll;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
+       base < n_pix; base += static_cast<int64_t>(gridDim.x) * kTile) {
+    uint32_t v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t p = base + u * kThreads;
+      if (p < n_pix) {
+        v[u] = static_cast<uint32_t>(in[3 * p]) |
+               (static_cast<uint32_t>(in[3 * p + 1]) << 8) |
+               (static_cast<uint32_t>(in[3 * p + 2]) << 16);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t p = base + u * kThreads;
+      if (p < n_pix) out[p] = v[u];
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 // Blocks for `items` work items of kThreads each, up to the grid's x limit;
@@ -276,9 +257,6 @@ cudaError_t launch(int variant, const void* rows, void* out, int64_t n_pix,
   if (variant == VARIANT_REGS) {
     planarize_regs<Tin, Tout><<<blocks_for(n_chunks), kThreads, 0, stream>>>(
         bytes, dst, n_chunks, n_pix, scale);
-  } else if (variant == VARIANT_BULK) {
-    planarize_bulk<Tin, Tout><<<blocks_for(n_chunks), kThreads, 0, stream>>>(
-        bytes, dst, n_chunks, n_pix, scale);
   } else {
     const int64_t tiles = (n_pix + kUnroll - 1) / kUnroll;
     planarize_scalar<Tin, Tout><<<blocks_for(tiles), kThreads, 0, stream>>>(
@@ -287,8 +265,23 @@ cudaError_t launch(int variant, const void* rows, void* out, int64_t n_pix,
   return cudaGetLastError();
 }
 
+cudaError_t launch_texels(int variant, const void* rows, void* out,
+                          int64_t n_pix, cudaStream_t stream) {
+  const uint8_t* bytes = static_cast<const uint8_t*>(rows);
+  if (variant == VARIANT_REGS) {
+    const int64_t n_chunks = n_pix / 4;
+    texelize_regs<<<blocks_for(n_chunks), kThreads, 0, stream>>>(
+        bytes, static_cast<uint4*>(out), n_chunks);
+  } else {
+    const int64_t tiles = (n_pix + kUnroll - 1) / kUnroll;
+    texelize_scalar<<<blocks_for(tiles), kThreads, 0, stream>>>(
+        bytes, static_cast<uint32_t*>(out), n_pix);
+  }
+  return cudaGetLastError();
+}
+
 // The vector path's condition: whole chunks (Q = 16 pixels for a u8 output,
-// 4 for f32) and 16-byte aligned bases.
+// 4 for f32 and for texels) and 16-byte aligned bases.
 bool vector_ok(const void* rows, const void* out, int out_kind,
                int64_t n_pix) {
   return reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
@@ -298,19 +291,19 @@ bool vector_ok(const void* rows, const void* out, int out_kind,
 
 }  // namespace
 
-// The variant gs360x_planarize launches for these pointers and sizes: the
-// kept vector variant (1 regs, 2 bulk) or 0, the scalar path.
+// The variant gs360x_planarize launches for these pointers and sizes: 1,
+// the vector path (regs), or 0, the scalar path.
 extern "C" int gs360x_planarize_auto_variant(const void* rows,
                                              const void* out, int out_kind,
                                              int64_t h, int64_t w) {
-  return vector_ok(rows, out, out_kind, h * w) ? kKeptVariant
+  return vector_ok(rows, out, out_kind, h * w) ? VARIANT_REGS
                                                : VARIANT_SCALAR;
 }
 
-// in_kind: 0 u8, 1 u16, 2 f32. out_kind: 0 u8 (u8 input only), 2 f32.
-// variant: -1 the automatic choice, 0 scalar, 1 regs, 2 bulk (a vector
-// variant the input does not qualify for is refused). Returns a cudaError_t
-// (0 = launched).
+// in_kind: 0 u8, 1 u16, 2 f32. out_kind: 0 u8 planes (u8 input only), 2 f32
+// planes, 3 RGBX texels (u8 input only; `out` 4-byte aligned; `scale`
+// unused). variant: -1 the automatic choice, 0 scalar, 1 regs (refused for
+// an input that does not qualify). Returns a cudaError_t (0 = launched).
 extern "C" int gs360x_planarize_variant(const void* rows, int in_kind,
                                         void* out, int out_kind, int64_t h,
                                         int64_t w, float scale, int variant,
@@ -320,14 +313,18 @@ extern "C" int gs360x_planarize_variant(const void* rows, int in_kind,
   if (variant == VARIANT_AUTO) {
     variant = gs360x_planarize_auto_variant(rows, out, out_kind, h, w);
   }
-  if (variant != VARIANT_SCALAR && variant != VARIANT_REGS &&
-      variant != VARIANT_BULK) {
+  if (variant != VARIANT_SCALAR && variant != VARIANT_REGS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (variant != VARIANT_SCALAR && !vector_ok(rows, out, out_kind, n_pix)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_kind == KIND_RGBX) {
+    if (in_kind != KIND_U8 || reinterpret_cast<uintptr_t>(out) % 4 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_texels(variant, rows, out, n_pix, s));
+  }
   if (out_kind == KIND_U8) {
     if (in_kind != KIND_U8) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(

@@ -1,6 +1,7 @@
-// warp_equirect: planar equirect source (3, H, W) -> views (V, 3, h, w)
-// f32, bicubic (v360 4-point Lagrange) or bilinear, for perspective and
-// circular-fisheye (equidistant v360 "fisheye", equisolid) outputs.
+// warp_equirect: an equirect source (RGBX texels, or 3 planes) -> views
+// (V, 3, h, w) in f32, u8 or u16, bicubic (v360 4-point Lagrange) or
+// bilinear, for perspective and circular-fisheye (equidistant v360
+// "fisheye", equisolid) outputs.
 //
 // Replaces gs360x/kernels/warp_pallas.py: _warp_kernel_yaw2 (yaw ring),
 // _warp_kernel (narrow/tilted views), _warp_kernel_wide3 (poles in view,
@@ -28,22 +29,45 @@
 // same f32 expression as the plain twin's _pixel_ndc / fisheye_rays: the
 // image circle is bitwise the twin's.
 //
-// Bound on the H100: scattered source reads through L1/L2 (16 taps x 3
-// channels per bicubic pixel, ~50 loads against ~12 bytes written), plus
-// the per-pixel trig. Built without fast math: the approximate
-// atan2f/asinf move u by more than 0.01 px at 8K.
+// Bound on the H100. With the f32 store the bytes that must move bound it
+// (12 bytes written a pixel against the touched source texels read once).
+// With the u8 store a view set writes a quarter of that and the bound
+// becomes its operations: ~216 f32 operations a bicubic pixel (96 of taps,
+// the weights, the ray, libdevice atan2f / asinf; sinf / cosf for fisheye
+// rays). Built without fast math: the approximate atan2f / asinf move u by
+// more than 0.01 px at 8K. What it reaches is set by instruction issue, not
+// by memory: a bicubic pixel is ~680 instructions, ~470 of them the
+// coordinate chain (13 IEEE divisions, sqrt, atan2f, asinf, the weights),
+// and the card issues one instruction a clock and scheduler. Measured on
+// the yaw ring: with every tap load removed the kernel is 9% faster, with
+// atan2f and asinf removed 9% (PERF.md).
 //
 // Design: a block is 32 x 8 output pixels of one view; a warp is 32
 // neighbouring output columns of one row, so its taps fall on a few
 // neighbouring source rows and the same cache lines. One thread computes
 // the three channels of its pixel from one set of coordinates and weights.
+// - A u8 frame is read as RGBX texels (resample.cuh): one aligned 4-byte
+//   load a tap gives its three channels, 16 loads a bicubic pixel.
+// - No `%`: u lies in [-0.5, W - 0.5], so a tap column lies in [-2, W + 1]
+//   and one conditional add and one conditional subtract wrap it; the four
+//   wrapped columns are computed once a pixel and serve every row that does
+//   not reflect. A reflected row adds W/2 and subtracts W once more where
+//   needed. Indices are 32-bit.
+// - The store quantizes (resample.cuh `finish`): in image mode the views
+//   leave the kernel as u8 or u16, bitwise the four-pass quantize of the f32
+//   store. The accumulation order per channel (kx inner, ky outer, then
+//   * scale) is the same for every source layout and store.
 // u8 sources are accumulated as raw values and scaled once (`scale`).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "resample.cuh"
+
 namespace {
+
+using namespace gs360x;
 
 // per-view row: rot[0:9], then tan(hfov/2), tan(vfov/2) (perspective) or
 // half = hfov/2 in radians, sin(half/2) (fisheye)
@@ -51,47 +75,56 @@ constexpr int kTable = 16;
 constexpr int kPerspective = 0;
 constexpr int kEquidistant = 1;  // v360 output=fisheye ("fisheye_v360")
 constexpr int kEquisolid = 2;
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
 
 struct Geometry {
   int src_h, src_w, out_h, out_w;
   float scale;
 };
 
+// x modulo w for x in [-w, 2w): every tap column before the pole shift
+// lies in [-2, w + 1] (warp_cuda.wrap_tap_column states the rule and its
+// range on the host).
 __device__ __forceinline__ int wrap_col(int x, int w) {
-  int r = x % w;  // C remainder keeps the sign of x
-  return r < 0 ? r + w : r;
+  x += x < 0 ? w : 0;
+  x -= x >= w ? w : 0;
+  return x;
 }
 
-// v360 reflecty: a row past a pole reflects; `shift` gets the half-width
-// column shift that carries the sample onto the opposite meridian.
-__device__ __forceinline__ int reflect_row(int y, int h, int w, int* shift) {
-  int over = 0;
+// v360 reflecty: a row past a pole reflects (`over`), and the sample then
+// sits on the opposite meridian, half a width away.
+__device__ __forceinline__ int reflect_row(int y, int h, bool* over) {
+  *over = y < 0 || y >= h;
   if (y < 0) {
     y = -1 - y;
-    over = 1;
   } else if (y >= h) {
     y = 2 * h - 1 - y;
-    over = 1;
   }
-  *shift = over ? (w / 2) : 0;
   return min(max(y, 0), h - 1);
 }
 
-__device__ __forceinline__ void lagrange(float t, float wt[4]) {
-  const float tt = t * t;
-  const float ttt = tt * t;
-  wt[0] = -t / 3.0f + tt / 2.0f - ttt / 6.0f;
-  wt[1] = 1.0f - t / 2.0f - tt + ttt / 2.0f;
-  wt[2] = t + tt / 2.0f - ttt / 2.0f;
-  wt[3] = -t / 6.0f + ttt / 6.0f;
+// The pixel indices of one tap row: `cols` (wrapped, unshifted) on the row
+// that `y` reflects to, shifted by W/2 and wrapped again where it reflects.
+template <int N>
+__device__ __forceinline__ void row_taps(int y, const int (&cols)[N],
+                                         const Geometry& g, int (&idx)[N]) {
+  bool over;
+  const int row = reflect_row(y, g.src_h, &over) * g.src_w;
+#pragma unroll
+  for (int k = 0; k < N; ++k) idx[k] = row + cols[k];
+  if (over) {
+    const int half = g.src_w / 2;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int c = cols[k] + half;
+      idx[k] = row + (c >= g.src_w ? c - g.src_w : c);
+    }
+  }
 }
 
-template <typename T, bool kBicubic, int kProj>
-__global__ void warp_equirect_kernel(const T* __restrict__ src,
-                                     const float* __restrict__ views,
-                                     float* __restrict__ out, Geometry g) {
+template <typename Src, typename Tout, bool kBicubic, int kProj>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+warp_equirect_kernel(Src src, const float* __restrict__ views,
+                     Tout* __restrict__ out, Geometry g) {
   const int j = blockIdx.x * kBlockX + threadIdx.x;
   const int i = blockIdx.y * kBlockY + threadIdx.y;
   const int vi = blockIdx.z;
@@ -99,8 +132,8 @@ __global__ void warp_equirect_kernel(const T* __restrict__ src,
 
   const float* tab = views + vi * kTable;
   const int64_t out_plane = static_cast<int64_t>(g.out_h) * g.out_w;
-  float* o = out + static_cast<int64_t>(vi) * 3 * out_plane +
-             static_cast<int64_t>(i) * g.out_w + j;
+  Tout* o = out + static_cast<int64_t>(vi) * 3 * out_plane +
+            static_cast<int64_t>(i) * g.out_w + j;
 
   // pixel center in [-1, 1], rounded exactly as the twin's _pixel_ndc
   const float nx = __fadd_rn(
@@ -123,9 +156,9 @@ __global__ void warp_equirect_kernel(const T* __restrict__ src,
   } else {
     const float r = __fsqrt_rn(__fadd_rn(__fmul_rn(nx, nx), __fmul_rn(ny, ny)));
     if (!(r <= 1.0f)) {  // outside the image circle: fill 0
-      o[0] = 0.0f;
-      o[out_plane] = 0.0f;
-      o[2 * out_plane] = 0.0f;
+      o[0] = Tout(0);
+      o[out_plane] = Tout(0);
+      o[2 * out_plane] = Tout(0);
       return;
     }
     float theta = (kProj == kEquidistant)
@@ -156,116 +189,128 @@ __global__ void warp_equirect_kernel(const T* __restrict__ src,
   const int x0 = static_cast<int>(x0f);
   const int y0 = static_cast<int>(y0f);
 
-  const int64_t plane = static_cast<int64_t>(g.src_h) * g.src_w;
-  const T* p0 = src;
-  const T* p1 = src + plane;
-  const T* p2 = src + 2 * plane;
-  float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
-
+  float acc[3] = {0.0f, 0.0f, 0.0f};
   if (kBicubic) {
     float wxs[4], wys[4];
-    lagrange(fx, wxs);
-    lagrange(fy, wys);
+    cubic_weights(fx, wxs, true);
+    cubic_weights(fy, wys, true);
+    int cols[4];
+#pragma unroll
+    for (int kx = 0; kx < 4; ++kx) cols[kx] = wrap_col(x0 + kx - 1, g.src_w);
 #pragma unroll
     for (int ky = 0; ky < 4; ++ky) {
-      int shift;
-      const int yy = reflect_row(y0 + ky - 1, g.src_h, g.src_w, &shift);
-      const int64_t row = static_cast<int64_t>(yy) * g.src_w;
-      float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f;
+      int idx[4];
+      row_taps(y0 + ky - 1, cols, g, idx);
+      float t[4][3];
+      src.fetch_row(idx, t);
+      float r[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int kx = 0; kx < 4; ++kx) {
-        const int64_t idx = row + wrap_col(x0 + kx - 1 + shift, g.src_w);
-        r0 += static_cast<float>(p0[idx]) * wxs[kx];
-        r1 += static_cast<float>(p1[idx]) * wxs[kx];
-        r2 += static_cast<float>(p2[idx]) * wxs[kx];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) r[c] += t[kx][c] * wxs[kx];
       }
-      acc0 += r0 * wys[ky];
-      acc1 += r1 * wys[ky];
-      acc2 += r2 * wys[ky];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc[c] += r[c] * wys[ky];
     }
   } else {
-    int sh0, sh1;
-    const int ya = reflect_row(y0, g.src_h, g.src_w, &sh0);
-    const int yb = reflect_row(y0 + 1, g.src_h, g.src_w, &sh1);
-    const int64_t ra = static_cast<int64_t>(ya) * g.src_w;
-    const int64_t rb = static_cast<int64_t>(yb) * g.src_w;
-    const int64_t i00 = ra + wrap_col(x0 + sh0, g.src_w);
-    const int64_t i01 = ra + wrap_col(x0 + 1 + sh0, g.src_w);
-    const int64_t i10 = rb + wrap_col(x0 + sh1, g.src_w);
-    const int64_t i11 = rb + wrap_col(x0 + 1 + sh1, g.src_w);
-    const T* planes[3] = {p0, p1, p2};
-    float accs[3];
+    const int cols[2] = {wrap_col(x0, g.src_w), wrap_col(x0 + 1, g.src_w)};
+    int ia[2], ib[2];
+    row_taps(y0, cols, g, ia);
+    row_taps(y0 + 1, cols, g, ib);
+    float ta[2][3], tb[2][3];
+    src.fetch_row(ia, ta);
+    src.fetch_row(ib, tb);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const T* p = planes[c];
-      const float top = static_cast<float>(p[i00]) * (1.0f - fx) +
-                        static_cast<float>(p[i01]) * fx;
-      const float bot = static_cast<float>(p[i10]) * (1.0f - fx) +
-                        static_cast<float>(p[i11]) * fx;
-      accs[c] = top * (1.0f - fy) + bot * fy;
+      const float top = ta[0][c] * (1.0f - fx) + ta[1][c] * fx;
+      const float bot = tb[0][c] * (1.0f - fx) + tb[1][c] * fx;
+      acc[c] = top * (1.0f - fy) + bot * fy;
     }
-    acc0 = accs[0];
-    acc1 = accs[1];
-    acc2 = accs[2];
   }
-
-  o[0] = acc0 * g.scale;
-  o[out_plane] = acc1 * g.scale;
-  o[2 * out_plane] = acc2 * g.scale;
+  store_pixel<Tout, 3>(o, out_plane, acc, g.scale);
 }
 
-template <typename T, int kProj>
-void launch_proj(const T* src, const float* views, float* out, int n_views,
-                 int interp, const Geometry& g, cudaStream_t stream) {
+struct Launch {
+  const float* views;
+  void* out;
+  int n_views, interp, projection;
+  Geometry g;
+  cudaStream_t stream;
+};
+
+template <typename Src, typename Tout, int kProj>
+void launch_interp(const Src& src, const Launch& l) {
   dim3 block(kBlockX, kBlockY);
-  dim3 grid((g.out_w + kBlockX - 1) / kBlockX,
-            (g.out_h + kBlockY - 1) / kBlockY, n_views);
-  if (interp == 1) {
-    warp_equirect_kernel<T, true, kProj><<<grid, block, 0, stream>>>(
-        src, views, out, g);
+  dim3 grid((l.g.out_w + kBlockX - 1) / kBlockX,
+            (l.g.out_h + kBlockY - 1) / kBlockY, l.n_views);
+  Tout* out = static_cast<Tout*>(l.out);
+  if (l.interp == 1) {
+    warp_equirect_kernel<Src, Tout, true, kProj><<<grid, block, 0, l.stream>>>(
+        src, l.views, out, l.g);
   } else {
-    warp_equirect_kernel<T, false, kProj><<<grid, block, 0, stream>>>(
-        src, views, out, g);
+    warp_equirect_kernel<Src, Tout, false, kProj><<<grid, block, 0, l.stream>>>(
+        src, l.views, out, l.g);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* src, const float* views, float* out,
-                   int n_views, int interp, int projection, const Geometry& g,
-                   cudaStream_t stream) {
-  const T* s = static_cast<const T*>(src);
-  if (projection == kPerspective) {
-    launch_proj<T, kPerspective>(s, views, out, n_views, interp, g, stream);
-  } else if (projection == kEquidistant) {
-    launch_proj<T, kEquidistant>(s, views, out, n_views, interp, g, stream);
+template <typename Src, typename Tout>
+void launch_proj(const Src& src, const Launch& l) {
+  if (l.projection == kPerspective) {
+    launch_interp<Src, Tout, kPerspective>(src, l);
+  } else if (l.projection == kEquidistant) {
+    launch_interp<Src, Tout, kEquidistant>(src, l);
   } else {
-    launch_proj<T, kEquisolid>(s, views, out, n_views, interp, g, stream);
+    launch_interp<Src, Tout, kEquisolid>(src, l);
+  }
+}
+
+template <typename Src>
+cudaError_t launch_out(const Src& src, int out_kind, const Launch& l) {
+  if (out_kind == KIND_U8) {
+    launch_proj<Src, uint8_t>(src, l);
+  } else if (out_kind == KIND_U16) {
+    launch_proj<Src, uint16_t>(src, l);
+  } else {
+    launch_proj<Src, float>(src, l);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// src_kind: 0 u8 planes, 2 f32 planes. interp: 0 bilinear, 1 bicubic.
-// projection: 0 perspective, 1 equidistant fisheye, 2 equisolid fisheye.
-// views: (n_views, 16) f32 on the device. out: (n_views, 3, out_h, out_w) f32.
-// Returns a cudaError_t (0 = launched).
+// src_kind: 3 RGBX texels (H, W) of 4 bytes, 4-byte aligned; 0 u8 planes;
+// 2 f32 planes (3, H, W). interp: 0 bilinear, 1 bicubic. projection:
+// 0 perspective, 1 equidistant fisheye, 2 equisolid fisheye. views:
+// (n_views, 16) f32 on the device. out: (n_views, 3, out_h, out_w) of
+// out_kind 0 u8, 1 u16 or 2 f32. Returns a cudaError_t (0 = launched).
 extern "C" int gs360x_warp_equirect(const void* src, int src_kind, int src_h,
                                     int src_w, const void* views, int n_views,
-                                    void* out, int out_h, int out_w,
-                                    int interp, int projection, float scale,
-                                    void* stream) {
+                                    void* out, int out_kind, int out_h,
+                                    int out_w, int interp, int projection,
+                                    float scale, void* stream) {
   if (n_views <= 0 || out_h <= 0 || out_w <= 0) return 0;
-  if (src_h <= 0 || src_w <= 0 || n_views > 65535 ||
-      (interp != 0 && interp != 1) || projection < 0 || projection > 2)
+  // wrap_col needs every tap column within [-w, 2w): w >= 2
+  if (src_h <= 0 || src_w < 2 || n_views > 65535 ||
+      static_cast<int64_t>(src_h) * src_w * 3 > 0x7fffffff ||
+      (interp != 0 && interp != 1) || projection < 0 || projection > 2 ||
+      (out_kind != KIND_U8 && out_kind != KIND_U16 && out_kind != KIND_F32))
     return static_cast<int>(cudaErrorInvalidValue);
-  Geometry g{src_h, src_w, out_h, out_w, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* tab = static_cast<const float*>(views);
-  float* o = static_cast<float*>(out);
-  if (src_kind == 0)
-    return static_cast<int>(launch<uint8_t>(src, tab, o, n_views, interp, projection, g, s));
-  if (src_kind == 2)
-    return static_cast<int>(launch<float>(src, tab, o, n_views, interp, projection, g, s));
+  const Launch l{static_cast<const float*>(views), out, n_views, interp,
+                 projection, Geometry{src_h, src_w, out_h, out_w, scale},
+                 static_cast<cudaStream_t>(stream)};
+  const int plane = src_h * src_w;
+  if (src_kind == KIND_RGBX) {
+    if (reinterpret_cast<uintptr_t>(src) % 4 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_out(
+        Texels{static_cast<const uint32_t*>(src)}, out_kind, l));
+  }
+  if (src_kind == KIND_U8)
+    return static_cast<int>(launch_out(
+        Planes<uint8_t, 3>{static_cast<const uint8_t*>(src), plane}, out_kind,
+        l));
+  if (src_kind == KIND_F32)
+    return static_cast<int>(launch_out(
+        Planes<float, 3>{static_cast<const float*>(src), plane}, out_kind, l));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -77,10 +77,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gs360x_planarize_auto_variant.argtypes = [vp, vp, i32, i64, i64]
     lib.gs360x_planarize_auto_variant.restype = i32
     lib.gs360x_warp_equirect.argtypes = [vp, i32, i32, i32, vp, i32, vp,
-                                         i32, i32, i32, i32, f32, vp]
+                                         i32, i32, i32, i32, i32, f32, vp]
     lib.gs360x_warp_equirect.restype = i32
     lib.gs360x_remap.argtypes = [vp, i32, i32, i32, i32, vp, vp, vp, i32,
-                                 vp, i32, i32, i32, f32, f32, vp]
+                                 vp, i32, i32, i32, i32, f32, f32, vp]
     lib.gs360x_remap.restype = i32
     lib.gs360x_micro_op.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i32,
                                     i32, vp]
@@ -142,6 +142,28 @@ def load() -> ctypes.CDLL:
         _declare(lib)
         _lib = lib
         return lib
+
+
+def ptxas_report() -> list:
+    """What ptxas said of every kernel of the last build, from
+    ``build_log``: ``(mangled name, registers, spill_bytes, text)`` with
+    ``text`` the "Used N registers" line joined to the stack and spill
+    line. Empty when this process reused an earlier build."""
+    report, name, frame = [], "", ""
+    for line in build_log.splitlines():
+        line = line.strip()
+        if "Function properties for" in line:
+            name = line.rsplit(" ", 1)[-1]
+        elif "bytes stack frame" in line:
+            frame = line
+        elif line.startswith("ptxas info") and "Used" in line \
+                and "registers" in line:
+            used = line.split(":", 1)[-1].strip()
+            nums = [int(t) for t in frame.replace(",", " ").split()
+                    if t.isdigit()]
+            report.append((name, int(used.split()[1]), sum(nums[1:3]),
+                           f"{used}; {frame}"))
+    return report
 
 
 def check(err: int, what: str) -> None:

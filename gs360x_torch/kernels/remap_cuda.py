@@ -1,19 +1,29 @@
 """CUDA remap path — the counterpart of :mod:`gs360x.kernels.remap_pallas`.
 
 One hand-written kernel, ``gs360x_torch/csrc/remap.cu``, resamples one
-planar source through V static coordinate maps in one launch (``cv2.remap``
+source through V static coordinate maps in one launch (``cv2.remap``
 semantics: ``out = valid ? sample(src, map_x, map_y) : fill``, taps clamped
 to the source), replacing ``_remap_kernel`` (one map) and
 ``_remap_kernel_wide3`` (V maps over one source). Interps: ``nearest``,
 ``bilinear``, ``bicubic`` (v360 4-point Lagrange) and ``catmull-rom``;
 sources are u8 or f32 with 1 or 3 channels.
 
+On the card the remap is bound by bytes: maps and ``valid`` (9 bytes an
+output pixel), the touched source, and the output. A u8 RGB source is
+therefore read as RGBX texels (:func:`remap_source`,
+``warp_cuda.texelize_rows``: one 4-byte load a tap for its three channels;
+f32 sources and masks stay planes), and ``out_dtype`` lets the kernel store
+u8 or u16, ``rint(clamp(x, 0, 1) · 255 | 65535)`` with ``fill`` quantized
+alike: bitwise ``warp_cuda.quantize_plain`` of its f32 store at a quarter
+of the written bytes. The dual-fisheye views and undistorted lenses ask
+for u8; f32 (``out_dtype=None``) stays for chains that go on in float.
+
 :class:`PreparedRemap` and :class:`PreparedRemapBatch` take the JAX
 classes' arguments plus an explicit device, upload their maps once and keep
 them resident. Every map shape launches: there is no window budget and no
 ``PallasFallback``. A source may be given as (H, W, C) or (H, W·C) rows, a
-2-D single-channel image, or ready planes from :func:`source_planes`, so
-that one planarize serves every map of a lens.
+2-D single-channel image, or a ready source from :func:`remap_source` /
+:func:`source_planes`, so that one source pass serves every map of a lens.
 
 CUDA tensors launch the kernel (or raise); CPU tensors run the plain
 version, :func:`remap_planes_plain` (the twin's
@@ -41,6 +51,7 @@ PLAIN_CALLS: Dict[str, int] = {"remap": 0}
 INTERPS = ("nearest", "bilinear", "bicubic", "catmull-rom")
 _INTERP = {name: code for code, name in enumerate(INTERPS)}
 _KIND = {torch.uint8: 0, torch.float32: 2}
+_KIND_TEXELS = 3   # (H, W) RGBX u8 texels, as warp_cuda.texelize_rows makes
 
 
 def reset_counters() -> None:
@@ -55,6 +66,19 @@ def _check_interp(interp: str) -> None:
                          f"{', '.join(INTERPS)}")
 
 
+def _to_device(src: np.ndarray, device: Optional[torch.device]
+               ) -> torch.Tensor:
+    """A host image on ``device`` (CPU for None) in its own dtype (u8, u16,
+    f32; anything else as f32): one copy of its bytes."""
+    if src.dtype not in (np.uint8, np.uint16, np.float32):
+        src = src.astype(np.float32)
+    with warnings.catch_warnings():
+        # decoders hand out read-only arrays; nothing here writes to them
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(np.ascontiguousarray(src)).to(
+            device or torch.device("cpu"))
+
+
 def source_planes(src, src_h: int, src_w: int,
                   device: Optional[torch.device] = None) -> torch.Tensor:
     """Planar (C, src_h, src_w) source for the remap, C in {1, 3}: u8
@@ -66,13 +90,7 @@ def source_planes(src, src_h: int, src_w: int,
     goes to ``device`` once. Interleaved RGB goes through
     :func:`warp_cuda.planarize_rows` (``planarize.cu`` on the card)."""
     if isinstance(src, np.ndarray):
-        if src.dtype not in (np.uint8, np.uint16, np.float32):
-            src = src.astype(np.float32)
-        with warnings.catch_warnings():
-            # decoders hand out read-only arrays; nothing here writes to them
-            warnings.filterwarnings("ignore", message=".*not writable.*")
-            src = torch.from_numpy(np.ascontiguousarray(src)).to(
-                device or torch.device("cpu"))
+        src = _to_device(src, device)
     shape = tuple(src.shape)
     if src.dim() == 3 and shape[0] in (1, 3) and shape[1:] == (src_h, src_w):
         planes = src
@@ -99,6 +117,30 @@ def source_planes(src, src_h: int, src_w: int,
     return planes.to(torch.float32).contiguous()
 
 
+def remap_source(src, src_h: int, src_w: int,
+                 device: Optional[torch.device] = None) -> torch.Tensor:
+    """The source in the layout ``remap.cu`` reads with the fewest loads:
+    (src_h, src_w, 4) RGBX texels for a u8 RGB image given interleaved
+    ((H, W, 3) or (H, W·3) rows, numpy or torch; texels pass through), else
+    :func:`source_planes` (f32 and u16 sources, masks, ready planes)."""
+    shape = tuple(src.shape)
+    if isinstance(src, torch.Tensor) and warp_cuda.is_texels(src) \
+            and shape[:2] == (src_h, src_w):
+        return src
+    if src.dtype in (np.uint8, torch.uint8) \
+            and shape in ((src_h, src_w, 3), (src_h, src_w * 3)):
+        if isinstance(src, np.ndarray):
+            src = _to_device(src, device)
+        return warp_cuda.texelize_rows(src.reshape(src_h, src_w * 3))
+    return source_planes(src, src_h, src_w, device)
+
+
+def _planes_of(src: torch.Tensor) -> torch.Tensor:
+    """(3, H, W) planes of a texel source, planes as they are: what the
+    plain version reads."""
+    return src[..., :3].permute(2, 0, 1) if warp_cuda.is_texels(src) else src
+
+
 def remap_planes_plain(planes: torch.Tensor, map_x: torch.Tensor,
                        map_y: torch.Tensor, valid: Optional[torch.Tensor],
                        *, interp: str, fill: float) -> torch.Tensor:
@@ -119,23 +161,31 @@ def remap_planes_plain(planes: torch.Tensor, map_x: torch.Tensor,
 
 def remap_planes(planes: torch.Tensor, map_x: torch.Tensor,
                  map_y: torch.Tensor, valid: Optional[torch.Tensor], *,
-                 interp: str, fill: float = 0.0) -> torch.Tensor:
-    """(C, H, W) u8/f32 planes through (V, h, w) f32 maps (and a (V, h, w)
-    bool ``valid`` or None) → (V, C, h, w) f32 in one launch of
-    ``remap.cu`` on a CUDA device; the plain version on the CPU."""
+                 interp: str, fill: float = 0.0,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A source — (C, H, W) u8/f32 planes, C in {1, 3}, or (H, W, 4) RGBX
+    u8 texels — through (V, h, w) f32 maps (and a (V, h, w) bool ``valid``
+    or None) → (V, C, h, w) of ``out_dtype`` (None: f32; u8 or u16: the
+    kernel's quantizing store) in one launch of ``remap.cu`` on a CUDA
+    device; the plain version, quantized by ``warp_cuda.quantize_plain``,
+    on the CPU."""
     _check_interp(interp)
-    if planes.dim() != 3 or planes.shape[0] not in (1, 3) \
-            or planes.dtype not in _KIND:
-        raise ValueError(f"remap: expected (1|3, H, W) u8/f32 planes, got "
-                         f"{tuple(planes.shape)} {planes.dtype}")
+    out_dtype, out_kind = warp_cuda._out_kind(out_dtype)
+    texels = warp_cuda.is_texels(planes)
+    if not texels and (planes.dim() != 3 or planes.shape[0] not in (1, 3)
+                       or planes.dtype not in _KIND):
+        raise ValueError(f"remap: expected (1|3, H, W) u8/f32 planes or "
+                         f"(H, W, 4) u8 texels, got {tuple(planes.shape)} "
+                         f"{planes.dtype}")
     if map_x.dim() != 3 or map_x.shape != map_y.shape or (
             valid is not None and valid.shape != map_x.shape):
         raise ValueError("remap: map_x, map_y (and valid) must share one "
                          f"(V, h, w) shape, got {tuple(map_x.shape)}, "
                          f"{tuple(map_y.shape)}")
     if planes.device.type == "cpu":
-        return remap_planes_plain(planes, map_x, map_y, valid, interp=interp,
-                                  fill=fill)
+        return warp_cuda.quantize_plain(
+            remap_planes_plain(_planes_of(planes), map_x, map_y, valid,
+                               interp=interp, fill=fill), out_dtype)
     if planes.device.type != "cuda":
         raise ValueError(f"remap: expected a CUDA or CPU tensor, got "
                          f"{planes.device}")
@@ -144,23 +194,31 @@ def remap_planes(planes: torch.Tensor, map_x: torch.Tensor,
         raise ValueError("remap: maps and source must be on one device")
     if map_x.dtype != torch.float32 or map_y.dtype != torch.float32:
         raise ValueError("remap: maps must be float32")
-    planes = planes.contiguous()
+    planes = warp_cuda.aligned_texels(planes) if texels \
+        else planes.contiguous()
     map_x, map_y = map_x.contiguous(), map_y.contiguous()
     if valid is not None:
         valid = valid.to(torch.bool).contiguous()
     n_maps, out_h, out_w = map_x.shape
-    channels, src_h, src_w = planes.shape
-    out = torch.empty((n_maps, channels, out_h, out_w), dtype=torch.float32,
+    if texels:
+        (src_h, src_w), channels, kind = planes.shape[:2], 3, _KIND_TEXELS
+    else:
+        channels, src_h, src_w = planes.shape
+        kind = _KIND[planes.dtype]
+    if channels * src_h * src_w >= 2 ** 31:
+        raise ValueError(f"remap: a {src_w}x{src_h} source is outside the "
+                         "kernel's range (C*H*W < 2^31)")
+    out = torch.empty((n_maps, channels, out_h, out_w), dtype=out_dtype,
                       device=planes.device)
     scale = 1.0 / 255.0 if planes.dtype == torch.uint8 else 1.0
     lib = _build.load()
     with torch.cuda.device(planes.device):
         err = lib.gs360x_remap(
-            ctypes.c_void_p(planes.data_ptr()), _KIND[planes.dtype],
-            channels, src_h, src_w, ctypes.c_void_p(map_x.data_ptr()),
+            ctypes.c_void_p(planes.data_ptr()), kind, channels, src_h, src_w,
+            ctypes.c_void_p(map_x.data_ptr()),
             ctypes.c_void_p(map_y.data_ptr()),
             ctypes.c_void_p(None if valid is None else valid.data_ptr()),
-            n_maps, ctypes.c_void_p(out.data_ptr()), out_h, out_w,
+            n_maps, ctypes.c_void_p(out.data_ptr()), out_kind, out_h, out_w,
             _INTERP[interp], float(scale), float(fill),
             ctypes.c_void_p(
                 torch.cuda.current_stream(planes.device).cuda_stream))
@@ -209,11 +267,13 @@ class PreparedRemap:
         self.out_h, self.out_w = self.map_x.shape[1:]
 
     def __call__(self, src, *, interp: str = "bilinear", fill: float = 0.0,
-                 planar: bool = True) -> torch.Tensor:
-        """(C, h, w) f32 (or (h, w, C) when not ``planar``)."""
-        planes = source_planes(src, self.src_h, self.src_w, self.device)
-        out = remap_planes(planes, self.map_x, self.map_y, self.valid,
-                           interp=interp, fill=fill)[0]
+                 planar: bool = True,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """(C, h, w) of ``out_dtype`` (None: f32), or (h, w, C) when not
+        ``planar``."""
+        source = remap_source(src, self.src_h, self.src_w, self.device)
+        out = remap_planes(source, self.map_x, self.map_y, self.valid,
+                           interp=interp, fill=fill, out_dtype=out_dtype)[0]
         return out if planar else out.permute(1, 2, 0)
 
 
@@ -235,12 +295,14 @@ class PreparedRemapBatch:
         self.n_views = self.map_x.shape[0]
         self.out_h, self.out_w = self.map_x.shape[1:]
 
-    def __call__(self, src, *, fill: float = 0.0,
-                 planar: bool = True) -> torch.Tensor:
-        """(V, C, h, w) f32 (or (V, h, w, C) when not ``planar``)."""
-        planes = source_planes(src, self.src_h, self.src_w, self.device)
-        out = remap_planes(planes, self.map_x, self.map_y, self.valid,
-                           interp=self.interp, fill=fill)
+    def __call__(self, src, *, fill: float = 0.0, planar: bool = True,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """(V, C, h, w) of ``out_dtype`` (None: f32), or (V, h, w, C) when
+        not ``planar``."""
+        source = remap_source(src, self.src_h, self.src_w, self.device)
+        out = remap_planes(source, self.map_x, self.map_y, self.valid,
+                           interp=self.interp, fill=fill,
+                           out_dtype=out_dtype)
         return out if planar else out.permute(0, 2, 3, 1)
 
     def with_interp(self, interp: str) -> "PreparedRemapBatch":

@@ -3,20 +3,32 @@
 Two hand-written kernels (``gs360x_torch/csrc``) carry the perspcut main
 path on the card:
 
-* ``planarize.cu`` — interleaved (H, 3·W) rows → planar (3, H, W),
-  replacing ``_planarize_mxu_kernel`` / ``_planarize_kernel``;
-* ``warp_equirect.cu`` — planar source → (V, 3, h, w) f32 views of every
+* ``planarize.cu`` — the source pass, replacing ``_planarize_mxu_kernel`` /
+  ``_planarize_kernel``: interleaved (H, 3·W) rows → (H, W) RGBX texels
+  (:func:`texelize_rows`, the u8 main paths) or → planar (3, H, W)
+  (:func:`planarize_rows`: f32 planes with the scale fused for u16 and f32
+  frames and the colour chains, u8 planes for callers that want planes);
+* ``warp_equirect.cu`` — texels or planes → (V, 3, h, w) views of every
   class the JAX entry sorts views into (yaw ring, narrow, tilted, wide:
   poles in view, pitched and rolled views, ``fisheye_v360`` and
   ``equisolid`` outputs), replacing ``_warp_kernel_yaw2``, ``_warp_kernel``,
   ``_warp_kernel_wide3`` and the fallbacks ``_warp_kernel_wide2``,
   ``_warp_kernel_wide`` and ``_warp_kernel_yaw``.
 
+On the card the warp is bound by instruction issue, not by bytes. A tap of
+a u8 frame is therefore one 4-byte texel load for its three channels
+(planes, the TPU's layout, cost three loads and their address arithmetic),
+and ``out_dtype`` lets the kernel store the views as u8 or u16,
+``rint(clamp(x, 0, 1) · 255 | 65535)``: bitwise :func:`quantize_plain` of
+its f32 store, without the f32 views ever reaching device memory. Image
+mode asks for that; f32 (``out_dtype=None``) stays for the video colour
+move and for the parity gates.
+
 Each wrapper checks its inputs, launches its kernel on PyTorch's current
 stream for a CUDA tensor (or raises), and runs its plain torch version
-for a CPU tensor — only then. ``LAUNCHES`` counts kernel launches and
-``PLAIN_CALLS`` counts plain-version runs, so a run shows which path it
-took.
+for a CPU tensor — only then. ``LAUNCHES`` counts kernel launches,
+``PLAIN_CALLS`` plain-version runs and ``QUANTIZE_PASSES`` runs of the
+plain quantize, so a run shows which path it took.
 
 Every view the JAX entry accepts launches: the projections and interps
 that :func:`gs360x.kernels.warp_pallas.warp_equirect_to_views_pallas`
@@ -38,12 +50,15 @@ from gs360x_torch.kernels import warp as twin
 
 LAUNCHES: Dict[str, int] = {"planarize": 0, "warp": 0}
 PLAIN_CALLS: Dict[str, int] = {"planarize": 0, "warp": 0}
+# runs of the four-pass plain quantize (video mode, Video2Frames, the CPU
+# route): 0 where a kernel's store quantized
+QUANTIZE_PASSES: Dict[str, int] = {"quantize": 0}
 
 _KIND = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
-# planarize.cu's paths, by their code in the C entry: one thread per pixel;
-# 48-byte chunks loaded by each thread; 48-byte chunks staged in shared
-# memory by a bulk copy
-PLANARIZE_VARIANTS = ("scalar", "regs", "bulk")
+_KIND_TEXELS = 3   # (H, W) RGBX u8: a source layout and a planarize output
+# planarize.cu's paths, by their code in the C entry: element loads and
+# stores; one 16-byte store a plane (or of 4 texels) a thread
+PLANARIZE_VARIANTS = ("scalar", "regs")
 _INTERP = {"bilinear": 0, "bicubic": 1}
 _PROJECTION = {"perspective": 0, "fisheye_v360": 1, "equisolid": 2}
 _SCALE = {torch.uint8: 1.0 / 255.0, torch.uint16: 1.0 / 65535.0,
@@ -53,7 +68,7 @@ _TABLE_CACHE: dict = {}
 
 
 def reset_counters() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, PLAIN_CALLS, QUANTIZE_PASSES):
         for key in counts:
             counts[key] = 0
 
@@ -66,6 +81,53 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA or CPU tensor, got "
                          f"{t.device}")
+
+
+def quantize_plain(x: torch.Tensor, out_dtype: Optional[torch.dtype]
+                   ) -> torch.Tensor:
+    """Plain version of the kernels' quantizing store: float [0, 1] →
+    ``rint(clamp(x, 0, 1) · 255)`` u8 or ``· 65535`` u16, half to even
+    (four passes over ``x``); ``x`` itself for None or f32."""
+    if out_dtype in (None, torch.float32):
+        return x
+    if out_dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"out_dtype {out_dtype}: expected float32, uint8 "
+                         "or uint16")
+    full = 255.0 if out_dtype == torch.uint8 else 65535.0
+    QUANTIZE_PASSES["quantize"] += 1
+    return torch.round(torch.clamp(x, 0.0, 1.0) * full).to(out_dtype)
+
+
+def _out_kind(out_dtype: Optional[torch.dtype]) -> tuple:
+    """(dtype, kind code of the C entries) of a kernel's store."""
+    out_dtype = out_dtype or torch.float32
+    if out_dtype not in _KIND:
+        raise ValueError(f"out_dtype {out_dtype}: expected float32, uint8 "
+                         "or uint16")
+    return out_dtype, _KIND[out_dtype]
+
+
+def is_texels(t: torch.Tensor) -> bool:
+    """Whether ``t`` has the texel layout: (H, W, 4) u8."""
+    return t.dim() == 3 and t.shape[2] == 4 and t.dtype == torch.uint8
+
+
+def aligned_texels(texels: torch.Tensor) -> torch.Tensor:
+    """``texels`` as the kernels read them: contiguous, on a 4-byte
+    boundary. What :func:`texelize_rows` returns passes as it is; a sliced
+    or offset view is copied, never read misaligned."""
+    texels = texels.contiguous()
+    return texels.clone() if texels.data_ptr() % 4 else texels
+
+
+def wrap_tap_column(x, w: int):
+    """The rule ``warp_equirect.cu`` wraps a tap column by, for integer
+    (arrays of) ``x`` in [-w, 2w): one conditional add, one conditional
+    subtract, no remainder. ``u`` lies in [-0.5, w - 0.5], so an unshifted
+    tap column lies in [-2, w + 1], and a pole-shifted one (+ w/2) in
+    [-2, 1.5·w + 1]: both inside the rule's range for w >= 4."""
+    x = x + np.where(x < 0, w, 0)
+    return x - np.where(x >= w, w, 0)
 
 
 # --------------------------------------------------------------------------
@@ -97,10 +159,10 @@ def planarize_rows(rows: torch.Tensor, scale: float = 1.0,
     :func:`planarize_rows_plain`.
 
     ``variant`` picks the kernel's path on a CUDA tensor: ``auto`` (what
-    the main path runs: the kept vector variant where the input
+    the main path runs: the vector path where the input
     qualifies, else ``scalar``), or one of :data:`PLANARIZE_VARIANTS`
-    forced, for comparisons; a vector variant the input does not qualify
-    for raises."""
+    forced, for tests; ``regs`` raises for an input that does not
+    qualify."""
     out_dtype = out_dtype or torch.float32
     if rows.dim() != 2 or rows.shape[1] % 3:
         raise ValueError(f"planarize_rows: expected (H, 3*W) rows, got "
@@ -136,16 +198,59 @@ def planarize_rows(rows: torch.Tensor, scale: float = 1.0,
     return out
 
 
+def texelize_rows_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of ``planarize.cu``'s texel mode: (H, 3·W) u8
+    rows → (H, W, 4) RGBX texels, X = 0."""
+    h, w3 = rows.shape
+    return torch.nn.functional.pad(rows.reshape(h, w3 // 3, 3), (0, 1))
+
+
+def texelize_rows(rows: torch.Tensor, variant: str = "auto") -> torch.Tensor:
+    """(H, 3·W) interleaved u8 rows → (H, W, 4) RGBX texels, X = 0: the
+    source layout ``warp_equirect.cu`` and ``remap.cu`` read with one
+    4-byte load a tap. CUDA tensors run ``planarize.cu``'s texel mode into
+    a fresh allocation (so the texels are aligned); CPU tensors run
+    :func:`texelize_rows_plain`. ``variant`` as in :func:`planarize_rows`."""
+    if rows.dim() != 2 or rows.shape[1] % 3:
+        raise ValueError(f"texelize_rows: expected (H, 3*W) rows, got "
+                         f"{tuple(rows.shape)}")
+    if rows.dtype != torch.uint8:
+        raise ValueError(f"texelize_rows: expected uint8 rows, got "
+                         f"{rows.dtype}")
+    if variant != "auto" and variant not in PLANARIZE_VARIANTS:
+        raise ValueError(f"texelize_rows: variant {variant!r}: expected "
+                         f"auto or one of {', '.join(PLANARIZE_VARIANTS)}")
+    if rows.device.type == "cpu":
+        PLAIN_CALLS["planarize"] += 1
+        return texelize_rows_plain(rows)
+    _require_cuda(rows, "texelize_rows")
+    rows = rows.contiguous()
+    h, w3 = rows.shape
+    out = torch.empty((h, w3 // 3, 4), dtype=torch.uint8, device=rows.device)
+    code = -1 if variant == "auto" else PLANARIZE_VARIANTS.index(variant)
+    with torch.cuda.device(rows.device):
+        err = _build.load().gs360x_planarize_variant(
+            ctypes.c_void_p(rows.data_ptr()), _KIND[torch.uint8],
+            ctypes.c_void_p(out.data_ptr()), _KIND_TEXELS, h, w3 // 3, 1.0,
+            code, _stream(rows))
+    _build.check(err, "planarize (texels)")
+    LAUNCHES["planarize"] += 1
+    return out
+
+
 def planarize_variant(rows: torch.Tensor, out: torch.Tensor) -> str:
     """The variant ``planarize.cu`` launches for ``rows`` → ``out`` (CUDA
-    tensors) when asked for ``auto``: the kept vector variant when H·W is
-    a multiple of the pixels per chunk (16 for a u8 output, 4 for f32) and
-    both bases are 16-byte aligned, else ``scalar``."""
+    tensors; ``out`` planes, or texels from :func:`texelize_rows`) when
+    asked for ``auto``: the vector path when H·W is a multiple of the
+    pixels per chunk (16 for u8 planes, 4 for f32 planes and for texels)
+    and both bases are 16-byte aligned, else ``scalar``."""
     _require_cuda(rows, "planarize_variant")
     rows = rows.contiguous()
+    texels = tuple(out.shape) == (rows.shape[0], rows.shape[1] // 3, 4)
     code = _build.load().gs360x_planarize_auto_variant(
         ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        _KIND[out.dtype], rows.shape[0], rows.shape[1] // 3)
+        _KIND_TEXELS if texels else _KIND[out.dtype], rows.shape[0],
+        rows.shape[1] // 3)
     return PLANARIZE_VARIANTS[code]
 
 
@@ -241,7 +346,8 @@ def warp_equirect_to_views_plain(src, yaws, pitches, rolls, *,
     """Plain version of the warp path: the twin
     (:func:`gs360x_torch.kernels.warp.warp_equirect_to_views`) on the
     source normalized to [0, 1] f32 on its own device. Same arguments
-    and layouts as :func:`warp_equirect_to_views_cuda`."""
+    and layouts as :func:`warp_equirect_to_views_cuda` with the f32
+    store."""
     PLAIN_CALLS["warp"] += 1
     rows = _as_rows(src)
     h, w3 = rows.shape
@@ -264,21 +370,27 @@ def warp_equirect_to_views_cuda(src_rows, yaws, pitches, rolls, *,
                                 hfov_deg: float, vfov_deg: float,
                                 projection: str = "perspective",
                                 interp: str = "bicubic",
-                                planar: bool = False) -> torch.Tensor:
+                                planar: bool = False,
+                                out_dtype: Optional[torch.dtype] = None
+                                ) -> torch.Tensor:
     """Cut V views out of one equirect frame in one kernel launch.
 
     Mirrors :func:`gs360x.kernels.warp_pallas.warp_equirect_to_views_pallas`:
     ``src_rows`` is (H, W·3) (or (H, W, 3)) u8/u16/f32, angles are host
-    values in degrees; returns (V, 3, height, width) f32 when ``planar``
-    else (V, height, width, 3). ``interp="nearest"`` runs bilinear, as the
-    JAX executor maps it for its kernels. ``projection`` is
-    ``perspective``, ``fisheye_v360`` or ``equisolid`` (pixels outside a
-    fisheye's image circle are 0); anything else raises ``ValueError``.
+    values in degrees; returns (V, 3, height, width) when ``planar`` else
+    (V, height, width, 3). ``interp="nearest"`` runs bilinear, as the JAX
+    executor maps it for its kernels. ``projection`` is ``perspective``,
+    ``fisheye_v360`` or ``equisolid`` (pixels outside a fisheye's image
+    circle are 0); anything else raises ``ValueError``. ``out_dtype``:
+    None or f32 for float views in [0, 1]; u8 or u16 for views quantized by
+    the kernel's store, bitwise :func:`quantize_plain` of the f32 views.
 
-    CUDA tensors: ``planarize.cu`` then ``warp_equirect.cu``, for every
-    view. CPU tensors: the plain version.
+    CUDA tensors: ``planarize.cu`` (texels for a u8 frame, scaled f32
+    planes otherwise) then ``warp_equirect.cu``, for every view. CPU
+    tensors: the plain version, quantized by :func:`quantize_plain`.
     """
     interp = _check_view_args(projection, interp)
+    _out_kind(out_dtype)
     yaws = [float(y) for y in np.asarray(yaws, np.float64).reshape(-1)]
     pitches = [float(p) for p in np.asarray(pitches, np.float64).reshape(-1)]
     rolls = [float(r) for r in np.asarray(rolls, np.float64).reshape(-1)]
@@ -287,31 +399,82 @@ def warp_equirect_to_views_cuda(src_rows, yaws, pitches, rolls, *,
         raise ValueError(f"expected (H, W*3) rows or an (H, W, 3) frame, "
                          f"got {tuple(src_rows.shape)}")
     if rows.device.type == "cpu":
-        return warp_equirect_to_views_plain(
+        return quantize_plain(warp_equirect_to_views_plain(
             rows, yaws, pitches, rolls, width=width, height=height,
             hfov_deg=hfov_deg, vfov_deg=vfov_deg, projection=projection,
-            interp=interp, planar=planar)
+            interp=interp, planar=planar), out_dtype)
     _require_cuda(rows, "warp_equirect_to_views_cuda")
     if rows.dtype not in _KIND:
         raise ValueError(f"unsupported source dtype {rows.dtype}")
+    kw = dict(width=width, height=height, hfov_deg=hfov_deg,
+              vfov_deg=vfov_deg, projection=projection, interp=interp,
+              out_dtype=out_dtype)
     if rows.dtype == torch.uint8:
-        # u8 planes: the kernel reads raw bytes and applies 1/255 once
-        planes = planarize_rows(rows, 1.0, torch.uint8)
+        # texels of raw bytes: the kernel applies 1/255 once
+        out = warp_texels(texelize_rows(rows), yaws, pitches, rolls, **kw)
     else:
-        planes = planarize_rows(rows, _SCALE[rows.dtype], torch.float32)
-    out = warp_planes(planes, yaws, pitches, rolls, width=width,
-                      height=height, hfov_deg=hfov_deg, vfov_deg=vfov_deg,
-                      projection=projection, interp=interp)
+        out = warp_planes(planarize_rows(rows, _SCALE[rows.dtype],
+                                         torch.float32),
+                          yaws, pitches, rolls, **kw)
     return out if planar else out.permute(0, 2, 3, 1)
+
+
+def _launch_warp(src: torch.Tensor, src_kind: int, src_h: int, src_w: int,
+                 yaws, pitches, rolls, *, width: int, height: int,
+                 hfov_deg: float, vfov_deg: float, projection: str,
+                 interp: str, out_dtype: Optional[torch.dtype]
+                 ) -> torch.Tensor:
+    out_dtype, out_kind = _out_kind(out_dtype)
+    if src_w < 2 or 3 * src_h * src_w >= 2 ** 31:
+        raise ValueError(f"warp: a {src_w}x{src_h} source is outside the "
+                         "kernel's range (W >= 2, 3*H*W < 2^31)")
+    table = _device_table(yaws, pitches, rolls, hfov_deg, vfov_deg,
+                          projection, src.device)
+    n_views = len(yaws)
+    out = torch.empty((n_views, 3, height, width), dtype=out_dtype,
+                      device=src.device)
+    scale = _SCALE[torch.uint8] if src.dtype == torch.uint8 else 1.0
+    lib = _build.load()
+    with torch.cuda.device(src.device):
+        err = lib.gs360x_warp_equirect(
+            ctypes.c_void_p(src.data_ptr()), src_kind, src_h, src_w,
+            ctypes.c_void_p(table.data_ptr()), n_views,
+            ctypes.c_void_p(out.data_ptr()), out_kind, height, width,
+            _INTERP[interp], _PROJECTION[projection], float(scale),
+            _stream(src))
+    _build.check(err, "warp_equirect")
+    LAUNCHES["warp"] += 1
+    return out
+
+
+def warp_texels(texels: torch.Tensor, yaws, pitches, rolls, *,
+                width: int, height: int, hfov_deg: float, vfov_deg: float,
+                projection: str = "perspective", interp: str = "bicubic",
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Launch ``warp_equirect.cu`` on the (H, W, 4) RGBX u8 texels of a
+    CUDA frame (:func:`texelize_rows`; scaled by 1/255 in the kernel) →
+    (V, 3, height, width) of ``out_dtype`` (None: f32). A view of texels
+    that is not contiguous is copied, never read misaligned."""
+    interp = _check_view_args(projection, interp)
+    _require_cuda(texels, "warp_texels")
+    if not is_texels(texels):
+        raise ValueError(f"warp_texels: expected (H, W, 4) u8 texels, got "
+                         f"{tuple(texels.shape)} {texels.dtype}")
+    texels = aligned_texels(texels)
+    return _launch_warp(texels, _KIND_TEXELS, texels.shape[0],
+                        texels.shape[1], yaws, pitches, rolls, width=width,
+                        height=height, hfov_deg=hfov_deg, vfov_deg=vfov_deg,
+                        projection=projection, interp=interp,
+                        out_dtype=out_dtype)
 
 
 def warp_planes(planes: torch.Tensor, yaws, pitches, rolls, *,
                 width: int, height: int, hfov_deg: float, vfov_deg: float,
-                projection: str = "perspective",
-                interp: str = "bicubic") -> torch.Tensor:
+                projection: str = "perspective", interp: str = "bicubic",
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch ``warp_equirect.cu`` on a planar CUDA source: (3, H, W) u8
     (scaled by 1/255 in the kernel) or f32 (read as is) → (V, 3, height,
-    width) f32."""
+    width) of ``out_dtype`` (None: f32)."""
     interp = _check_view_args(projection, interp)
     _require_cuda(planes, "warp_planes")
     if planes.dim() != 3 or planes.shape[0] != 3 \
@@ -319,20 +482,8 @@ def warp_planes(planes: torch.Tensor, yaws, pitches, rolls, *,
         raise ValueError(f"warp_planes: expected (3, H, W) u8/f32 planes, "
                          f"got {tuple(planes.shape)} {planes.dtype}")
     planes = planes.contiguous()
-    src_h, src_w = planes.shape[1], planes.shape[2]
-    table = _device_table(yaws, pitches, rolls, hfov_deg, vfov_deg,
-                          projection, planes.device)
-    n_views = len(yaws)
-    out = torch.empty((n_views, 3, height, width), dtype=torch.float32,
-                      device=planes.device)
-    scale = _SCALE[torch.uint8] if planes.dtype == torch.uint8 else 1.0
-    lib = _build.load()
-    with torch.cuda.device(planes.device):
-        err = lib.gs360x_warp_equirect(
-            ctypes.c_void_p(planes.data_ptr()), _KIND[planes.dtype], src_h,
-            src_w, ctypes.c_void_p(table.data_ptr()), n_views,
-            ctypes.c_void_p(out.data_ptr()), height, width, _INTERP[interp],
-            _PROJECTION[projection], float(scale), _stream(planes))
-    _build.check(err, "warp_equirect")
-    LAUNCHES["warp"] += 1
-    return out
+    return _launch_warp(planes, _KIND[planes.dtype], planes.shape[1],
+                        planes.shape[2], yaws, pitches, rolls, width=width,
+                        height=height, hfov_deg=hfov_deg, vfov_deg=vfov_deg,
+                        projection=projection, interp=interp,
+                        out_dtype=out_dtype)

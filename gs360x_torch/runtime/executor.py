@@ -2,8 +2,9 @@
 
 Decodes each frame once, uploads it to the device once as u8 (H, W·3)
 rows, warps all views of a view group in one launch, quantizes on the
-device, fetches once per (group, frame) and streams the encodes through
-the async writer pool. Progress (≥5 %% steps), cooperative stop via an
+device (in image mode in the warp kernel's own store; after the colour
+move in video mode), fetches once per (group, frame) and streams the
+encodes through the async writer pool. Progress (≥5 %% steps), cooperative stop via an
 Event and the overwrite guard behave as in the JAX executor.
 
 The device is explicit: :func:`run_plan` takes a :class:`torch.device`
@@ -120,13 +121,17 @@ class _Prefetcher:
             yield item
 
 
+def _quantize_dtype(bit_depth: int) -> torch.dtype:
+    return torch.uint16 if bit_depth > 8 else torch.uint8
+
+
 def _quantize_device(arr: torch.Tensor, bit_depth: int) -> torch.Tensor:
     """Round float [0,1] to uint8/uint16 on the device (device→host
-    transfers shrink 4x, 2x for 16-bit). ``torch.round`` rounds half to
-    even, like ``jnp.rint``."""
-    scale = 65535.0 if bit_depth > 8 else 255.0
-    dt = torch.uint16 if bit_depth > 8 else torch.uint8
-    return torch.round(torch.clamp(arr, 0.0, 1.0) * scale).to(dt)
+    transfers shrink 4x, 2x for 16-bit), half to even like ``jnp.rint``:
+    four passes over ``arr``. Where nothing stands between a warp or remap
+    kernel and the quantize, the kernel's ``out_dtype`` store gives the
+    same bits without them."""
+    return warp_cuda.quantize_plain(arr, _quantize_dtype(bit_depth))
 
 
 def upload_rows(frame: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -168,22 +173,27 @@ def _warp_frame_views(frame: np.ndarray, views, *, interp: str,
     interleave happens in the encode threads). The frame goes to the
     device once, as (H, W·3) rows in its own dtype. When ``keep_rec709``
     is not None the video colour move runs on the device, on the warped
-    outputs.
+    f32 outputs, and :func:`_quantize_device` follows; in image mode
+    (``keep_rec709`` None) the kernel's own store quantizes.
     """
     results: List = [None] * len(views)
     rows = upload_rows(frame, device)
 
     warp = (warp_cuda.warp_equirect_to_views_plain if backend == "xla"
             else warp_cuda.warp_equirect_to_views_cuda)
+    # the plain twin (--backend xla) has no quantizing store
+    fused = (keep_rec709 is None and quantize_bits is not None
+             and backend != "xla")
+    store = dict(out_dtype=_quantize_dtype(quantize_bits)) if fused else {}
     for (projection, vw, vh, hfov, vfov), idxs in _view_groups(views).items():
         yaws, pitches, rolls = _group_angles(views, idxs)
         out = warp(rows, yaws, pitches, rolls, width=vw, height=vh,
                    hfov_deg=hfov, vfov_deg=vfov, projection=projection,
-                   interp=interp, planar=True)
+                   interp=interp, planar=True, **store)
         if keep_rec709 is not None:
             out = colorlib.video_color_move_planar(out,
                                                    keep_rec709=keep_rec709)
-        if quantize_bits is not None:
+        if quantize_bits is not None and not fused:
             out = _quantize_device(out, quantize_bits)
         for j, i in enumerate(idxs):
             results[i] = (out, j)

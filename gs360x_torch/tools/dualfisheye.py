@@ -8,13 +8,14 @@ layout with per-view lens choice, pairing), the same flags, messages,
 outputs and exit codes, plus ``--device {cuda,cpu}`` (default ``cuda``)
 and ``--stats``.
 
-Pixels: each decoded lens image goes to the device once per pair and is
-planarized once (``planarize.cu``); the undistort remap of each lens and
-the SFM10 views of each lens group run through ``remap.cu``
-(:mod:`gs360x_torch.kernels.remap_cuda`), one launch each, over maps
-uploaded once and kept resident; masks co-warp through the same maps with
-``nearest``; outputs are quantized on the device (``rint(clip·255)``) and
-fetched once per launch. ``--device cpu`` runs the plain versions.
+Pixels: each decoded lens image goes to the device once per pair and takes
+one source pass (``planarize.cu``: RGBX texels of a u8 image); the
+undistort remap of each lens and the SFM10 views of each lens group run
+through ``remap.cu`` (:mod:`gs360x_torch.kernels.remap_cuda`), one launch
+each, over maps uploaded once and kept resident; masks co-warp through the
+same maps with ``nearest``; the kernel's store quantizes the outputs
+(``rint(clip·255)`` u8), which are fetched once per launch.
+``--device cpu`` runs the plain versions.
 
 ``--input-lut`` (or ``--input-color-profile osmo360-dlogm`` with
 ``--dlogm-lut``) decodes each lens image on the device before the remaps:
@@ -452,13 +453,11 @@ def device_remap(image: np.ndarray, map_x, map_y, valid, *, interp: str,
                  device: torch.device) -> np.ndarray:
     """Remap one host image on ``device`` (``remap.cu`` on a CUDA device);
     (H, W, C) in, (h, w, C) out, or 2-D in and out. ``quantize=True``
-    rounds to u8 on the device before the fetch."""
+    has the kernel store u8, so the fetch is a quarter of the f32 one."""
     h, w = image.shape[:2]
-    planes = remap_cuda.source_planes(image, h, w, device)
     out = prepared_remap(map_x, map_y, valid, h, w, device)(
-        planes, interp=interp, fill=fill)
-    if quantize:
-        out = _quantize_device(out, 8)
+        remap_cuda.remap_source(image, h, w, device), interp=interp,
+        fill=fill, out_dtype=torch.uint8 if quantize else None)
     out = out.permute(1, 2, 0).cpu().numpy()
     return out[..., 0] if image.ndim == 2 else out
 
@@ -467,18 +466,19 @@ def prepare_input_planes(img: np.ndarray, input_lut, lut_output_color_space:
                          str, *, device: torch.device,
                          table: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """One decoded lens image → planar source of the remaps on ``device``:
+    """One decoded lens image → the source of the remaps on ``device``:
     the port of :func:`gs360x.tools.dualfisheye.prepare_input_image`,
     which returns the same values as (H, W, 3) floats on the host.
 
-    Without a LUT: :func:`remap_cuda.source_planes` (u8 planes stay bytes).
+    Without a LUT: :func:`remap_cuda.remap_source` (a u8 image becomes RGBX
+    texels of its bytes; a u16 one f32 planes).
     With one: (3, H, W) f32 planes scaled to [0, 1] by ``planarize.cu``,
     the trilinear LUT (``table``: :func:`colorlib.lut_table` on
     ``device``), then Rec.709 → sRGB when ``lut_output_color_space`` is
     ``srgb``."""
     if input_lut is None:
-        return remap_cuda.source_planes(img, img.shape[0], img.shape[1],
-                                        device)
+        return remap_cuda.remap_source(img, img.shape[0], img.shape[1],
+                                       device)
     if img.ndim != 3 or img.shape[2] != 3 \
             or img.dtype not in (np.uint8, np.uint16):
         raise ValueError(f"LUT decode: expected an (H, W, 3) u8/u16 image, "
@@ -513,11 +513,13 @@ class _LensViews:
             self._batches[key] = base
         return base if base.interp == interp else base.with_interp(interp)
 
-    def render(self, planes: torch.Tensor, interp: str, fill: float
-               ) -> np.ndarray:
-        """(V, C, h, w) u8 on the host: one launch, one fetch."""
-        batch = self.batch(planes.shape[1], planes.shape[2], interp)
-        return _quantize_device(batch(planes, fill=fill), 8).cpu().numpy()
+    def render(self, source: torch.Tensor, size: Tuple[int, int],
+               interp: str, fill: float) -> np.ndarray:
+        """(V, C, h, w) u8 on the host from one lens source (texels or
+        planes of a ``size`` = (height, width) image): one launch, whose
+        store quantizes, and one fetch."""
+        batch = self.batch(size[0], size[1], interp)
+        return batch(source, fill=fill, out_dtype=torch.uint8).cpu().numpy()
 
 
 # --------------------------------------------------------------------------
@@ -904,14 +906,13 @@ def _main(argv=None) -> int:
                                           .cpu().numpy(), planar=True)
 
                 if args.fisheye_output:
-                    for lens, path, sid in (("X", xp, sid_x),
-                                            ("Y", yp, sid_y)):
-                        src = planes[lens]
+                    for lens, path, sid, img in (("X", xp, sid_x, img_x),
+                                                 ("Y", yp, sid_y, img_y)):
                         with timers.stage("remap"):
                             und = prepared_remap(
-                                *undistort[sid], src.shape[1], src.shape[2],
-                                device)(src, interp=interp, fill=fill)
-                            und = _quantize_device(und, 8)
+                                *undistort[sid], *img.shape[:2], device)(
+                                planes[lens], interp=interp, fill=fill,
+                                out_dtype=torch.uint8)
                         with timers.stage("fetch"):
                             und = und.cpu().numpy()
                         writer.submit(out_dir / path.name, und, planar=True)
@@ -922,8 +923,10 @@ def _main(argv=None) -> int:
                     rendered: Dict[str, np.ndarray] = {}
                     masks: Dict[str, np.ndarray] = {}
                     for lens, group in lens_views[(sid_x, sid_y)].items():
+                        img = img_x if lens == "X" else img_y
                         with timers.stage("remap+fetch"):
-                            out = group.render(planes[lens], interp, fill)
+                            out = group.render(planes[lens], img.shape[:2],
+                                               interp, fill)
                         rendered.update(zip(group.view_ids, out))
                         src_mask = mask_x if lens == "X" else mask_y
                         if src_mask is not None:
@@ -931,7 +934,9 @@ def _main(argv=None) -> int:
                                 src_mask, src_mask.shape[0],
                                 src_mask.shape[1], device)
                             with timers.stage("remap+fetch"):
-                                mout = group.render(mplanes, "nearest", 0.0)
+                                mout = group.render(
+                                    mplanes, src_mask.shape[:2], "nearest",
+                                    0.0)
                             masks.update(zip(group.view_ids, mout[:, 0]))
                     for spec in specs:
                         vid = spec["view_id"]

@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain torch versions on the card, at
 small and ragged shapes: planarize (every variant and path: aligned,
-ragged, offset views, H past 65535), the warp (yaw ring, and the tilted,
+ragged, offset views, H past 65535; planes and RGBX texels), the warp and
+the remap with every source layout (texels, u8 and f32 planes) and every
+store (f32, and u8 / u16 bitwise the plain quantize of the f32 store), the
+warp on the yaw ring and the tilted,
 pole and fisheye geometry of the ``tests/test_warp_pallas.py`` parity
 cases of ``_warp_kernel``, ``_warp_kernel_wide3``, ``_warp_kernel_wide2``,
 ``_warp_kernel_wide`` and ``_warp_kernel_yaw``), and the remap
@@ -119,10 +122,52 @@ def test_planarize_kernel_bitwise_equals_plain(dev, dtype, scale, u8_out, h,
 def test_planarize_vector_variants_refuse_ragged_input(dev):
     for rows in (_rows(np.uint8, 37, 301, dev),
                  _offset_rows(np.uint8, 64, 768, 1, dev)):
-        for variant in ("regs", "bulk"):
-            with pytest.raises(RuntimeError, match="planarize"):
-                warp_cuda.planarize_rows(rows, 1.0, torch.uint8,
-                                         variant=variant)
+        with pytest.raises(RuntimeError, match="planarize"):
+            warp_cuda.planarize_rows(rows, 1.0, torch.uint8, variant="regs")
+        with pytest.raises(RuntimeError, match="planarize"):
+            warp_cuda.texelize_rows(rows, variant="regs")
+
+
+@pytest.mark.parametrize("h,w,offset,vector,variant", _planarize_cases())
+def test_texelize_kernel_bitwise_equals_plain(dev, h, w, offset, vector,
+                                              variant):
+    # the texel mode's chunk is 4 pixels: the shapes that go vector for a
+    # u8 planar output (H·W a multiple of 16) go vector here too
+    rows = _offset_rows(np.uint8, h, w, offset, dev)
+    before = warp_cuda.LAUNCHES["planarize"]
+    got = warp_cuda.texelize_rows(rows, variant=variant)
+    ref = warp_cuda.texelize_rows_plain(rows)
+    torch.cuda.synchronize()
+    assert warp_cuda.LAUNCHES["planarize"] == before + 1
+    assert got.shape == ref.shape == (h, w, 4) and got.dtype == torch.uint8
+    assert got.data_ptr() % 16 == 0
+    assert torch.equal(got, ref)
+    assert (warp_cuda.planarize_variant(rows, got) != "scalar") == vector
+
+
+QUANT = [torch.uint8, torch.uint16]
+
+
+def _assert_quantizing_stores(launch, got):
+    """``launch(out_dtype)`` with a u8 / u16 store is bitwise the plain
+    quantize of the same launch's f32 store ``got``."""
+    for out_dtype in QUANT:
+        q = launch(out_dtype)
+        assert q.dtype == out_dtype and q.shape == got.shape
+        assert torch.equal(q, warp_cuda.quantize_plain(got, out_dtype))
+
+
+def _assert_source_layouts_agree(rows, got, angles, kw):
+    """The f32 views of a u8 frame (texels) are bitwise those of its u8
+    planes, and a texel view that is not contiguous is copied, not read
+    misaligned."""
+    planes = warp_cuda.planarize_rows(rows, 1.0, torch.uint8)
+    assert torch.equal(warp_cuda.warp_planes(planes, *angles, **kw), got)
+    texels = warp_cuda.texelize_rows(rows)
+    wide = torch.zeros((texels.shape[0], texels.shape[1] + 1, 4),
+                       dtype=torch.uint8, device=rows.device)
+    wide[:, 1:] = texels
+    assert torch.equal(warp_cuda.warp_texels(wide[:, 1:], *angles, **kw), got)
 
 
 @pytest.mark.parametrize("interp", ["bicubic", "bilinear"])
@@ -143,6 +188,12 @@ def test_warp_kernel_matches_plain(dev, interp, dtype, size):
     assert got.shape == ref.shape == (len(RING), 3, size[1], size[0])
     # the tolerance of the Pallas-vs-twin parity tests
     assert float((got - ref).abs().max()) <= 1e-4
+    _assert_quantizing_stores(
+        lambda dt: warp_cuda.warp_equirect_to_views_cuda(
+            rows, RING, zeros, zeros, out_dtype=dt, **kw), got)
+    if dtype == np.uint8:
+        kw.pop("planar")
+        _assert_source_layouts_agree(rows, got, (RING, zeros, zeros), kw)
 
 
 def test_warp_kernel_reflects_over_the_poles(dev):
@@ -234,6 +285,14 @@ def test_tilted_pole_fisheye_kernel_matches_plain(
     if not pole:
         # the tolerance of the Pallas-vs-twin parity tests
         assert float((got - ref).abs().max()) <= 1e-4
+    _assert_quantizing_stores(
+        lambda dt: warp_cuda.warp_equirect_to_views_cuda(
+            rows, yaws, pitches, rolls, projection=projection, interp=interp,
+            planar=True, out_dtype=dt, **kw), got)
+    if dtype == np.uint8:
+        _assert_source_layouts_agree(
+            rows, got, (yaws, pitches, rolls),
+            dict(projection=projection, interp=interp, **kw))
 
 
 def _barrel_maps(h, w, src_h, src_w, shift):
@@ -281,6 +340,18 @@ def test_remap_kernel_matches_plain(dev, interp, dtype, channels):
                                       device=dev)(planes, interp=interp,
                                                   fill=0.3)
     assert torch.equal(single, got[1])
+    # the quantizing stores (fill included), and for a u8 RGB image the
+    # texel source against its planes
+    _assert_quantizing_stores(
+        lambda dt: batch(planes, fill=0.3, out_dtype=dt), got)
+    if dtype == np.uint8 and channels == 3:
+        texels = remap_cuda.remap_source(src, src_h, src_w, dev)
+        assert texels.shape == (src_h, src_w, 4)
+        before = remap_cuda.LAUNCHES["remap"]
+        assert torch.equal(batch(texels, fill=0.3), got)
+        assert remap_cuda.LAUNCHES["remap"] == before + 1
+        _assert_quantizing_stores(
+            lambda dt: batch(texels, fill=0.3, out_dtype=dt), got)
 
 
 @pytest.mark.parametrize("model", ["equidistant", "equisolid"])

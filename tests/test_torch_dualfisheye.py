@@ -368,11 +368,17 @@ def test_prepare_input_planes_match_jax(tmp_path, cube, dtype, space):
     assert got.dtype == torch.float32 and got.shape == (3, 24, 20)
     np.testing.assert_allclose(got.permute(1, 2, 0).numpy(), ref, rtol=0,
                                atol=1e-6)
-    # without a LUT: the source planes of the remaps, as before
+    # without a LUT: the source of the remaps, RGBX texels of a u8 image's
+    # bytes (X = 0), scaled f32 planes of a u16 one
     plain = tdf.prepare_input_planes(im.read_image(path), None, space,
                                      device=CPU)
+    if dtype == np.uint8:
+        assert plain.shape == (24, 20, 4) and not plain[..., 3].any()
+        hwc = plain[..., :3]
+    else:
+        hwc = plain.permute(1, 2, 0)
     np.testing.assert_allclose(
-        im.to_float01(plain.permute(1, 2, 0).numpy()),
+        im.to_float01(hwc.numpy()),
         jdf.prepare_input_image(path, None, space), rtol=0, atol=1e-6)
 
 

@@ -85,9 +85,11 @@ def port_sources() -> list:
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
-    roots = imported_roots(ROOT / "chip_smoke.py")
-    assert "gs360x_torch" in roots
-    assert not roots & FORBIDDEN_ROOTS, sorted(roots)
+    # the port's two scripts at the root: the smoke run and the A/B timer
+    for script in ("chip_smoke.py", "resample_ab.py"):
+        roots = imported_roots(ROOT / script)
+        assert "gs360x_torch" in roots, script
+        assert not roots & FORBIDDEN_ROOTS, (script, sorted(roots))
 
 
 PACKAGES = ["core", "io", "kernels", "native", "rig", "runtime", "tools"]

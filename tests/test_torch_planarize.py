@@ -2,7 +2,8 @@
 ``_planarize_rows`` run in interpret mode: bitwise equal, in both Pallas
 variants (MXU one-hot for u8 with H % 128 == 0, lane gathers otherwise),
 for u8 and scaled-f32 outputs; and against numpy on an offset view and a
-single row. The CUDA kernel is held to the same plain version on the card
+single row; the texel mode's plain version (RGBX, X = 0) against numpy.
+The CUDA kernel is held to the same plain version on the card
 by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
 
 import jax.numpy as jnp
@@ -100,3 +101,54 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="variant"):
         warp_cuda.planarize_rows(torch.zeros(4, 12, dtype=torch.uint8),
                                  1.0, torch.uint8, variant="fast")
+
+
+# --- the texel mode: (H, 3W) u8 rows -> (H, W, 4) RGBX texels ---------------
+
+@pytest.mark.parametrize("h,w,offset", [(5, 37, 1), (1, 301, 0), (8, 48, 0)],
+                         ids=["offset_view_w_not_16n", "one_row", "aligned"])
+def test_plain_texelize_equals_numpy(h, w, offset):
+    flat = _rows(np.uint8, 3).reshape(-1)[:3 * h * w + offset]
+    rows = torch.from_numpy(flat)[offset:].view(h, 3 * w)
+    assert rows.storage_offset() == offset
+    want = np.zeros((h, w, 4), np.uint8)
+    want[..., :3] = flat[offset:].reshape(h, w, 3)
+    for fn in (warp_cuda.texelize_rows_plain, warp_cuda.texelize_rows):
+        got = fn(rows)
+        assert got.dtype == torch.uint8 and got.is_contiguous()
+        assert warp_cuda.is_texels(got)
+        assert np.array_equal(got.numpy(), want)
+    # the three channels of a texel are the pixel of the u8 planes
+    planes = warp_cuda.planarize_rows_plain(rows, 1.0, torch.uint8)
+    assert torch.equal(warp_cuda.texelize_rows_plain(rows)[..., :3]
+                       .permute(2, 0, 1), planes)
+
+
+def test_texelize_wrapper_counts_the_plain_version_on_cpu_tensors():
+    warp_cuda.reset_counters()
+    warp_cuda.texelize_rows(torch.from_numpy(_rows(np.uint8, 4)))
+    assert warp_cuda.PLAIN_CALLS["planarize"] == 1
+    assert warp_cuda.LAUNCHES["planarize"] == 0
+
+
+@pytest.mark.parametrize("rows,match", [
+    (torch.zeros(4, 12, dtype=torch.float32), "uint8"),
+    (torch.zeros(4, 12, dtype=torch.uint16), "uint8"),
+    (torch.zeros(4, 10, dtype=torch.uint8), "rows"),
+    (torch.zeros(4, 4, 3, dtype=torch.uint8), "rows")],
+    ids=["f32", "u16", "width_not_3n", "not_2d"])
+def test_texelize_wrapper_rejects_bad_inputs(rows, match):
+    with pytest.raises(ValueError, match=match):
+        warp_cuda.texelize_rows(rows)
+    assert not warp_cuda.is_texels(rows)
+
+
+def test_texelize_wrapper_rejects_unknown_variant():
+    assert "bulk" not in warp_cuda.PLANARIZE_VARIANTS
+    for variant in ("bulk", "fast"):
+        with pytest.raises(ValueError, match="variant"):
+            warp_cuda.texelize_rows(torch.zeros(4, 12, dtype=torch.uint8),
+                                    variant=variant)
+        with pytest.raises(ValueError, match="variant"):
+            warp_cuda.planarize_rows(torch.zeros(4, 12, dtype=torch.uint8),
+                                     1.0, torch.uint8, variant=variant)

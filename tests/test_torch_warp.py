@@ -2,7 +2,9 @@
 tensors) against the JAX package: the XLA twin (yaw ring, and the tilted,
 pole and fisheye geometry of ``tests/test_warp_pallas.py``), the Pallas
 yaw-ring path in interpret mode, the independent v360 oracle on every
-parity case, and the kernels' view table (perspective and fisheye). Sizes
+parity case, the kernels' view table (perspective and fisheye), the
+quantizing store (``out_dtype``) against the plain quantize and the JAX
+executor's, and the kernel's column-wrap rule against ``%``. Sizes
 follow ``tests/test_warp_pallas.py`` (512x256 source, 256x128 views). The
 CUDA kernel itself is held to the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
@@ -17,8 +19,10 @@ import torch
 from gs360x.kernels import v360_oracle as vo
 from gs360x.kernels import warp as jax_warp
 from gs360x.kernels import warp_pallas
+from gs360x.runtime import executor as jax_executor
 from gs360x_torch.kernels import warp as twin
 from gs360x_torch.kernels import warp_cuda
+from gs360x_torch.runtime import executor as torch_executor
 
 torch.set_num_threads(1)
 
@@ -344,3 +348,80 @@ def test_twin_meets_oracle_gate(oracle_pano, projection, hfov, vfov, yaw,
     diff = np.abs(got.astype(np.int32) - oracle.astype(np.int32))[valid]
     assert int(diff.max()) <= 2, f"max diff {diff.max()} u8 LSB vs oracle"
     assert float((diff > 1).mean()) <= 0.01
+
+
+# --- the quantizing store: out_dtype = u8 / u16 ------------------------------
+
+# (id, yaws, pitches, rolls, view kwargs, projection, pole)
+STORE_VIEWS = [
+    ("yaw_ring_with_seam", RING, [0.0] * 4, [0.0] * 4, KW, "perspective",
+     False),
+    ("pole_view", [30.0], [90.0], [0.0], KW, "perspective", True),
+    ("fisheye_v360", [0.0, 180.0], [0.0, 0.0], [0.0, 0.0], FKW,
+     "fisheye_v360", True),
+]
+
+
+@pytest.mark.parametrize("bits,out_dtype", [(8, torch.uint8),
+                                            (16, torch.uint16)],
+                         ids=["u8", "u16"])
+@pytest.mark.parametrize("yaws,pitches,rolls,kw,projection,pole",
+                         [pytest.param(*v[1:], id=v[0]) for v in STORE_VIEWS])
+def test_wrapper_out_dtype_is_the_quantized_f32_result(
+        yaws, pitches, rolls, kw, projection, pole, bits, out_dtype):
+    rows = torch.from_numpy(SRC_U8.reshape(256, 512 * 3))
+    args = (rows, yaws, pitches, rolls)
+    kwargs = dict(projection=projection, interp="bicubic", planar=True, **kw)
+    f32 = warp_cuda.warp_equirect_to_views_cuda(*args, **kwargs)
+    got = warp_cuda.warp_equirect_to_views_cuda(*args, out_dtype=out_dtype,
+                                                **kwargs)
+    assert f32.dtype == torch.float32 and got.dtype == out_dtype
+    # on a CPU tensor: the executor's four-pass quantize of the f32 result
+    assert torch.equal(got, torch_executor._quantize_device(f32, bits))
+    assert torch.equal(got, warp_cuda.quantize_plain(f32, out_dtype))
+    # and the JAX path: its executor's quantize of the XLA twin's views
+    ref = np.asarray(jax_executor._quantize_device(
+        jax_warp.warp_equirect_to_views(
+            SRC_U8.astype(np.float32) / 255.0, np.asarray(yaws, np.float32),
+            np.asarray(pitches, np.float32), np.asarray(rolls, np.float32),
+            projection=projection, interp="bicubic", backend="xla", **kw),
+        bit_depth=bits)).transpose(0, 3, 1, 2)
+    assert ref.dtype == got.numpy().dtype
+    lsb = (1 if bits == 8 else 257)      # one u8 LSB in the store's units
+    diff = np.abs(got.numpy().astype(np.int64) - ref.astype(np.int64))
+    if pole:
+        # u is ill-conditioned where a pole is in view: the oracle's gate
+        assert int(diff.max()) <= 2 * lsb
+        assert float((diff > lsb).mean()) <= 0.01
+    elif bits == 8:
+        assert int(diff.max()) <= 1
+        assert float((diff > 0).mean()) <= 0.001
+    else:
+        # the twins' f32 gate (5e-5) in u16 steps, plus one for the rounding
+        assert int(diff.max()) <= 4
+
+
+def test_wrapper_rejects_unknown_out_dtype():
+    rows = torch.from_numpy(SRC_U8.reshape(256, 512 * 3))
+    with pytest.raises(ValueError, match="out_dtype"):
+        warp_cuda.warp_equirect_to_views_cuda(
+            rows, [0.0], [0.0], [0.0], out_dtype=torch.int16, **KW)
+    with pytest.raises(ValueError, match="out_dtype"):
+        warp_cuda.quantize_plain(torch.zeros(3), torch.int32)
+    assert warp_cuda.quantize_plain(torch.tensor([0.5, -1.0, 2.0, 0.5 / 255]),
+                                    torch.uint8).tolist() == [128, 0, 255, 0]
+
+
+@pytest.mark.parametrize("w", [7680, 37, 4])
+def test_kernel_column_wrap_rule_equals_modulo(w):
+    # every tap column the kernel can form: [-2, w + 1] unshifted, up to
+    # 1.5 w + 1 with the pole shift of w // 2 applied to a wrapped column
+    x = np.arange(-2, w + w // 2 + 2)
+    assert np.array_equal(warp_cuda.wrap_tap_column(x, w), x % w)
+    cols = warp_cuda.wrap_tap_column(np.arange(-2, w + 2), w)
+    assert cols.min() == 0 and cols.max() == w - 1
+    shifted = warp_cuda.wrap_tap_column(cols + w // 2, w)
+    assert np.array_equal(shifted, (np.arange(-2, w + 2) + w // 2) % w)
+    # phi = +-pi gives u = w - 0.5 exactly: x0 = w - 1, last tap x0 + 2
+    assert warp_cuda.wrap_tap_column(np.int64(w - 1 + 2 + w // 2), w) \
+        == (w + 1 + w // 2) % w
