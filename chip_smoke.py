@@ -34,6 +34,12 @@ it went through the kernels only and that its pixels are right:
 * ``gs360x-torch-dualfisheye --camera-extrinsics-xml`` on the 2 pairs
   (the pixels of the run without the flag, plus the perspective Metashape
   XML and ``sparse/0``), then ``--metadata-only``;
+* ``gs360x-torch-maskseg`` in every output mode on 4 views of 1600², 2 of
+  1920×1080 and one 8K frame (synthetic photo-style scenes, two manual add
+  layers), held to the same tool on the CPU; the U-Net (f32 convs), the
+  morphology and the inpaint on the card against the CPU; the shipped
+  weights' four capability gates on the card; the device ms of each step
+  and the tool's wall by stage. MaskSeg launches none of the kernels;
 * ``python -m gs360x_torch.tools.micro_ops``: the 14 primitive kernels of
   ``micro_ops.cu``, each first held to its plain version on the card.
 
@@ -75,14 +81,17 @@ try:
     from gs360x_torch.io.formats import metashape as msxml
     from gs360x_torch.kernels import _build, flow as flowk, remap_cuda
     from gs360x_torch.kernels import micro_ops_cuda as mo
+    from gs360x_torch.kernels import morphology as morph
     from gs360x_torch.kernels import sharpness as sharp
     from gs360x_torch.kernels import warp as twin
     from gs360x_torch.kernels import warp_cuda
+    from gs360x_torch.models import instances, synthseg
+    from gs360x_torch.models import segmentation as seg
     from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
     from gs360x_torch.runtime.executor import _view_groups
-    from gs360x_torch.runtime.profiling import cuda_ms
-    from gs360x_torch.tools import (dualfisheye, frameselector, ms360xml,
-                                    perspcut, video2frames)
+    from gs360x_torch.runtime.profiling import StageTimers, cuda_ms
+    from gs360x_torch.tools import (dualfisheye, frameselector, maskseg,
+                                    ms360xml, perspcut, video2frames)
     from gs360x_torch.tools import micro_ops as micro_ops_tool
 except ModuleNotFoundError as exc:
     if not (exc.name or "").startswith("gs360x_torch"):
@@ -155,6 +164,24 @@ FS_PAIRS, FS_PAIR_SHARP = 4, 1   # pair mode: 4 3840² pairs, pair 1 sharp
 LUT_SIZE = 33
 # score_frame on the card against the same code on the CPU
 SCORE_RTOL = 1e-4
+# [maskseg]: four views of the default preset (1600²), two of the headline
+# ring (1920×1080) and one 8K frame (view id, H, W); manual add layers for
+# B and F, so every output mode sees a non-empty mask
+MS_VIEWS = [("A", 1600, 1600), ("B", 1600, 1600), ("C", 1600, 1600),
+            ("D", 1600, 1600), ("E", 1080, 1920), ("F", 1080, 1920),
+            ("G", SRC_H, SRC_W)]
+MS_LAYERS = ("B", "F")
+MS_MODES = ("mask", "alpha", "cutout", "keep_person", "remove_person",
+            "inpaint")
+# card against CPU, TF32 off in both: the card's and the CPU's f32 convs
+# differ in summation order only (~1e-4 on logits up to ~50)
+LOGIT_TOL = 1e-3
+PROB_TOL = 1e-3
+# a mask pixel may flip where the probability lies within MASK_BAND of the
+# threshold; masks may differ on at most MASK_SHARE_TOL of their pixels
+MASK_BAND = 1e-4
+MASK_SHARE_TOL = 1e-4
+INPAINT_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1638,6 +1665,309 @@ def phase_dualfisheye_xml(dev, tmp, dfe: dict) -> dict:
     return {"launches": launches, "wall_s": wall_s}
 
 
+def _ms_scene(h: int, w: int, seed: int) -> np.ndarray:
+    """A photo-style synthseg scene as u8 (h, w, 3): drawn square at the
+    long side and cropped to the middle rows; the 8K frame is the middle
+    960 rows of a 1920² scene, each pixel repeated 4×4."""
+    rng = np.random.default_rng(seed)
+    size = 1920 if h == SRC_H else w
+    img, _ = synthseg.generate_scene(rng, size=size, photo_style=True)
+    if h == SRC_H:
+        img = np.repeat(np.repeat(img[480:1440], 4, 0), 4, 1)
+    else:
+        img = img[(size - h) // 2:(size - h) // 2 + h]
+    return (img * 255).astype(np.uint8)
+
+
+def _ms_inputs(tmp) -> tuple:
+    """The [maskseg] views as PNG files and the manual add layers (a
+    200-px band at the bottom centre)."""
+    in_dir, manual = tmp / "ms_in", tmp / "ms_manual"
+    in_dir.mkdir()
+    manual.mkdir()
+    with cf.ThreadPoolExecutor(max_workers=4) as pool:
+        scenes = dict(zip(
+            [vid for vid, _h, _w in MS_VIEWS],
+            pool.map(lambda v: _ms_scene(v[1], v[2], 100 + ord(v[0])),
+                     MS_VIEWS)))
+        writes = []
+        for k, (vid, h, w) in enumerate(MS_VIEWS):
+            path = in_dir / f"scene_{k:04d}_{vid}.png"
+            writes.append(pool.submit(
+                Image.fromarray(scenes[vid]).save, path, compress_level=1))
+            if vid in MS_LAYERS:
+                layer = np.zeros((h, w), np.uint8)
+                layer[h - 120:, w // 2 - 100:w // 2 + 100] = 255
+                Image.fromarray(layer).save(manual / f"view__{vid}__add.png")
+        for write in writes:
+            write.result()
+    files = {vid: in_dir / f"scene_{k:04d}_{vid}.png"
+             for k, (vid, _h, _w) in enumerate(MS_VIEWS)}
+    return in_dir, manual, files, scenes
+
+
+def _ms_run(in_dir, manual, out_dir, mode: str, device: str) -> tuple:
+    """One maskseg CLI run with the stage timers; counters set to 0 just
+    before it and read just after."""
+    timers = StageTimers()
+    _reset_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = maskseg.main(["-i", str(in_dir), "-o", str(out_dir), "--mode",
+                           mode, "--manual-mask-dir", str(manual),
+                           "--device", device], timers=timers)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, plain = _counters()
+    lines = buf.getvalue().splitlines()
+    if rc != 0 or len(list(out_dir.iterdir())) != len(MS_VIEWS):
+        raise AssertionError(f"maskseg --mode {mode} --device {device} "
+                             f"exited {rc}: {lines[-3:]}")
+    # MaskSeg runs no hand-written kernel: library convs and torch ops only
+    if any(launches.values()) or any(plain.values()):
+        raise AssertionError(f"maskseg --mode {mode}: launches {launches}, "
+                             f"plain {plain}")
+    found = sum("(subject found)" in line for line in lines)
+    return {"wall_s": wall_s, "timers": timers, "launches": launches,
+            "found": found}
+
+
+def _ms_capability(predictor) -> str:
+    """The four gates of tests/test_synthseg.py through the port's model
+    on ``predictor``'s device."""
+    def logits(images):
+        x = torch.from_numpy(np.ascontiguousarray(images)).permute(
+            0, 3, 1, 2).to(predictor.device)
+        return predictor.logits(x).cpu()
+
+    def iou(images, labels):
+        pred = logits(images).argmax(1).numpy()
+        inter = float(((pred > 0) & (labels > 0)).sum())
+        return inter / max(float(((pred > 0) | (labels > 0)).sum()), 1.0)
+
+    def scenes(generator, seed, **kw):
+        rng = np.random.default_rng(seed)
+        pairs = [generator(rng, size=64, **kw) for _ in range(16)]
+        return (np.stack([p[0] for p in pairs]),
+                np.stack([p[1] for p in pairs]))
+
+    got = {"heldout": iou(*synthseg.generate_corpus(16, size=64, seed=99)),
+           "photo": iou(*scenes(synthseg.generate_scene, 4242,
+                                photo_style=True)),
+           "transfer": iou(*scenes(synthseg.generate_transfer_scene, 777))}
+    person = seg.CLASS_TO_INDEX["person"]
+    rng = np.random.default_rng(888)
+    dets_all, n_gt = [], 0
+    for _ in range(12):
+        im, _sem, inst = synthseg.generate_instance_scene(rng, size=64,
+                                                          n_people=(2, 3))
+        lg = logits(im[None])
+        prob = torch.softmax(lg, dim=1)[0, person].numpy()
+        dets = instances.instance_masks(lg.argmax(1)[0].numpy() == person,
+                                        prob, score_thresh=0.3, max_count=10)
+        gts = [inst == k for k in range(1, inst.max() + 1)
+               if (inst == k).sum() >= 16]
+        for d in dets:
+            d["gts"] = gts
+        dets_all.extend(dets)
+        n_gt += len(gts)
+    got["AP@0.5"] = instances.average_precision(dets_all, n_gt,
+                                                iou_thresh=0.5)
+    gates = {"heldout": 0.78, "photo": 0.70, "transfer": 0.68,
+             "AP@0.5": 0.65}
+    if n_gt < 20 or any(got[k] < gate for k, gate in gates.items()):
+        raise AssertionError(f"capability on the card: {got} (gates {gates},"
+                             f" {n_gt} instances)")
+    return ", ".join(f"{k} {v:.3f} (>= {gates[k]})" for k, v in got.items())
+
+
+def phase_maskseg(dev, tmp, smi: str) -> dict:
+    """gs360x-torch-maskseg on 4 views of 1600², 2 of 1920×1080 and one 8K
+    frame (photo-style synthseg scenes, add layers on B and F), every
+    output mode on the card with the stage timers; the mask mode again
+    with --device cpu, its masks against the card's; the other modes'
+    files against write_output on the CPU from the card's masks (the
+    inpaint on the 1920×1080 views); the U-Net's logits and the person
+    probabilities card against CPU with TF32 off; the morphology bitwise
+    and the inpaint; the four capability gates on the card; device ms of
+    each step."""
+    t0 = time.perf_counter()
+    in_dir, manual, files, scenes = _ms_inputs(tmp)
+    setup_s = time.perf_counter() - t0
+
+    runs = {mode: _ms_run(in_dir, manual, tmp / f"ms_{mode}", mode,
+                          dev.type) for mode in MS_MODES}
+    cpu_run = _ms_run(in_dir, manual, tmp / "ms_mask_cpu", "mask", "cpu")
+    if runs["mask"]["found"] != cpu_run["found"]:
+        raise AssertionError(f"maskseg: subjects found in "
+                             f"{runs['mask']['found']} files on the card, "
+                             f"{cpu_run['found']} on the CPU")
+
+    state = synthseg.load_packaged_weights()
+    card = seg.SegmentationPredictor(state, device=dev)
+    cpu = seg.SegmentationPredictor(state, device=torch.device("cpu"))
+    person = [seg.CLASS_TO_INDEX["person"]]
+
+    # masks, card against CPU; then every mode's files against the CPU's
+    # write_output of the card's mask
+    worst_share, flipped, band_total, masks = 0.0, 0, 0, {}
+    for vid, path in files.items():
+        got = read_png(tmp / "ms_mask" / path.name)
+        ref = read_png(tmp / "ms_mask_cpu" / path.name)
+        diff = int((got != ref).sum())
+        if diff:
+            rgb01 = scenes[vid].astype(np.float32) / 255.0
+            p = cpu.probabilities(rgb01, person)[0].numpy()
+            band = int((np.abs(p - seg.MASK_THRESH) < MASK_BAND).sum())
+            band_total += band
+            if band == 0:
+                raise AssertionError(f"maskseg {path.name}: {diff} mask "
+                                     "pixels differ, none near the threshold")
+        share = diff / got.size
+        worst_share, flipped = max(worst_share, share), flipped + diff
+        if share > MASK_SHARE_TOL:
+            raise AssertionError(f"maskseg {path.name}: {share:.4%} of the "
+                                 "mask differs between card and CPU")
+        masks[vid] = 255 - got
+    worst_lsb, inpaint_checked = 0, 0
+    for mode in MS_MODES[1:]:
+        ref_dir = tmp / f"ms_ref_{mode}"
+        for vid, path in files.items():
+            mask = masks[vid] if masks[vid].any() else None
+            got = read_png(next((tmp / f"ms_{mode}").glob(f"{path.stem}*")))
+            if mode == "inpaint" and (mask is None or vid not in "EF"):
+                keep = slice(None) if mask is None else mask == 0
+                if not np.array_equal(got[keep], scenes[vid][keep]):
+                    raise AssertionError(f"maskseg inpaint {path.name}: "
+                                         "pixels outside the mask moved")
+                continue
+            ref = read_png(maskseg.write_output(
+                mode, path, ref_dir, scenes[vid], mask,
+                device=torch.device("cpu")))
+            lsb = int(np.abs(got.astype(int) - ref.astype(int)).max())
+            inpaint_checked += mode == "inpaint"
+            if lsb > (1 if mode == "inpaint" else 0):
+                raise AssertionError(f"maskseg {mode} {path.name}: {lsb} LSB "
+                                     "from the CPU")
+            worst_lsb = max(worst_lsb, lsb)
+    if not inpaint_checked:
+        raise AssertionError("maskseg: no 1920x1080 view had a mask to "
+                             "inpaint")
+
+    # the U-Net and the probabilities, card against CPU, and device ms of
+    # each step at the three sizes
+    errs, times = [], []
+    for vid in "AEG":
+        rgb01 = scenes[vid].astype(np.float32) / 255.0
+        h, w = rgb01.shape[:2]
+        size = seg.inference_size(h, w)
+        x_cpu = seg.resize_linear(cpu.upload(rgb01), size)
+        up = card.upload(rgb01)
+        x = seg.resize_linear(up, size)
+        in_err = float((x.cpu() - x_cpu).abs().max())
+        lg_err = float((card.logits(x_cpu.to(dev)).cpu()
+                        - cpu.logits(x_cpu)).abs().max())
+        p_err = float((card.probabilities(rgb01, person).cpu()
+                       - cpu.probabilities(rgb01, person)).abs().max())
+        if lg_err > LOGIT_TOL or p_err > PROB_TOL:
+            raise AssertionError(f"maskseg {h}x{w}: logits {lg_err:.3e}, "
+                                 f"probabilities {p_err:.3e} card vs CPU")
+        errs.append(f"{h}x{w} -> {size[0]}x{size[1]}: resize in "
+                    f"{in_err:.2e}, logits {lg_err:.2e}, person p "
+                    f"{p_err:.2e}")
+        lg = card.logits(x)
+        probs = torch.softmax(lg, dim=1)
+        ms = [cuda_ms(lambda: seg.resize_linear(up, size)),
+              cuda_ms(lambda: card.logits(x)),
+              cuda_ms(lambda: torch.softmax(lg, dim=1)),
+              cuda_ms(lambda: seg.resize_linear(probs[:, person], (h, w)))]
+        times.append(f"{h}x{w}: " + " + ".join(f"{t:.4f}" for t in ms)
+                     + f" = {sum(ms):.4f} ms")
+
+    def cudnn_logits(model, x, tf32: bool):
+        """The U-Net through cuDNN, the route f32_convs leaves out."""
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=tf32), torch.inference_mode():
+            return model(x)
+
+    unet = []
+    for h, w in ((576, 1024), (640, 640)):
+        x = torch.rand((1, 3, h, w), generator=torch.Generator(
+            device=dev).manual_seed(h), device=dev)
+        used = card.logits(x)
+        moved = [float((cudnn_logits(card.model, x, tf32) - used).abs().max())
+                 for tf32 in (False, True)]
+        unet.append(
+            f"{h}x{w} f32 (used) {cuda_ms(lambda: card.logits(x)):.4f} ms; "
+            "cuDNN f32 "
+            f"{cuda_ms(lambda: cudnn_logits(card.model, x, False)):.4f} ms "
+            f"(logits move {moved[0]:.2e}), cuDNN TF32 "
+            f"{cuda_ms(lambda: cudnn_logits(card.model, x, True)):.4f} ms "
+            f"(logits move {moved[1]:.2e})")
+    wide = seg.SegmentationPredictor(None, device=dev)
+    wide_cudnn_ms = cuda_ms(lambda: cudnn_logits(wide.model, x, False),
+                            reps=1, batches=3, warmup=1)
+    unet.append(
+        f"default width {wide.features} at 640x640 f32 (used) "
+        f"{cuda_ms(lambda: wide.logits(x)):.4f} ms; cuDNN f32 "
+        f"{wide_cudnn_ms:.4f} ms; cuDNN TF32 "
+        f"{cuda_ms(lambda: cudnn_logits(wide.model, x, True)):.4f} ms")
+
+    # morphology bitwise and the inpaint, card against CPU, on view E
+    m_cpu = torch.from_numpy(masks["E"] > 0)
+    m = m_cpu.to(dev)
+    for k in (5, 31, 51):
+        for fn in (morph.dilate, morph.erode, morph.close_mask):
+            if not torch.equal(fn(m, k).cpu(), fn(m_cpu, k)):
+                raise AssertionError(f"{fn.__name__} k={k}: card and CPU "
+                                     "differ")
+    img_cpu = torch.from_numpy(scenes["E"].astype(np.float32) / 255.0)
+    img = img_cpu.to(dev)
+    filled = morph.diffusion_inpaint(img, m).cpu()
+    ref = morph.diffusion_inpaint(img_cpu, m_cpu)
+    inpaint_err = float((filled - ref).abs().max())
+
+    def u8(t):
+        return torch.clamp(t * 255.0 + 0.5, 0, 255).to(torch.uint8).int()
+    inpaint_lsb = int((u8(filled) - u8(ref)).abs().max())
+    if inpaint_err > INPAINT_TOL or inpaint_lsb > 1:
+        raise AssertionError(f"diffusion_inpaint card vs CPU {inpaint_err:.2e}"
+                             f", {inpaint_lsb} LSB")
+    refine_ms = cuda_ms(lambda: morph.dilate(morph.close_mask(m, 5), 31))
+    inpaint_ms = cuda_ms(lambda: morph.diffusion_inpaint(img, m), reps=2,
+                         batches=3, warmup=1)
+
+    gates = _ms_capability(card)
+    log(f"[maskseg] {len(files)} views (4 x 1600², 2 x 1920x1080, 1 x 8K; "
+        f"set-up {setup_s:.2f}s) | subjects found in "
+        f"{runs['mask']['found']} | launches of the hand-written kernels "
+        f"{runs['mask']['launches']} (MaskSeg has none: torch ops only)"
+        f" | masks card vs CPU: {flipped} pixels differ (worst "
+        f"{worst_share:.5%}, {band_total} pixels within {MASK_BAND:g} of the "
+        f"threshold), other modes' files against the CPU max {worst_lsb} "
+        f"LSB ({inpaint_checked} inpainted)")
+    log(f"[maskseg] card vs CPU, TF32 off: " + "; ".join(errs)
+        + f" | morphology k=5/31/51 bitwise | inpaint 1920x1080 "
+        f"{inpaint_err:.2e} f32, {inpaint_lsb} LSB")
+    log(f"[maskseg] capability on the card: {gates}")
+    log(f"[maskseg] {smi} | device ms an image, resize in + U-Net + softmax "
+        f"+ resize out (person only): " + "; ".join(times))
+    log(f"[maskseg] {smi} | U-Net: " + " | ".join(unet)
+        + f" | close k=5 + expand k=31 on 1920x1080 {refine_ms:.4f} ms | "
+        f"inpaint 256 steps 1920x1080 {inpaint_ms:.4f} ms")
+    for mode in MS_MODES:
+        run = runs[mode]
+        log(f"[maskseg] {smi} | --mode {mode}: wall {run['wall_s']:.3f}s "
+            f"over {len(files)} files | {run['timers'].report()}")
+    log(f"[maskseg] --mode mask --device cpu: wall {cpu_run['wall_s']:.3f}s "
+        f"| {cpu_run['timers'].report()}")
+    return {"launches": runs["mask"]["launches"]}
+
+
 def phase_micro_ops(dev) -> dict:
     """Each of the 14 micro_ops kernels against its plain version on the
     card (movers bitwise, arithmetic at 1e-6, the products at 1e-5 a step
@@ -1744,12 +2074,13 @@ def main() -> int:
         fsel = phase_frameselector(dev, tmp)
         ms_xml = phase_ms360xml(dev, src_dir, frames, tmp)
         dfe_xml = phase_dualfisheye_xml(dev, tmp, dfe)
+        masks = phase_maskseg(dev, tmp, info["smi"])
     micro = phase_micro_ops(dev)
 
     def total(kernel: str) -> int:
         return sum(r["launches"].get(kernel, 0)
                    for r in [*runs.values(), dfe, dfe_lut, *v2f.values(),
-                             *fsel.values(), ms_xml, dfe_xml, micro])
+                             *fsel.values(), ms_xml, dfe_xml, masks, micro])
 
     checks = remap["checks"]
 

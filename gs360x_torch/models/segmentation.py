@@ -1,0 +1,310 @@
+"""The segmentation U-Net and its predictor (the port of
+:mod:`gs360x.models.segmentation`, inference half).
+
+The same network as the JAX package's Flax ``UNet``, in NCHW: ``ConvBlock``
+is two 3×3 convs (``padding=1``), each followed by ``GroupNorm(min(8, f))``
+with Flax's epsilon (1e-6, not torch's 1e-5) and ReLU; 2×2 max-pools down;
+the decoder upsamples ×2 nearest (index ``i // 2``, as ``jax.image.resize``
+does at an integer factor), convolves 3×3, concatenates ``[x, skip]`` in
+that order and runs a ``ConvBlock``; a 1×1 head gives the class logits.
+Module names follow Flax's numbering (``ConvBlock_i``, ``Conv_j``), so the
+``state_dict`` of :func:`~gs360x_torch.models.weights.params_from_flax`
+loads as it is.
+
+The predictor keeps the JAX order — resize in, U-Net, softmax over the
+classes, resize out — and runs it on an explicit device. The convolutions
+are library calls in full f32 (:func:`f32_convs`: no TF32, which torch
+allows by default and which moves the logits by ~5e-2 against the f32
+reference). Training and Orbax checkpoints are not ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import pathlib
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gs360x_torch.models.weights import params_from_flax, read_msgpack
+
+# class table: background + the mask tool's supported targets
+CLASS_NAMES = ("background", "person", "bicycle", "car", "motorcycle",
+               "bus", "truck", "bird", "cat", "dog")
+NUM_CLASSES = len(CLASS_NAMES)
+CLASS_TO_INDEX = {name: i for i, name in enumerate(CLASS_NAMES)}
+
+# inference contract constants (reference gs360_SegmentationMaskTool.py:48-54)
+SCORE_THRESH = 0.7
+MASK_THRESH = 0.5
+DETECTIONS_PER_IMG = 15
+MIN_SIZE = 640
+MAX_SIZE = 1024
+
+# COCO label ids for the targets (reference table :75-195)
+TARGET_TO_CLASSES = {
+    "person": ["person"],
+    "bicycle": ["bicycle"],
+    "car": ["car"],
+    "motorcycle": ["motorcycle"],
+    "bus": ["bus"],
+    "truck": ["truck"],
+    "animal": ["bird", "cat", "dog"],
+}
+
+DEFAULT_FEATURES = (32, 64, 128, 256)
+GROUPNORM_EPS = 1e-6          # flax.linen.GroupNorm's epsilon
+
+
+class GroupNorm(nn.GroupNorm):
+    """``flax.linen.GroupNorm`` over NCHW: ``(x - mean) * (rsqrt(var + eps)
+    * scale) + bias`` per group, with the variance taken about the mean
+    (two passes). ``F.group_norm`` on the CPU with one thread loses
+    ~1e-4 relative on a 576×1024 activation, more than the gate allows."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[:2]
+        g = self.num_groups
+        flat = x.reshape(n, g, -1)       # one flat reduction a group: the
+        mean = flat.mean(-1)             # accurate kind on the CPU
+        var = (flat - mean[..., None]).square().mean(-1)
+        shape = (n, g, c // g, -1)
+        mul = torch.rsqrt(var + self.eps)[..., None] \
+            * self.weight.view(1, g, c // g)
+        d = x.reshape(shape) - mean[..., None, None]
+        return (d * mul[..., None] + self.bias.view(1, g, c // g, 1)
+                ).reshape(x.shape)
+
+
+class ConvBlock(nn.Module):
+    def __init__(self, in_channels: int, features: int) -> None:
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_channels, features, 3, padding=1)
+        self.GroupNorm_0 = GroupNorm(min(8, features), features,
+                                     eps=GROUPNORM_EPS)
+        self.Conv_1 = nn.Conv2d(features, features, 3, padding=1)
+        self.GroupNorm_1 = GroupNorm(min(8, features), features,
+                                     eps=GROUPNORM_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.GroupNorm_0(self.Conv_0(x)))
+        return F.relu(self.GroupNorm_1(self.Conv_1(x)))
+
+
+class UNet(nn.Module):
+    """Encoder/decoder segmentation net with skip connections; input
+    (B, 3, H, W) float in [0, 1], output class logits (B, NUM_CLASSES, H,
+    W). H and W must be multiples of ``2 ** (len(features) - 1)``."""
+
+    def __init__(self, features: Sequence[int] = DEFAULT_FEATURES,
+                 num_classes: int = NUM_CLASSES) -> None:
+        super().__init__()
+        self.features = tuple(int(f) for f in features)
+        n = len(self.features)
+        cin = 3
+        for i, f in enumerate(self.features):          # encoder, bottleneck
+            self.add_module(f"ConvBlock_{i}", ConvBlock(cin, f))
+            cin = f
+        for j, f in enumerate(reversed(self.features[:-1])):
+            self.add_module(f"Conv_{j}", nn.Conv2d(cin, f, 3, padding=1))
+            self.add_module(f"ConvBlock_{n + j}", ConvBlock(2 * f, f))
+            cin = f
+        self.add_module(f"Conv_{n - 1}", nn.Conv2d(cin, num_classes, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = len(self.features)
+        skips = []
+        for i in range(n - 1):
+            x = getattr(self, f"ConvBlock_{i}")(x)
+            skips.append(x)
+            x = F.max_pool2d(x, 2)
+        x = getattr(self, f"ConvBlock_{n - 1}")(x)
+        for j, skip in enumerate(reversed(skips)):
+            x = F.interpolate(x, scale_factor=2, mode="nearest")
+            x = getattr(self, f"Conv_{j}")(x)
+            x = torch.cat([x, skip], dim=1)
+            x = getattr(self, f"ConvBlock_{n + j}")(x)
+        return getattr(self, f"Conv_{n - 1}")(x)
+
+
+def create_model(features=None) -> UNet:
+    return UNet() if features is None else UNet(features=tuple(features))
+
+
+def init_params(generator: torch.Generator, features=None
+                ) -> Dict[str, torch.Tensor]:
+    """Random weights drawn from ``generator`` with Flax's initializers:
+    conv kernels LeCun normal (truncated at two deviations), biases 0,
+    GroupNorm scales 1."""
+    params = create_model(features).state_dict()
+    for name, p in params.items():
+        if p.dim() == 4:
+            std = (1.0 / p[0].numel()) ** 0.5 / .87962566103423978
+            nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            p.fill_(1.0)
+    return params
+
+
+def load_weights(path) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a single-file msgpack weights file, the format
+    ``gs360x.models.segmentation.save_weights`` writes; ValueError unless
+    it is the weights of a U-Net."""
+    params = params_from_flax(read_msgpack(pathlib.Path(path).read_bytes()))
+    try:
+        create_model(features_from_params(params)).load_state_dict(params)
+    except (KeyError, RuntimeError) as exc:
+        raise ValueError(f"{path}: not the weights of a segmentation U-Net "
+                         f"({exc})") from exc
+    return params
+
+
+def features_from_params(params) -> Tuple[int, ...]:
+    """The U-Net width tuple of a ``state_dict`` (the encoder ConvBlocks'
+    out-channels), so one predictor serves weights of any width."""
+    blocks = sorted({k.split(".")[0] for k in params
+                     if k.startswith("ConvBlock_")},
+                    key=lambda k: int(k.split("_")[1]))
+    n_enc = (len(blocks) + 1) // 2          # encoder + bottleneck
+    return tuple(int(params[f"{b}.Conv_0.weight"].shape[0])
+                 for b in blocks[:n_enc])
+
+
+def f32_convs():
+    """A scope in which the convolutions run in full f32 through torch's
+    own route (im2col and an f32 cuBLAS product, at torch's default matmul
+    precision): cuDNN is off in it, leaving the process's other flags as
+    they are. With TF32 off, cuDNN 9 runs the default width's convs about
+    40 times slower than this route (``chip_smoke.py`` ``[maskseg]`` times
+    both routes at both widths); with TF32, torch's default, it moves the
+    logits by ~5e-2."""
+    return torch.backends.cudnn.flags(
+        enabled=False, benchmark=torch.backends.cudnn.benchmark,
+        deterministic=torch.backends.cudnn.deterministic, allow_tf32=False)
+
+
+def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(…, "linear")`` of an (N, C, H, W) tensor:
+    half-pixel centres, and a triangle filter widened by the scale along an
+    axis that shrinks (anti-aliased) but not along one that grows. Where
+    one axis grows and the other shrinks, one pass an axis."""
+    h, w = x.shape[-2:]
+    nh, nw = size
+    if (nh - h) * (nw - w) < 0:
+        x = F.interpolate(x, size=(nh, w), mode="bilinear",
+                          align_corners=False, antialias=nh < h)
+        h = nh
+    return F.interpolate(x, size=(nh, nw), mode="bilinear",
+                         align_corners=False, antialias=nh < h or nw < w)
+
+
+def inference_size(h: int, w: int, min_size: int = MIN_SIZE,
+                   max_size: int = MAX_SIZE) -> Tuple[int, int]:
+    """Reference-compatible resize rule (short side → 640, long ≤ 1024),
+    rounded to multiples of 16 for the U-Net."""
+    scale = min_size / min(h, w)
+    if max(h, w) * scale > max_size:
+        scale = max_size / max(h, w)
+    nh = max(16, int(round(h * scale / 16)) * 16)
+    nw = max(16, int(round(w * scale / 16)) * 16)
+    return nh, nw
+
+
+class SegmentationPredictor:
+    """End-to-end predictor on ``device``: resize → U-Net → instance
+    extraction (on the host). ``timers`` (a ``StageTimers``), when given,
+    receives the wall of ``detect``'s device part (``infer``: up to the
+    fetch) and host part (``instances``)."""
+
+    def __init__(self, params: Optional[Dict[str, torch.Tensor]] = None, *,
+                 device: torch.device, rng_seed: int = 0,
+                 timers=None) -> None:
+        self.timers = timers
+        if params is None:
+            params = init_params(torch.Generator().manual_seed(rng_seed))
+        self.features = features_from_params(params)
+        self.device = torch.device(device)
+        self.model = create_model(self.features)
+        self.model.load_state_dict(params)
+        self.model.to(self.device).eval()
+
+    def _stage(self, name: str):
+        return self.timers.stage(name) if self.timers \
+            else contextlib.nullcontext()
+
+    @torch.inference_mode()
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """U-Net logits of an (N, 3, H, W) batch on the device."""
+        with f32_convs():
+            return self.model(x)
+
+    def upload(self, rgb01: np.ndarray) -> torch.Tensor:
+        """(H, W, 3) float [0, 1] on the host → (1, 3, H, W) f32 on the
+        device."""
+        img = torch.from_numpy(np.ascontiguousarray(rgb01, np.float32))
+        return img.to(self.device).permute(2, 0, 1)[None]
+
+    @torch.inference_mode()
+    def probabilities(self, rgb01: np.ndarray,
+                      channels: Optional[Sequence[int]] = None
+                      ) -> torch.Tensor:
+        """Class probabilities (C, H, W) on the device at the input's size,
+        of every class or only of ``channels``: the resize out works per
+        channel, so a subset has the values the full map would."""
+        h, w = rgb01.shape[:2]
+        img = resize_linear(self.upload(rgb01), inference_size(h, w))
+        probs = torch.softmax(self.logits(img), dim=1)
+        if channels is not None:
+            probs = probs[:, list(channels)]
+        return resize_linear(probs, (h, w))[0]
+
+    def class_probabilities(self, rgb01: np.ndarray) -> np.ndarray:
+        """(H, W, NUM_CLASSES) probabilities on the host."""
+        return self.probabilities(rgb01).permute(1, 2, 0).cpu().numpy()
+
+    def detect(self, rgb01: np.ndarray, target_classes: Sequence[str], *,
+               score_thresh: float = SCORE_THRESH,
+               mask_thresh: float = MASK_THRESH,
+               max_detections: int = DETECTIONS_PER_IMG) -> List[dict]:
+        """Instance list [{'mask' (H,W) bool, 'score', 'class_name'}],
+        score-sorted, capped at max_detections. Only the target classes'
+        probabilities are resized and fetched."""
+        from gs360x_torch.models.instances import instance_masks
+
+        names = [name for name in target_classes if name in CLASS_TO_INDEX]
+        if not names:
+            return []
+        with self._stage("infer"):
+            probs = self.probabilities(
+                rgb01, [CLASS_TO_INDEX[name] for name in names]).cpu().numpy()
+        detections = []
+        with self._stage("instances"):
+            for name, p in zip(names, probs):
+                binary = p >= mask_thresh
+                if not binary.any():
+                    continue
+                for det in instance_masks(binary, p,
+                                          score_thresh=score_thresh,
+                                          max_count=max_detections):
+                    det["class_name"] = name
+                    detections.append(det)
+        detections.sort(key=lambda d: -d["score"])
+        return detections[:max_detections]
+
+    def combined_mask(self, rgb01: np.ndarray,
+                      target_classes: Sequence[str], **kw
+                      ) -> Optional[np.ndarray]:
+        """Union of detected instance masks as uint8 {0,255}, or None."""
+        dets = self.detect(rgb01, target_classes, **kw)
+        if not dets:
+            return None
+        out = np.zeros(rgb01.shape[:2], bool)
+        for d in dets:
+            out |= d["mask"]
+        return out.astype(np.uint8) * 255

@@ -11,9 +11,11 @@ cases of ``_warp_kernel``, ``_warp_kernel_wide3``, ``_warp_kernel_wide2``,
 new paths on the card against the same code on the CPU (rtol 1e-4): the
 fisheye→perspective maps through ``remap.cu``, the planar ``.cube`` apply,
 the FrameSelector gray (bitwise) and ``score_frame`` for every metric, and
-both optical flows; and the 14 ``micro_ops`` kernels against their plain
+both optical flows; the 14 ``micro_ops`` kernels against their plain
 versions (movers bitwise, arithmetic at 1e-6, the products at 1e-5 a step
-and at most 8 steps). Marked ``cuda``: each test skips without a card. On a machine
+and at most 8 steps); and MaskSeg's device steps against the CPU: the
+U-Net's logits with TF32 off (1e-3), the morphology bitwise, the blur
+(1e-6), the inpaint (1e-5) and ``combined_mask``. Marked ``cuda``: each test skips without a card. On a machine
 with one, run (the JAX-side conftest is not needed)::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -515,3 +517,76 @@ def test_micro_op_refuses_mixed_devices(dev):
     inputs = mo.make_inputs(dev)
     with pytest.raises(ValueError):
         mo.micro_op("where", [inputs["a8"], inputs["ridx8"].cpu()], 2)
+
+
+# --- the segmentation U-Net, morphology and MaskSeg's predictor -------------
+
+@pytest.fixture(scope="module")
+def shipped_state():
+    from gs360x_torch.models import synthseg
+    return synthseg.load_packaged_weights()
+
+
+def test_unet_matches_cpu_with_tf32_off(dev, shipped_state):
+    """The U-Net's logits on the card within 1e-3 of the CPU's at the
+    inference size of a 1920×1080 view, TF32 off inside ``logits`` and the
+    process's flag as it was afterwards; the class argmax equal wherever
+    the CPU's top two logits lie more than twice that apart."""
+    from gs360x_torch.models import segmentation as seg
+    x = torch.from_numpy(np.random.default_rng(9).random(
+        (1, 3, 576, 1024), dtype=np.float32))
+    before = torch.backends.cudnn.allow_tf32
+    got = seg.SegmentationPredictor(shipped_state, device=dev).logits(
+        x.to(dev)).cpu()
+    ref = seg.SegmentationPredictor(shipped_state, device=CPU).logits(x)
+    assert torch.backends.cudnn.allow_tf32 == before
+    assert float((got - ref).abs().max()) <= 1e-3
+    top2 = ref.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2e-3
+    assert torch.equal(got.argmax(1)[clear], ref.argmax(1)[clear])
+
+
+@pytest.mark.parametrize("k", [1, 4, 5, 31, 51])
+def test_morphology_bitwise_matches_cpu(dev, k):
+    from gs360x_torch.kernels import morphology as morph
+    m = torch.from_numpy(np.random.default_rng(k).random((301, 457)) < 0.02)
+    for fn in (morph.dilate, morph.erode, morph.close_mask):
+        assert torch.equal(fn(m.to(dev), k).cpu(), fn(m, k))
+
+
+def test_blur_and_inpaint_match_cpu(dev):
+    from gs360x_torch.kernels import morphology as morph
+    rng = np.random.default_rng(10)
+    luma = torch.from_numpy(rng.random((120, 200), dtype=np.float32))
+    got = morph.gaussian_blur(luma.to(dev), 7.0, 10).cpu()
+    assert float((got - morph.gaussian_blur(luma, 7.0, 10)).abs().max()) \
+        <= 1e-6
+    img = torch.from_numpy(rng.random((120, 200, 3), dtype=np.float32))
+    mask = torch.from_numpy(rng.random((120, 200)) < 0.3)
+    got = morph.diffusion_inpaint(img.to(dev), mask.to(dev)).cpu()
+    ref = morph.diffusion_inpaint(img, mask)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_combined_mask_matches_cpu(dev, shipped_state):
+    """``SegmentationPredictor.combined_mask`` on the card against the CPU
+    on photo-style scenes: equal, or apart only where the CPU's
+    probability lies within 1e-4 of the mask threshold."""
+    from gs360x_torch.models import segmentation as seg
+    from gs360x_torch.models import synthseg
+    card = seg.SegmentationPredictor(shipped_state, device=dev)
+    cpu = seg.SegmentationPredictor(shipped_state, device=CPU)
+    rng = np.random.default_rng(11)
+    found = 0
+    for size in (80, 160, 700):
+        img, _ = synthseg.generate_scene(rng, size=size, photo_style=True)
+        got = card.combined_mask(img, ["person"], score_thresh=0.5)
+        ref = cpu.combined_mask(img, ["person"], score_thresh=0.5)
+        if ref is None or got is None:
+            assert got is None and ref is None
+            continue
+        found += 1
+        p = cpu.probabilities(img, [seg.CLASS_TO_INDEX["person"]])[0]
+        band = (p - seg.MASK_THRESH).abs().numpy() < 1e-4
+        assert not ((got != ref) & ~band).any()
+    assert found

@@ -1,10 +1,12 @@
 """The port never imports JAX, and nothing of the JAX package: every
 ``gs360x_torch`` module (the remap path, the tools, the sharpness and flow
-modules, the host IO and camera-format copies named explicitly), and
-``chip_smoke`` as a module, import in a fresh interpreter with no ``jax``
-and no ``gs360x`` module in ``sys.modules`` afterwards. A subprocess,
-because this test process has already imported JAX. No source file of the
-port, nor ``chip_smoke.py``, names ``gs360x`` or ``jax`` in an import."""
+modules, the host IO and camera-format copies, the segmentation model and
+MaskSeg named explicitly), and ``chip_smoke`` as a module, import in a
+fresh interpreter with no ``jax``, no ``gs360x`` and no ``flax``,
+``msgpack``, ``orbax`` or ``optax`` module in ``sys.modules`` afterwards. A
+subprocess, because this test process has already imported JAX. No source
+file of the port, nor ``chip_smoke.py``, names any of them in an
+import."""
 
 import ast
 import json
@@ -33,6 +35,8 @@ print(json.dumps({
     "names": names,
     "jax": [m for m in loaded if m == "jax" or m.startswith("jax.")],
     "gs360x": [m for m in loaded if m == "gs360x" or m.startswith("gs360x.")],
+    "forbidden": [m for m in loaded
+                  if m.split(".")[0] in ("flax", "msgpack", "orbax", "optax")],
 }))
 """
 
@@ -59,12 +63,23 @@ def test_port_imports_no_jax():
             "gs360x_torch.tools.video2frames",
             "gs360x_torch.tools.frameselector",
             "gs360x_torch.kernels.sharpness",
-            "gs360x_torch.kernels.flow"} <= set(seen["names"])
+            "gs360x_torch.kernels.flow",
+            "gs360x_torch.kernels.morphology",
+            "gs360x_torch.models.weights",
+            "gs360x_torch.models.segmentation",
+            "gs360x_torch.models.instances",
+            "gs360x_torch.models.synthseg",
+            "gs360x_torch.tools.maskseg"} <= set(seen["names"])
     assert seen["jax"] == [], seen["jax"]
     assert set(seen["gs360x"]) <= ALLOWED_GS360X, seen["gs360x"]
+    assert seen["forbidden"] == [], seen["forbidden"]
 
 
-FORBIDDEN_ROOTS = {"gs360x", "jax", "jaxlib", "flax"}
+# the card's machine has none of these: the JAX package's weights and
+# checkpoints go through flax, msgpack, orbax and optax; the port reads its
+# weights with its own msgpack reader
+FORBIDDEN_ROOTS = {"gs360x", "jax", "jaxlib", "flax", "msgpack", "orbax",
+                   "optax"}
 
 
 def imported_roots(path: pathlib.Path) -> set:
@@ -92,7 +107,8 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
         assert not roots & FORBIDDEN_ROOTS, (script, sorted(roots))
 
 
-PACKAGES = ["core", "io", "kernels", "native", "rig", "runtime", "tools"]
+PACKAGES = ["core", "io", "kernels", "models", "native", "rig", "runtime",
+            "tools"]
 
 
 def test_every_port_source_is_in_a_checked_package():
