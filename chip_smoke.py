@@ -40,6 +40,23 @@ it went through the kernels only and that its pixels are right:
   morphology and the inpaint on the card against the CPU; the shipped
   weights' four capability gates on the card; the device ms of each step
   and the tool's wall by stage. MaskSeg launches none of the kernels;
+* the U-Net's training (``[segtrain]``): (a) three steps of the default
+  width at 256², batch 8, on the card and on the CPU from one init, and a
+  step's device ms by both conv routes; (b) ``gs360x-torch-segtrain`` on
+  32 synthseg image / mask pairs at 512², its weights read back bitwise,
+  then MaskSeg with them; (c) ``--make-default -o``, then MaskSeg's
+  default resolution with it; (d) the ``tools/seg_eval.py`` recipe
+  trained on the card, its four capability numbers held to the floor of
+  the JAX package's seeds (``tests/torch_seg_floor.py``);
+* ``gs360x-torch-plyopt`` (``[plyopt]``) on an 8M-point dense cloud in
+  every mode (the target search, ``-v`` with each ``--keep-strategy``, the
+  spatial hash, the adaptive octree, the sky dome with an appended PLY),
+  a COLMAP round trip, every mode card vs ``--device cpu`` on 1M points,
+  the 8M picks equal over two card runs, the voxel count and reduce's
+  device ms;
+* ``gs360x-torch-scene`` (``[scene]``) on each format ``[ms360xml]``
+  exported, the cameras agreeing across them. None of the three launches
+  a hand-written kernel;
 * ``python -m gs360x_torch.tools.micro_ops``: the 14 primitive kernels of
   ``micro_ops.cu``, each first held to its plain version on the card.
 
@@ -55,6 +72,8 @@ import json
 import math
 import os
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,7 +83,7 @@ import time
 import concurrent.futures as cf
 import csv
 import io
-from contextlib import redirect_stdout
+from contextlib import contextmanager, redirect_stdout
 
 import numpy as np
 import torch
@@ -74,24 +93,29 @@ from PIL import Image
 try:
     from gs360x_torch.core import camera as cam
     from gs360x_torch.core import color as colorlib
-    from gs360x_torch import native
+    from gs360x_torch import checks, native
     from gs360x_torch.io import image as imagelib
     from gs360x_torch.io import ply as plyio
+    from gs360x_torch.io import scene as scene_io
     from gs360x_torch.io.formats import colmap_text
     from gs360x_torch.io.formats import metashape as msxml
+    from gs360x_torch.io.formats import model as colmap_model
     from gs360x_torch.kernels import _build, flow as flowk, remap_cuda
     from gs360x_torch.kernels import micro_ops_cuda as mo
     from gs360x_torch.kernels import morphology as morph
     from gs360x_torch.kernels import sharpness as sharp
+    from gs360x_torch.kernels import voxel
     from gs360x_torch.kernels import warp as twin
     from gs360x_torch.kernels import warp_cuda
-    from gs360x_torch.models import instances, synthseg
+    from gs360x_torch.models import synthseg
     from gs360x_torch.models import segmentation as seg
     from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
     from gs360x_torch.runtime.executor import _view_groups
     from gs360x_torch.runtime.profiling import StageTimers, cuda_ms
     from gs360x_torch.tools import (dualfisheye, frameselector, maskseg,
-                                    ms360xml, perspcut, video2frames)
+                                    ms360xml, perspcut, plyopt, segtrain,
+                                    video2frames)
+    from gs360x_torch.tools import scene as scene_tool
     from gs360x_torch.tools import micro_ops as micro_ops_tool
 except ModuleNotFoundError as exc:
     if not (exc.name or "").startswith("gs360x_torch"):
@@ -182,6 +206,30 @@ PROB_TOL = 1e-3
 MASK_BAND = 1e-4
 MASK_SHARE_TOL = 1e-4
 INPAINT_TOL = 1e-5
+
+# [segtrain]: (a) card vs CPU at the default width
+ST_SIZE, ST_BATCH, ST_STEPS = 256, 8, 3
+ST_LOSS_RTOL = 1e-5          # step 1's loss, relative
+ST_LATER_LOSS_RTOL = 1e-4    # steps 2-3, after Adam's first updates
+ST_GRAD_TOL = 5e-4           # step 1's gradients, of the largest |gradient|
+ST_CLI_SCENES = 32           # (b): 512² image / mask pairs, trained at
+ST_CLI_SIZE = 256            # --size 256 --batch-size 8 --epochs 3
+CAP_STEPS = 3000             # (d): the tools/seg_eval.py recipe
+CAP_PROFILED = 20            # of them, the last steps under the profiler
+# (d)'s floor: the lowest of the JAX package's seeds 0-2 trained by the
+# same recipe on the CPU, less 0.05 a metric
+# (python3 tests/torch_seg_floor.py)
+CAP_FLOOR = {"heldout": 0.750262341998569, "photo": 0.6496503496503496,
+             "transfer": 0.5912310286677909, "AP@0.5": 0.6314449917898194}
+
+# [plyopt]
+PLY_POINTS = 8_000_000
+PLY_SUBSET = 1_000_000       # card vs --device cpu
+PLY_VOXEL = 0.1              # -v, metres
+PLY_TARGET = 1_000_000       # -t, and --downsample-method spatial-hash -t
+PLY_ADAPTIVE = 50_000        # --adaptive -t
+
+SCENE_TOL = 1e-4             # [scene]: camera centres across formats
 
 
 def log(msg: str) -> None:
@@ -1740,47 +1788,15 @@ def _ms_capability(predictor) -> str:
     def logits(images):
         x = torch.from_numpy(np.ascontiguousarray(images)).permute(
             0, 3, 1, 2).to(predictor.device)
-        return predictor.logits(x).cpu()
+        return predictor.logits(x).cpu().numpy()
 
-    def iou(images, labels):
-        pred = logits(images).argmax(1).numpy()
-        inter = float(((pred > 0) & (labels > 0)).sum())
-        return inter / max(float(((pred > 0) | (labels > 0)).sum()), 1.0)
-
-    def scenes(generator, seed, **kw):
-        rng = np.random.default_rng(seed)
-        pairs = [generator(rng, size=64, **kw) for _ in range(16)]
-        return (np.stack([p[0] for p in pairs]),
-                np.stack([p[1] for p in pairs]))
-
-    got = {"heldout": iou(*synthseg.generate_corpus(16, size=64, seed=99)),
-           "photo": iou(*scenes(synthseg.generate_scene, 4242,
-                                photo_style=True)),
-           "transfer": iou(*scenes(synthseg.generate_transfer_scene, 777))}
-    person = seg.CLASS_TO_INDEX["person"]
-    rng = np.random.default_rng(888)
-    dets_all, n_gt = [], 0
-    for _ in range(12):
-        im, _sem, inst = synthseg.generate_instance_scene(rng, size=64,
-                                                          n_people=(2, 3))
-        lg = logits(im[None])
-        prob = torch.softmax(lg, dim=1)[0, person].numpy()
-        dets = instances.instance_masks(lg.argmax(1)[0].numpy() == person,
-                                        prob, score_thresh=0.3, max_count=10)
-        gts = [inst == k for k in range(1, inst.max() + 1)
-               if (inst == k).sum() >= 16]
-        for d in dets:
-            d["gts"] = gts
-        dets_all.extend(dets)
-        n_gt += len(gts)
-    got["AP@0.5"] = instances.average_precision(dets_all, n_gt,
-                                                iou_thresh=0.5)
+    got = checks.capability(logits)
     gates = {"heldout": 0.78, "photo": 0.70, "transfer": 0.68,
              "AP@0.5": 0.65}
-    if n_gt < 20 or any(got[k] < gate for k, gate in gates.items()):
-        raise AssertionError(f"capability on the card: {got} (gates {gates},"
-                             f" {n_gt} instances)")
-    return ", ".join(f"{k} {v:.3f} (>= {gates[k]})" for k, v in got.items())
+    if got["n_gt"] < 20 or any(got[k] < gate for k, gate in gates.items()):
+        raise AssertionError(f"capability on the card: {got} (gates {gates})")
+    return ", ".join(f"{k} {got[k]:.3f} (>= {gate})"
+                     for k, gate in gates.items())
 
 
 def phase_maskseg(dev, tmp, smi: str) -> dict:
@@ -2036,7 +2052,653 @@ def phase_micro_ops(dev) -> dict:
             "library_ms": None}
 
 
+# --- [segtrain]: the U-Net's training step, segtrain, --make-default and a
+# model trained on the card ------------------------------------------------
+
+def _seg_batches(n: int, size: int, batch: int, seed: int) -> list:
+    """``n`` batches of ``batch`` photo-style synthseg scenes at size²."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        pairs = [synthseg.generate_scene(rng, size=size, photo_style=True)
+                 for _ in range(batch)]
+        out.append((np.stack([p[0] for p in pairs]),
+                    np.stack([p[1] for p in pairs]).astype(np.int64)))
+    return out
+
+
+def _grads(state) -> dict:
+    return {n: p.grad.detach().cpu().clone()
+            for n, p in state.model.named_parameters()}
+
+
+def _profiled(step, n: int) -> tuple:
+    """(wall ms a step, kernel ms a step, the device's busy share of the
+    wall) over ``n`` calls of ``step`` under ``torch.profiler``, ending in
+    a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    ) / 1e3 / n
+    return wall_ms, kernel_ms, kernel_ms / wall_ms
+
+
+@contextmanager
+def _im2col_convs():
+    """``seg.train_step`` with the convolutions of inference
+    (``seg.f32_convs``): the im2col route, whose weights are the same in
+    every process. The cuDNN route's autotuner may pick other algorithms
+    in another process."""
+    shipped = seg.train_convs
+    seg.train_convs = seg.f32_convs
+    try:
+        yield
+    finally:
+        seg.train_convs = shipped
+
+
+def _step_split(state, x, y) -> dict:
+    """Device ms of a training step's parts on one uploaded batch by CUDA
+    events over back-to-back runs: the forward with its loss, the forward
+    and backward (the backward is the difference) and the AdamW update."""
+    def forward():
+        with seg.train_convs():
+            return seg.loss_fn(state.model(x.permute(0, 3, 1, 2)), y, 4.0)
+
+    def forward_backward():
+        state.optimizer.zero_grad(set_to_none=True)
+        with seg.train_convs():
+            forward().backward()
+    fwd = cuda_ms(forward, reps=3, batches=3, warmup=2)
+    both = cuda_ms(forward_backward, reps=3, batches=3, warmup=2)
+    opt = cuda_ms(state.optimizer.step, reps=3, batches=3, warmup=2)
+    return {"forward": fwd, "backward": both - fwd, "adamw": opt}
+
+
+def _segtrain_parity(dev) -> tuple:
+    """(a): the default width at 256², batch 8, 3 steps on the card and on
+    the CPU from one init and the same batches, and again on the card,
+    bitwise the first card run; then the device ms of a step by the
+    training route (cuDNN) and by the im2col route of inference."""
+    params = seg.init_params(torch.Generator().manual_seed(0))
+    batches = _seg_batches(ST_STEPS, ST_SIZE, ST_BATCH, seed=21)
+    card = seg.create_train_state(None, 1e-3, device=dev, params=params)
+    cpu = seg.create_train_state(None, 1e-3, device=torch.device("cpu"),
+                                 params=params)
+    losses, worst = [], {}
+    t0 = time.perf_counter()
+    for step, (im, lb) in enumerate(batches):
+        got = float(seg.train_step(card, torch.from_numpy(im).to(dev),
+                                   torch.from_numpy(lb).to(dev), 4.0))
+        ref = float(seg.train_step(cpu, torch.from_numpy(im),
+                                   torch.from_numpy(lb), 4.0))
+        losses.append((got, ref))
+        tol = ST_LOSS_RTOL if step == 0 else ST_LATER_LOSS_RTOL
+        if abs(got - ref) > tol * abs(ref):
+            raise AssertionError(f"segtrain step {step + 1}: loss {got!r} on "
+                                 f"the card, {ref!r} on the CPU")
+        if step == 0:
+            g_card, g_cpu = _grads(card), _grads(cpu)
+            gmax = max(float(g.abs().max()) for g in g_cpu.values())
+            worst = max(((float((g_card[n] - g).abs().max()) / gmax, n)
+                         for n, g in g_cpu.items()))
+            if worst[0] > ST_GRAD_TOL:
+                raise AssertionError(f"segtrain step 1: gradient of "
+                                     f"{worst[1]} {worst[0]:.3e} of the "
+                                     f"largest apart, card vs CPU")
+    pair_s = time.perf_counter() - t0
+    again = seg.create_train_state(None, 1e-3, device=dev, params=params)
+    for step, (im, lb) in enumerate(batches):
+        got = float(seg.train_step(again, torch.from_numpy(im).to(dev),
+                                   torch.from_numpy(lb).to(dev), 4.0))
+        if got != losses[step][0]:
+            raise AssertionError(f"segtrain step {step + 1}: two card runs "
+                                 f"give losses {got!r} and "
+                                 f"{losses[step][0]!r}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            again.model.state_dict().values(),
+            card.model.state_dict().values())):
+        raise AssertionError("segtrain: two card runs give other weights")
+
+    x = torch.from_numpy(batches[0][0]).to(dev)
+    y = torch.from_numpy(batches[0][1]).to(dev)
+    im2col = seg.create_train_state(None, 1e-3, device=dev, params=params)
+    with _im2col_convs():
+        im2col_ms = cuda_ms(lambda: seg.train_step(im2col, x, y, 4.0),
+                            reps=3, batches=3, warmup=2)
+    state = seg.create_train_state(None, 1e-3, device=dev, params=params)
+    ms = {"im2col": im2col_ms,
+          "cudnn": cuda_ms(lambda: seg.train_step(state, x, y, 4.0),
+                           reps=3, batches=3, warmup=2)}
+    state = seg.create_train_state(None, 1e-3, device=dev, params=params)
+    split = _step_split(state, x, y)
+
+    def step():                       # a host batch: upload, then a step
+        im, lb = batches[step.k % len(batches)]
+        step.k += 1
+        seg.train_step(state, torch.from_numpy(im).to(dev),
+                       torch.from_numpy(lb).to(dev), 4.0)
+    step.k = 0
+    split["wall"], split["kernels"], split["busy"] = _profiled(step, 6)
+    return losses, worst, ms, split, pair_s
+
+
+def _write_pairs(root: pathlib.Path, n: int, size: int) -> tuple:
+    """``n`` photo-style synthseg scenes at size² as PNG image and class
+    mask pairs under root/img and root/mask."""
+    img_dir, mask_dir = root / "img", root / "mask"
+    img_dir.mkdir(parents=True)
+    mask_dir.mkdir()
+
+    def one(k):
+        img, lab = synthseg.generate_scene(np.random.default_rng(300 + k),
+                                           size=size, photo_style=True)
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            img_dir / f"s{k:03d}.png", compress_level=1)
+        Image.fromarray(lab.astype(np.uint8)).save(mask_dir / f"s{k:03d}.png")
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(one, range(n)))
+    return img_dir, mask_dir
+
+
+def _quiet(fn, *args, **kw) -> tuple:
+    """(return value, stdout lines) of one call."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = fn(*args, **kw)
+    return rc, buf.getvalue().splitlines()
+
+
+def _no_launch(label: str) -> None:
+    launches, plain = _counters()
+    if any(launches.values()) or any(plain.values()):
+        raise AssertionError(f"{label}: launches {launches}, plain {plain}")
+
+
+def _segtrain_cli(dev, tmp, ms_in: pathlib.Path) -> dict:
+    """(b): gs360x-torch-segtrain on 32 scenes at 512², then maskseg with
+    the weights it wrote; (c): --make-default -o, then maskseg's default
+    resolution loads it."""
+    t0 = time.perf_counter()
+    img_dir, mask_dir = _write_pairs(tmp / "st_pairs", ST_CLI_SCENES, 512)
+    setup_s = time.perf_counter() - t0
+    out = tmp / "st_weights.msgpack"
+    saved = {}
+    save = seg.save_weights
+
+    def keep(path, params):
+        saved.update({k: v.detach().cpu().clone() for k, v in params.items()})
+        save(path, params)
+    seg.save_weights = keep
+    _reset_counters()
+    t0 = time.perf_counter()
+    try:
+        rc, lines = _quiet(segtrain.main, [
+            "-i", str(img_dir), "-m", str(mask_dir), "-o", str(out),
+            "--size", str(ST_CLI_SIZE), "--batch-size", "8", "--epochs",
+            "3"])
+    finally:
+        seg.save_weights = save
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    _no_launch("segtrain")
+    n_val = max(1, int(ST_CLI_SCENES * 0.1))
+    steps = 3 * ((ST_CLI_SCENES - n_val) // 8)
+    train_s = float(re.search(r"\(([\d.]+)s\)$", lines[-1]).group(1)) \
+        if rc == 0 else None
+    if rc != 0 or not lines[-1].startswith(f"[OK] checkpoint: {out}") \
+            or sum(ln.startswith("[INFO] epoch ") for ln in lines) != 3:
+        raise AssertionError(f"segtrain exited {rc}: {lines[-4:]}")
+    back = seg.load_weights(out)
+    if back.keys() != saved.keys() or not all(
+            torch.equal(back[k], saved[k]) for k in saved):
+        raise AssertionError("segtrain: the written weights do not read back "
+                             "bitwise equal to the trained state_dict")
+    rc, ms_lines = _quiet(maskseg.main, [
+        "-i", str(ms_in), "-o", str(tmp / "st_masks"), "--mode", "mask",
+        "--checkpoint", str(out)])
+    _no_launch("maskseg --checkpoint")
+    if rc != 0 or len(list((tmp / "st_masks").iterdir())) != len(MS_VIEWS):
+        raise AssertionError(f"maskseg --checkpoint exited {rc}: "
+                             f"{ms_lines[-3:]}")
+
+    default = tmp / "st_default.msgpack"
+    _reset_counters()
+    t0 = time.perf_counter()
+    rc, mk_lines = _quiet(segtrain.main, ["--make-default", "-o",
+                                          str(default)])
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    _no_launch("segtrain --make-default")
+    if rc != 0 or mk_lines[-1] != \
+            f"[synthseg] default checkpoint saved: {default}":
+        raise AssertionError(f"--make-default exited {rc}: {mk_lines[-3:]}")
+    last_loss = float(mk_lines[-2].rsplit(" ", 1)[1])
+    # the port's cached default, in a cache of this run's own
+    cache = tmp / "st_cache" / synthseg.default_weights_path().name
+    cache.parent.mkdir()
+    shutil.copyfile(default, cache)
+    paths = synthseg.packaged_weights_path, synthseg.default_weights_path
+    synthseg.packaged_weights_path = lambda: tmp / "no_shipped.msgpack"
+    synthseg.default_weights_path = lambda: cache
+    try:
+        rc, def_lines = _quiet(maskseg.main, [
+            "-i", str(ms_in), "-o", str(tmp / "st_default_masks"),
+            "--mode", "mask"])
+    finally:
+        synthseg.packaged_weights_path, synthseg.default_weights_path = paths
+    if rc != 0 or f"[INFO] loaded default checkpoint: {cache}" \
+            not in def_lines:
+        raise AssertionError(f"maskseg with the default built on the card "
+                             f"exited {rc}: {def_lines[:3]}")
+    return {"setup_s": setup_s, "cli_s": cli_s, "train_s": train_s,
+            "steps": steps, "epochs": [ln for ln in lines
+                                       if ln.startswith("[INFO] epoch ")],
+            "make_s": make_s, "make_loss": last_loss}
+
+
+def _train_capability(dev, convs=_im2col_convs) -> tuple:
+    """(d): the tools/seg_eval.py recipe on the card — features (16, 32,
+    64), 64², batch 16, lr 3e-3 with the warmup-cosine schedule over 3000
+    steps, 448 scenes at photo_frac 0.7, corpus seed 0, batch rng 1, flips,
+    augment_batch, fg_weight 4 — by the port's train_step in the scope
+    ``convs``, and the four capability numbers of the trained model on the
+    card. The gate trains with the im2col convs (:func:`_im2col_convs`):
+    by the cuDNN route users train by, 3000 steps carry the autotuner's
+    choice of the process into a model of other numbers, whose AP@0.5 fell
+    below the floor in one of eight processes, so the gate would read a
+    draw; by im2col it reads one model. ``tests/torch_seg_floor.py
+    --port-runs`` measures the cuDNN route's spread."""
+    images, labels = synthseg.generate_corpus(448, size=64, seed=0,
+                                              photo_frac=0.7)
+    state = seg.create_train_state(torch.Generator().manual_seed(0), 3e-3,
+                                   (16, 32, 64), CAP_STEPS, device=dev)
+    rng = np.random.default_rng(1)
+    host_s = 0.0
+
+    def step():
+        nonlocal host_s
+        t = time.perf_counter()
+        idx = rng.integers(0, len(images), 16)
+        im, lb = images[idx].copy(), labels[idx]
+        if rng.random() < 0.5:
+            im = im[:, :, ::-1].copy()
+            lb = lb[:, :, ::-1].copy()
+        im = synthseg.augment_batch(rng, im)
+        host_s += time.perf_counter() - t
+        return seg.train_step(state, torch.from_numpy(im).to(dev),
+                              torch.from_numpy(lb).to(dev), 4.0)
+    t0 = time.perf_counter()
+    with convs():
+        for _ in range(CAP_STEPS - CAP_PROFILED - 1):
+            step()
+        split = dict(zip(("wall", "kernels", "busy"),
+                         _profiled(step, CAP_PROFILED)))
+        final = float(step())
+    train_s = time.perf_counter() - t0
+    split["host"] = 1e3 * host_s / CAP_STEPS
+    model = state.model.eval()
+
+    def logits(images):
+        x = torch.from_numpy(np.ascontiguousarray(images)).permute(
+            0, 3, 1, 2).to(dev)
+        with torch.inference_mode(), seg.f32_convs():
+            return model(x).cpu().numpy()
+    return checks.capability(logits), train_s, final, split
+
+
+def phase_segtrain(dev, tmp, smi: str) -> dict:
+    """[segtrain] (a)-(d); none of the 11 kernels launches."""
+    losses, worst, ms, split, pair_s = _segtrain_parity(dev)
+    cli = _segtrain_cli(dev, tmp, tmp / "ms_in")
+    _reset_counters()
+    got, cap_s, cap_loss, cap_split = _train_capability(dev)
+    _no_launch("segtrain capability")
+    short = {k: got[k] - CAP_FLOOR[k] for k in CAP_FLOOR}
+    log(f"[segtrain] (a) default width {seg.DEFAULT_FEATURES}, "
+        f"{ST_SIZE}², batch {ST_BATCH}, {ST_STEPS} steps card vs CPU from one "
+        f"init: losses " + ", ".join(f"{g:.6f}/{r:.6f}" for g, r in losses)
+        + f" (step 1 within {ST_LOSS_RTOL:g} rel, later "
+        f"{ST_LATER_LOSS_RTOL:g})"
+        f" | step-1 gradients max {worst[0]:.3e} of the largest ({worst[1]}; "
+        f"tolerance {ST_GRAD_TOL:g}) | {pair_s:.1f}s | a second card run: "
+        f"losses and weights bitwise the first's")
+    log(f"[segtrain] {smi} | device ms of one train step (forward + "
+        f"backward + AdamW, TF32 off) at {ST_SIZE}², batch {ST_BATCH}: "
+        f"im2col route (cuDNN off) {ms['im2col']:.4f} ms, cuDNN "
+        f"(autotuned, deterministic) {ms['cudnn']:.4f} ms; the port trains "
+        f"by the cuDNN route | cuDNN: forward {split['forward']:.4f} + "
+        f"backward {split['backward']:.4f} + AdamW {split['adamw']:.4f} ms; a "
+        f"step with its upload, under the profiler: wall "
+        f"{split['wall']:.3f} ms, kernels {split['kernels']:.3f} ms, device "
+        f"busy {split['busy']:.1%}")
+    log(f"[segtrain] (b) {smi} | gs360x-torch-segtrain on {ST_CLI_SCENES} "
+        f"scenes at 512² (written in {cli['setup_s']:.2f}s, set-up), --size "
+        f"{ST_CLI_SIZE} --batch-size 8 --epochs 3: wall {cli['cli_s']:.2f}s, "
+        f"training {cli['train_s']}s for {cli['steps']} steps = "
+        f"{1e3 * cli['train_s'] / cli['steps']:.1f} ms a step (host batch, "
+        f"loss fetch and validation included) | "
+        + " | ".join(ln[7:] for ln in cli["epochs"])
+        + " | the weights read back bitwise | maskseg --checkpoint on the "
+        "[maskseg] views: exit 0")
+    log(f"[segtrain] (c) {smi} | --make-default -o: wall "
+        f"{cli['make_s']:.2f}s for 400 steps of batch 16 at 128² (corpus "
+        f"generation included) = {1e3 * cli['make_s'] / 400:.1f} ms a step, "
+        f"last loss {cli['make_loss']:.3f} | maskseg resolves the cached "
+        "default and runs: exit 0")
+    log(f"[segtrain] (d) {smi} | the seg_eval recipe ({CAP_STEPS} steps, "
+        f"(16, 32, 64) at 64², batch 16) trained on the card by the im2col "
+        f"route in {cap_s:.1f}s"
+        f" ({1e3 * cap_s / CAP_STEPS:.2f} ms a step, host batch included), "
+        f"final loss {cap_loss:.4f} | host batch {cap_split['host']:.3f} ms "
+        f"a step; the last {CAP_PROFILED} steps under the profiler: wall "
+        f"{cap_split['wall']:.3f} ms, kernels {cap_split['kernels']:.3f} ms, "
+        f"device busy {cap_split['busy']:.1%} | " + ", ".join(
+            f"{k} {got[k]:.4f} (floor {CAP_FLOOR[k]:.4f})" for k in CAP_FLOOR)
+        + f", {got['n_gt']} instances")
+    if min(short.values()) < 0:
+        raise AssertionError(f"segtrain capability below the JAX seeds' "
+                             f"floor: {got} (floor {CAP_FLOOR})")
+    return {"launches": _counters()[0]}
+
+
+# --- [plyopt]: the voxel path on a dense cloud -------------------------------
+
+def _dense_cloud(n: int, seed: int) -> tuple:
+    """A PGM-like dense cloud of ``n`` points (f32 xyz, u8 rgb): a noisy
+    ground plane whose density falls off from the capture centre, two noisy
+    walls, four spheres of radii 0.5-3 m, and 3% uniform outliers in the
+    bounding box, shuffled."""
+    rng = np.random.default_rng(seed)
+    n_out = n * 3 // 100
+    n_ground = n * 45 // 100
+    n_wall = n * 8 // 100
+    n_sph = (n - n_out - n_ground - 2 * n_wall) // 4
+    parts = []
+    r = rng.exponential(8.0, n_ground)
+    a = rng.uniform(0, 2 * np.pi, n_ground)
+    parts.append(np.stack([r * np.cos(a), r * np.sin(a),
+                           rng.normal(0, 0.01, n_ground)], 1))
+    for axis, at in ((0, -15.0), (1, 12.0)):
+        w = rng.uniform(-20, 20, (n_wall, 3))
+        w[:, 2] = rng.uniform(0, 6, n_wall)
+        w[:, axis] = at + rng.normal(0, 0.02, n_wall)
+        parts.append(w)
+    for c, rad in (((3, 2, 1), 1.0), ((-6, 5, 2), 3.0), ((8, -7, 0.5), 0.5),
+                   ((-2, -9, 1.5), 1.5)):
+        d = rng.normal(size=(n_sph, 3))
+        d *= (rad + rng.normal(0, 0.005, (n_sph, 1))) \
+            / np.linalg.norm(d, axis=1, keepdims=True)
+        parts.append(d + np.asarray(c))
+    body = np.concatenate(parts)
+    lo, hi = body.min(0), body.max(0)
+    parts.append(rng.uniform(lo, hi, (n - len(body), 3)))
+    xyz = np.concatenate(parts).astype(np.float32)
+    xyz = xyz[rng.permutation(n)]
+    rgb = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+    return xyz, rgb
+
+
+def _plyopt_cli(args: list, label: str) -> tuple:
+    """One gs360x-torch-plyopt run with the stage timers: (stdout lines,
+    timers, wall s); counters at 0 just before and read just after."""
+    timers = StageTimers()
+    _reset_counters()
+    t0 = time.perf_counter()
+    rc, lines = _quiet(plyopt.main, args, timers=timers)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    _no_launch(f"plyopt {label}")
+    if rc != 0 or not any(ln.startswith("[OK]") for ln in lines):
+        raise AssertionError(f"plyopt {label} exited {rc}: {lines[-3:]}")
+    return lines, timers, wall_s
+
+
+def _pick_check(label: str, rep: str, xyz: np.ndarray, size: float, got,
+                ref, ties: list) -> None:
+    """Card picks against CPU picks at voxel ``size``: equal, or for
+    ``centroid`` apart only in near-tie voxels (counted into ``ties``)."""
+    if np.array_equal(got, ref):
+        ties.append(0)
+        return
+    if rep != "centroid" or len(got) != len(ref):
+        raise AssertionError(f"plyopt {label} {rep}: card picks differ from "
+                             f"the CPU's ({len(got)} vs {len(ref)})")
+    keys = voxel.grid_keys(torch.from_numpy(xyz), size,
+                           torch.from_numpy(xyz.min(0))).numpy()
+    differ, far = checks.centroid_pick_differences(xyz, keys, got, ref)
+    if far:
+        raise AssertionError(f"plyopt {label}: {far} of {differ} differing "
+                             "centroid picks are not near-ties")
+    ties.append(differ)
+
+
+def phase_plyopt(dev, tmp, smi: str) -> dict:
+    """gs360x-torch-plyopt on an 8M-point dense cloud on the card in every
+    mode; every mode card vs --device cpu on a 1M subset; the 8M picks
+    equal over two card runs; device ms of the voxel count and reduce."""
+    t0 = time.perf_counter()
+    xyz, rgb = _dense_cloud(PLY_POINTS, seed=31)
+    src = tmp / "dense.ply"
+    plyio.save_ply_xyz_rgb(src, xyz, rgb)
+    extra = tmp / "extra.ply"
+    plyio.save_ply_xyz_rgb(extra, *_dense_cloud(5000, seed=32))
+    setup_s = time.perf_counter() - t0
+    size_mb = src.stat().st_size / 1e6
+    cpu = torch.device("cpu")
+
+    runs = {}
+    modes = {
+        "-t": ["-t", str(PLY_TARGET)],
+        **{f"-v -k {k}": ["-v", str(PLY_VOXEL), "-k", k]
+           for k in ("centroid", "center", "first", "random")},
+        "spatial-hash -t": ["--downsample-method", "spatial-hash", "-t",
+                            str(PLY_TARGET)],
+        "--adaptive -t": ["--adaptive", "-t", str(PLY_ADAPTIVE)],
+        "-v --sky-axis +Z -a": ["-v", str(PLY_VOXEL), "--sky-axis", "+Z",
+                                "-a", str(extra)],
+    }
+    for label, flags in modes.items():
+        out = tmp / f"plyopt_{len(runs)}.ply"
+        lines, timers, wall_s = _plyopt_cli(
+            ["-i", str(src), "-o", str(out)] + flags, label)
+        n_out = len(plyio.load_ply_xyz_rgb(out)[0])
+        runs[label] = (lines, timers, wall_s, n_out)
+    probes = sum(ln.startswith("[iter ") for ln in runs["-t"][0])
+    n_search = runs["-t"][3]
+    if abs(n_search - PLY_TARGET) > 0.02 * PLY_TARGET:
+        raise AssertionError(f"plyopt -t {PLY_TARGET} kept {n_search} points")
+    n_unique = voxel.unique_voxel_count(torch.from_numpy(xyz).to(dev),
+                                        PLY_VOXEL)
+    for k in ("centroid", "center", "first", "random"):
+        if runs[f"-v -k {k}"][3] != n_unique:
+            raise AssertionError(f"plyopt -v -k {k}: {runs[f'-v -k {k}'][3]}"
+                                 f" points, {n_unique} voxels occupied")
+    if runs["-v --sky-axis +Z -a"][3] != n_unique + 5000 + 4000 or \
+            runs["--adaptive -t"][3] > PLY_ADAPTIVE:
+        raise AssertionError("plyopt sky/append or adaptive counts wrong")
+
+    # the 8M cloud on the card twice: equal picks
+    xyz_dev = torch.from_numpy(xyz).to(dev)
+    again = {}
+    for rep in ("centroid", "center", "first", "random"):
+        picks = [voxel.voxel_downsample_by_size(
+            xyz, rgb, PLY_VOXEL, representative=rep, device=dev,
+            xyz_dev=xyz_dev)[2] for _ in range(2)]
+        if not np.array_equal(*picks):
+            raise AssertionError(f"plyopt 8M {rep}: two card runs differ")
+        again[rep] = len(picks[0])
+    searches = [voxel.voxel_downsample_to_target(
+        xyz, rgb, PLY_TARGET, log=lambda *a: None, device=dev)[2]
+        for _ in range(2)]
+    if not np.array_equal(*searches):
+        raise AssertionError("plyopt 8M search: two card runs differ")
+    out_a, out_b = tmp / "plyopt_again_a.ply", tmp / "plyopt_again_b.ply"
+    for out in (out_a, out_b):
+        _plyopt_cli(["-i", str(src), "-o", str(out), "-v", str(PLY_VOXEL)],
+                    "-v again")
+    if out_a.read_bytes() != out_b.read_bytes():
+        raise AssertionError("plyopt 8M -v centroid: two card runs wrote "
+                             "different files")
+
+    # card against the CPU on a 1M subset: every mode
+    sub, sub_rgb = xyz[:PLY_SUBSET], rgb[:PLY_SUBSET]
+    ties = []
+    t0 = time.perf_counter()
+    for rep in ("centroid", "center", "first", "random"):
+        got = voxel.voxel_downsample_by_size(sub, sub_rgb, PLY_VOXEL,
+                                             representative=rep,
+                                             device=dev)[2]
+        ref = voxel.voxel_downsample_by_size(sub, sub_rgb, PLY_VOXEL,
+                                             representative=rep,
+                                             device=cpu)[2]
+        _pick_check("-v", rep, sub, PLY_VOXEL, got, ref, ties)
+    target = PLY_SUBSET // 8
+    for label in ("-t", "spatial-hash"):
+        logs, picks = {}, {}
+        for name, d in (("card", dev), ("cpu", cpu)):
+            logs[name] = []
+            if label == "-t":
+                picks[name] = voxel.voxel_downsample_to_target(
+                    sub, sub_rgb, target, log=logs[name].append, device=d)[2]
+            else:
+                picks[name] = voxel.spatial_hash_downsample(
+                    sub, sub_rgb, target_points=target,
+                    log=logs[name].append, device=d)[2]
+        if logs["card"] != logs["cpu"]:
+            raise AssertionError(f"plyopt {label}: the card's probes differ "
+                                 f"from the CPU's: {logs}")
+        # the search's last probe is the voxel it keeps
+        size = float(re.search(r"voxel=([\d.e+-]+)",
+                               logs["card"][-1]).group(1))
+        _pick_check(label, "centroid", sub, size, picks["card"],
+                    picks["cpu"], ties)
+    sub_src = tmp / "dense_1m.ply"
+    plyio.save_ply_xyz_rgb(sub_src, sub, sub_rgb)
+    for flags in (["-v", str(PLY_VOXEL), "-k", "first"],
+                  ["--adaptive", "-t", str(PLY_ADAPTIVE // 2)],
+                  ["-v", str(PLY_VOXEL), "--sky-axis", "+Z", "-a",
+                   str(extra), "-k", "random"]):
+        files = []
+        for d in ("cuda", "cpu"):
+            out = tmp / f"plyopt_1m_{d}.ply"
+            _plyopt_cli(["-i", str(sub_src), "-o", str(out), "--device", d]
+                        + flags, " ".join(flags))
+            files.append(out.read_bytes())
+        if files[0] != files[1]:
+            raise AssertionError(f"plyopt 1M {flags}: card and CPU files "
+                                 "differ")
+    cpu_s = time.perf_counter() - t0
+
+    # a COLMAP model round trip, small: its text I/O is host work
+    model = colmap_model.ColmapModel()
+    cid = model.add_camera("PINHOLE", 1600, 1600, [800, 800, 800, 800])
+    track = " ".join(f"{k}.0 {k}.0 {k + 1}" for k in range(0, 4000, 7))
+    model.images.append(colmap_model.Image(1, 1, 0, 0, 0, 0, 0, 0, cid,
+                                           "a.jpg", points2d_line=track))
+    for j, p in enumerate(sub[:20000]):
+        model.points.append(colmap_model.Point3(j + 1, *map(float, p), 10,
+                                                20, 30))
+    colmap_text.write_model(tmp / "cm_in", model)
+    _plyopt_cli(["-i", str(tmp / "cm_in"), "-o", str(tmp / "cm_out"), "-v",
+                 "0.5"], "colmap")
+    back = colmap_text.read_model(tmp / "cm_out")
+    kept = {p.id for p in back.points}
+    toks = back.images[0].points2d_line.split()
+    if not 0 < len(back.points) < 20000 or any(
+            int(t) not in kept for t in toks[2::3]):
+        raise AssertionError("plyopt COLMAP round trip: observations of "
+                             "dropped points were kept")
+
+    # device ms of the voxel path at 8M
+    lo = xyz_dev.min(dim=0).values
+    keys = voxel.grid_keys(xyz_dev, PLY_VOXEL, lo)
+    rand = torch.rand(len(xyz), device=dev)
+    count_ms = cuda_ms(lambda: voxel.unique_voxel_count(xyz_dev, PLY_VOXEL,
+                                                        lo), reps=5)
+    reduce_ms = {rep: cuda_ms(lambda: voxel._voxel_reduce_impl(
+        xyz_dev, keys, rand, representative=rep, xyz_min=lo,
+        voxel=PLY_VOXEL), reps=5) for rep in ("centroid", "center", "first")}
+
+    log(f"[plyopt] {PLY_POINTS:,}-point dense cloud ({size_mb:.1f} MB binary "
+        f"PLY, written in {setup_s:.2f}s, set-up): -t {PLY_TARGET} kept "
+        f"{n_search:,} after {probes} probes; -v {PLY_VOXEL} kept "
+        f"{n_unique:,} with every --keep-strategy | launches of the "
+        "hand-written kernels: none in any mode")
+    log(f"[plyopt] {PLY_POINTS:,} on the card twice: equal picks ({again}), "
+        f"equal search"
+        f" picks, byte-equal -v files | card vs --device cpu on a "
+        f"{PLY_SUBSET:,}-point subset, every mode: first/random/center picks "
+        f"equal, centroid picks apart in {ties} voxels (all near-ties), CLI "
+        f"files byte-equal for -k first, --adaptive, sky + append ({cpu_s:.1f}"
+        f"s) | COLMAP round trip: {len(back.points)} of 20000 points kept, "
+        "observations filtered")
+    log(f"[plyopt] {smi} | device ms at {PLY_POINTS:,} points: "
+        f"unique_voxel_count {count_ms:.4f} ms (keys + sort + heads + count "
+        f"fetch), _voxel_reduce_impl centroid {reduce_ms['centroid']:.4f} ms, "
+        f"center {reduce_ms['center']:.4f} ms, first "
+        f"{reduce_ms['first']:.4f} ms")
+    for label, (_lines, timers, wall_s, n_out) in runs.items():
+        log(f"[plyopt] {smi} | {' '.join(modes[label])}: wall {wall_s:.3f}s, "
+            f"{n_out:,} points "
+            f"| {timers.report()}")
+    return {"count_ms": count_ms, "reduce_ms": reduce_ms}
+
+
+# --- [scene]: the scene loader on ms360xml's exports -------------------------
+
+def phase_scene(tmp) -> dict:
+    """gs360x-torch-scene on each format [ms360xml] --format all
+    --points-ply wrote, with --export-ply: the cameras of sparse/0 in each,
+    centres agreeing to SCENE_TOL."""
+    root = tmp / "ms_all"
+    model = colmap_text.read_model(root / "sparse" / "0")
+    want = {pathlib.Path(img.name).stem: img.center for img in model.images}
+    sources = {"colmap": [str(root / "sparse" / "0")],
+               "transforms": [str(root / "transforms.json"), "--ply",
+                              str(root / "pointcloud_for_transforms.ply")],
+               "realityscan xmp": [str(root / "cameras_RealityScan")],
+               "metashape xml": [str(root / "perspective_cams.xml")]}
+    worst, t0 = 0.0, time.perf_counter()
+    _reset_counters()
+    for name, args in sources.items():
+        out = tmp / f"scene_{name.replace(' ', '_')}.ply"
+        rc, lines = _quiet(scene_tool.main, args + ["--export-ply", str(out)])
+        if rc != 0 or f"[OK] normalized scene PLY: {out}" not in lines:
+            raise AssertionError(f"scene {name} exited {rc}: {lines[-3:]}")
+        loaded = scene_io.load_scene(*args[:1], ply_path=(
+            args[2] if len(args) > 2 else None))
+        got = {pathlib.Path(c.name).stem: c.center for c in loaded.cameras}
+        if got.keys() != want.keys():
+            raise AssertionError(f"scene {name}: cameras {sorted(got)[:3]}..."
+                                 f" ({len(got)}), sparse/0 has {len(want)}")
+        worst = max(worst, max(float(np.abs(got[k] - want[k]).max())
+                               for k in want))
+        xyz, _rgb = plyio.load_ply_xyz_rgb(out)
+        if len(xyz) != len(loaded.points_xyz) + len(want):
+            raise AssertionError(f"scene {name}: {len(xyz)} points exported")
+    _no_launch("scene")
+    if worst > SCENE_TOL:
+        raise AssertionError(f"scene: camera centres {worst:.2e} apart "
+                             "across formats")
+    log(f"[scene] gs360x-torch-scene on the [ms360xml] --format all exports "
+        f"({', '.join(sources)}): {len(want)} cameras each, centres within "
+        f"{worst:.2e} of sparse/0's (tolerance {SCENE_TOL:g}), normalized "
+        f"PLYs written, {time.perf_counter() - t0:.2f}s, host only")
+    return {}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     info = phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
     plan = phase_planarize(dev)
@@ -2075,6 +2737,13 @@ def main() -> int:
         ms_xml = phase_ms360xml(dev, src_dir, frames, tmp)
         dfe_xml = phase_dualfisheye_xml(dev, tmp, dfe)
         masks = phase_maskseg(dev, tmp, info["smi"])
+        for name, phase in (
+                ("segtrain", lambda: phase_segtrain(dev, tmp, info["smi"])),
+                ("plyopt", lambda: phase_plyopt(dev, tmp, info["smi"])),
+                ("scene", lambda: phase_scene(tmp))):
+            t0 = time.perf_counter()
+            phase()
+            log(f"[{name}] phase wall {time.perf_counter() - t0:.1f}s")
     micro = phase_micro_ops(dev)
 
     def total(kernel: str) -> int:
@@ -2142,6 +2811,8 @@ def main() -> int:
         raise AssertionError("a kernel of the main paths was never launched: "
                              + str([k["name"] for k in kernels
                                     if k["launches"] <= 0]))
+    log(f"[chip_smoke] wall {time.perf_counter() - t_start:.1f}s, the "
+        f"kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"],

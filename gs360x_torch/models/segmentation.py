@@ -1,5 +1,5 @@
-"""The segmentation U-Net and its predictor (the port of
-:mod:`gs360x.models.segmentation`, inference half).
+"""The segmentation U-Net, its training step and its predictor (the port
+of :mod:`gs360x.models.segmentation`).
 
 The same network as the JAX package's Flax ``UNet``, in NCHW: ``ConvBlock``
 is two 3×3 convs (``padding=1``), each followed by ``GroupNorm(min(8, f))``
@@ -15,21 +15,30 @@ The predictor keeps the JAX order — resize in, U-Net, softmax over the
 classes, resize out — and runs it on an explicit device. The convolutions
 are library calls in full f32 (:func:`f32_convs`: no TF32, which torch
 allows by default and which moves the logits by ~5e-2 against the f32
-reference). Training and Orbax checkpoints are not ported yet.
+reference).
+
+Training keeps optax's AdamW (``weight_decay`` 1e-4 on every parameter,
+not torch's 1e-2) and its warmup-cosine schedule, evaluated at the step
+count before the update. The checkpoint is the single-file msgpack of
+:func:`save_weights`, which ``flax.serialization`` reads; the JAX
+package's Orbax directories need orbax and tensorstore and are not read.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 import pathlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gs360x_torch.models.weights import params_from_flax, read_msgpack
+from gs360x_torch.models.weights import (params_from_flax, params_to_flax,
+                                         read_msgpack, write_msgpack)
 
 # class table: background + the mask tool's supported targets
 CLASS_NAMES = ("background", "person", "bicycle", "car", "motorcycle",
@@ -152,6 +161,13 @@ def init_params(generator: torch.Generator, features=None
     return params
 
 
+def save_weights(path, params: Dict[str, torch.Tensor]) -> None:
+    """Write a ``state_dict`` as single-file msgpack weights, the bytes
+    ``gs360x.models.segmentation.save_weights`` writes for the same
+    values."""
+    pathlib.Path(path).write_bytes(write_msgpack(params_to_flax(params)))
+
+
 def load_weights(path) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of a single-file msgpack weights file, the format
     ``gs360x.models.segmentation.save_weights`` writes; ValueError unless
@@ -163,6 +179,17 @@ def load_weights(path) -> Dict[str, torch.Tensor]:
         raise ValueError(f"{path}: not the weights of a segmentation U-Net "
                          f"({exc})") from exc
     return params
+
+
+def load_checkpoint(path) -> Dict[str, torch.Tensor]:
+    """:func:`load_weights` of a ``--checkpoint`` / ``--resume`` path;
+    ValueError for a directory, which is the JAX package's Orbax format."""
+    path = pathlib.Path(path)
+    if path.is_dir():
+        raise ValueError(f"{path} is a directory; Orbax checkpoints are not "
+                         "readable by the port (pass the single-file msgpack "
+                         "that save_weights writes)")
+    return load_weights(path)
 
 
 def features_from_params(params) -> Tuple[int, ...]:
@@ -187,6 +214,104 @@ def f32_convs():
     return torch.backends.cudnn.flags(
         enabled=False, benchmark=torch.backends.cudnn.benchmark,
         deterministic=torch.backends.cudnn.deterministic, allow_tf32=False)
+
+
+def train_convs():
+    """The scope of the convolutions in training, in full f32: cuDNN with
+    TF32 off, its autotuner on and only its deterministic algorithms, so
+    that within a process the same batches give the same weights, run
+    after run. Another process may autotune to other algorithms, whose
+    rounding moves the weights. For a step of the default width at 256²,
+    batch 8, this route is about 1.5 times faster on an H100 than the
+    im2col route of :func:`f32_convs` (``chip_smoke.py`` ``[segtrain]``
+    times both)."""
+    return torch.backends.cudnn.flags(
+        enabled=True, benchmark=True, deterministic=True, allow_tf32=False)
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+
+def warmup_cosine(learning_rate: float, decay_steps: int
+                  ) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule`` as the JAX package sets it
+    up: from 0.1× the peak rate linearly up to it over ``max(1,
+    decay_steps // 20)`` steps, then a cosine down to 0.1× at
+    ``decay_steps``, which counts the warmup; flat after."""
+    warm = max(1, decay_steps // 20)
+    low = learning_rate * 0.1
+
+    def sched(step: int) -> float:
+        if step < warm:
+            return (low - learning_rate) * (1.0 - step / warm) + learning_rate
+        t = min(step - warm, decay_steps - warm)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / (decay_steps - warm)))
+        return learning_rate * (0.9 * cosine + 0.1)
+    return sched
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its optimizer, the rate of each step and the count of
+    steps taken."""
+    model: UNet
+    optimizer: torch.optim.AdamW
+    schedule: Callable[[int], float]
+    step: int = 0
+
+
+def create_train_state(generator: torch.Generator,
+                       learning_rate: float = 1e-3, features=None,
+                       decay_steps: int = 0, *, device: torch.device,
+                       params: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> TrainState:
+    """A U-Net with :func:`init_params` weights drawn from ``generator``
+    (or ``params``) on ``device`` and ``optax.adamw``'s optimizer: betas
+    0.9 / 0.999, eps 1e-8, weight decay 1e-4 on every parameter, at the
+    flat ``learning_rate`` or, with ``decay_steps`` > 0, at
+    :func:`warmup_cosine`."""
+    model = create_model(features)
+    model.load_state_dict(params if params is not None
+                          else init_params(generator, features))
+    model.to(device)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=1e-4)
+    schedule = (warmup_cosine(learning_rate, decay_steps) if decay_steps
+                else lambda step: learning_rate)
+    return TrainState(model, optimizer, schedule)
+
+
+def loss_fn(logits: torch.Tensor, labels: torch.Tensor,
+            fg_weight: float = 1.0) -> torch.Tensor:
+    """Softmax cross-entropy of (B, C, H, W) logits against (B, H, W) class
+    ids: the mean, or with ``fg_weight`` != 1 the mean weighted by
+    ``fg_weight`` where the label is a subject and 1 elsewhere."""
+    ce = F.cross_entropy(logits, labels, reduction="none")
+    if fg_weight != 1.0:
+        w = torch.where(labels > 0, fg_weight, 1.0)
+        return (ce * w).sum() / w.sum()
+    return ce.mean()
+
+
+def train_step(state: TrainState, images: torch.Tensor,
+               labels: torch.Tensor, fg_weight: float = 1.0
+               ) -> torch.Tensor:
+    """One optimization step on (B, H, W, 3) f32 images and (B, H, W) int
+    labels on the state's device; the loss before the update. The rate is
+    the schedule's at the count before the update, as optax takes it."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.schedule(state.step)
+    state.optimizer.zero_grad(set_to_none=True)
+    with train_convs():
+        logits = state.model(images.permute(0, 3, 1, 2))
+        loss = loss_fn(logits, labels.long(), fg_weight)
+        loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    return loss.detach()
 
 
 def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -6,8 +6,11 @@ the JAX package's single-file msgpack) are the tool's out-of-the-box
 capability, as the reference's downloaded COCO weights are its. They load
 through :mod:`gs360x_torch.models.weights`, without ``flax``. The corpus
 generators are numpy and the JAX package's, copied: the same seed gives the
-same scenes, which the capability gates of both packages use. Building the
-cached default checkpoint trains the U-Net and is not ported yet.
+same scenes, which the capability gates of both packages use.
+:func:`build_default_checkpoint` trains the cached default with the JAX
+package's recipe and the same numpy stream, and writes it as single-file
+msgpack at :func:`default_weights_path`, beside the JAX package's Orbax
+directory (:func:`default_checkpoint_path`), which the port cannot read.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import math
 import pathlib
 
 import numpy as np
+import torch
 
 from gs360x_torch.models.segmentation import CLASS_TO_INDEX
 
@@ -27,6 +31,12 @@ def default_checkpoint_path() -> pathlib.Path:
     """Where the JAX package caches its default (Orbax) checkpoint."""
     return (pathlib.Path.home() / ".cache" / "gs360x"
             / DEFAULT_CHECKPOINT_VERSION)
+
+
+def default_weights_path() -> pathlib.Path:
+    """Where the port caches its default (single-file msgpack) weights."""
+    return (pathlib.Path.home() / ".cache" / "gs360x"
+            / f"{DEFAULT_CHECKPOINT_VERSION}_torch.msgpack")
 
 
 # shipped pretrained weights: trained by tools/seg_eval.py on the full
@@ -600,3 +610,39 @@ def augment_batch(rng: np.random.Generator, im: np.ndarray) -> np.ndarray:
             + np.sin(ang)[:, None, None] * yy[None])
         im = np.clip(im * grad[..., None], 0, 1).astype(np.float32)
     return im
+
+
+def build_default_checkpoint(path=None, *, steps: int = 400,
+                             n_scenes: int = 256, size: int = 128,
+                             batch: int = 16, seed: int = 0,
+                             verbose: bool = True, device: torch.device
+                             ) -> pathlib.Path:
+    """Train the U-Net on the synthetic corpus on ``device`` and save its
+    weights (at :func:`default_weights_path` unless ``path``): the JAX
+    package's recipe, whose numpy stream gives the same batches."""
+    from gs360x_torch.models import segmentation as seg
+
+    path = pathlib.Path(path) if path else default_weights_path()
+    images, labels = generate_corpus(n_scenes=n_scenes, size=size,
+                                     seed=seed)
+    state = seg.create_train_state(torch.Generator().manual_seed(seed),
+                                   1e-3, device=device)
+    rng = np.random.default_rng(seed + 1)
+    for step in range(steps):
+        idx = rng.integers(0, len(images), batch)
+        im, lb = images[idx], labels[idx]
+        if rng.random() < 0.5:           # horizontal flip
+            im = im[:, :, ::-1].copy()
+            lb = lb[:, :, ::-1].copy()
+        im = augment_batch(rng, im)
+        loss = seg.train_step(state, torch.from_numpy(im).to(device),
+                              torch.from_numpy(lb).to(device),
+                              fg_weight=4.0)
+        if verbose and (step + 1) % max(1, steps // 10) == 0:
+            print(f"[synthseg] step {step + 1}/{steps} "
+                  f"loss {float(loss):.3f}", flush=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    seg.save_weights(path, state.model.state_dict())
+    if verbose:
+        print(f"[synthseg] default checkpoint saved: {path}")
+    return path

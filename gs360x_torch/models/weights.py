@@ -2,15 +2,19 @@
 
 The JAX package writes its single-file weights with
 ``flax.serialization.to_bytes`` (``gs360x.models.segmentation.save_weights``):
-a msgpack map of maps with str keys whose leaves are msgpack ext values of
-type 1, each holding a packed ``[shape, dtype name, raw little-endian
-bytes]`` triple. :func:`read_msgpack` reads exactly the msgpack types
-such a file of any U-Net width holds (maps of up to 65535 str keys, short
-arrays, unsigned ints below 65536, bin, ext) into nested dicts of numpy
-arrays, the tree ``flax.serialization.msgpack_restore`` gives, and refuses
-every other type. :func:`params_from_flax` turns such a tree (or Flax's
-params after ``np.asarray``) into the ``state_dict`` of the port's
-:class:`~gs360x_torch.models.segmentation.UNet`.
+a msgpack map of maps with str keys, sorted, whose leaves are msgpack ext
+values of type 1, each holding a packed ``[shape, dtype name, raw
+little-endian bytes]`` triple. :func:`read_msgpack` reads exactly the
+msgpack types such a file of any U-Net width holds (maps of up to 65535 str
+keys, short arrays, unsigned ints below 65536, bin, ext) into nested dicts
+of numpy arrays, the tree ``flax.serialization.msgpack_restore`` gives, and
+refuses every other type; :func:`write_msgpack` writes such a tree with the
+same types, byte for byte what ``flax.serialization.to_bytes`` writes, and
+refuses what needs another type.
+:func:`params_from_flax` turns such a tree (or Flax's params after
+``np.asarray``) into the ``state_dict`` of the port's
+:class:`~gs360x_torch.models.segmentation.UNet`, and
+:func:`params_to_flax` turns it back.
 """
 
 from __future__ import annotations
@@ -142,4 +146,96 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-__all__ = ["read_msgpack", "params_from_flax"]
+class _Writer:
+    """msgpack of a weights tree, as ``msgpack.packb`` writes it: the
+    smallest encoding of each value, maps with their keys sorted as
+    ``jax.tree_util`` sorts them before Flax packs."""
+
+    def __init__(self) -> None:
+        self.parts = []
+
+    def head(self, n: int, fix: int, fix_max: int, tags) -> None:
+        """A length header: the fix form below ``fix_max``, else the first
+        of the 8/16/32-bit forms in ``tags`` that holds ``n``."""
+        if fix is not None and n < fix_max:
+            self.parts.append(bytes([fix | n]))
+            return
+        for tag, size in tags:
+            if n < 1 << (8 * size):
+                self.parts.append(bytes([tag]) + n.to_bytes(size, "big"))
+                return
+        raise ValueError(f"msgpack: length {n} is too large")
+
+    def value(self, x) -> None:
+        if isinstance(x, Mapping):
+            self.head(len(x), 0x80, 16, ((0xDE, 2),))
+            for key in sorted(x):
+                if not isinstance(key, str):
+                    raise ValueError(f"msgpack: map key {key!r} is not a "
+                                     "str")
+                self.value(key)
+                self.value(x[key])
+        elif isinstance(x, str):
+            raw = x.encode("utf-8")
+            self.head(len(raw), 0xA0, 32, ((0xD9, 1),))
+            self.parts.append(raw)
+        elif isinstance(x, (list, tuple)):
+            self.head(len(x), 0x90, 16, ())
+            for item in x:
+                self.value(item)
+        elif isinstance(x, int) and not isinstance(x, bool) and x >= 0:
+            if x < 128:
+                self.parts.append(bytes([x]))
+            else:
+                self.head(x, None, 0, ((0xCC, 1), (0xCD, 2)))
+        elif isinstance(x, bytes):
+            self.head(len(x), None, 0, ((0xC4, 1), (0xC5, 2), (0xC6, 4)))
+            self.parts.append(x)
+        elif isinstance(x, np.ndarray):
+            inner = _Writer()
+            inner.value([list(x.shape), x.dtype.name, x.tobytes("C")])
+            payload = b"".join(inner.parts)
+            if len(payload) in (1, 2, 4, 8, 16):   # msgpack's fixext sizes
+                raise ValueError(f"msgpack: a {x.shape} array leaf is not "
+                                 "part of the weights format")
+            self.head(len(payload), None, 0,
+                      ((0xC7, 1), (0xC8, 2), (0xC9, 4)))
+            self.parts.append(bytes([_EXT_NDARRAY]) + payload)
+        else:
+            raise ValueError(f"msgpack: {type(x).__name__} is not part of "
+                             "the weights format")
+
+
+def write_msgpack(tree: Mapping) -> bytes:
+    """Encode nested dicts of numpy arrays as Flax msgpack weights."""
+    if not isinstance(tree, Mapping):
+        raise ValueError("msgpack: the weights tree is not a map")
+    writer = _Writer()
+    writer.value(tree)
+    return b"".join(writer.parts)
+
+
+def params_to_flax(params: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``state_dict`` → Flax params (nested dicts of f32 numpy
+    arrays), the inverse of :func:`params_from_flax`: a conv ``weight``
+    (O, I, H, W) becomes ``kernel`` (H, W, I, O), a GroupNorm ``weight``
+    (1-D) becomes ``scale``, ``bias`` stays."""
+    out: Dict = {}
+    for name, value in params.items():
+        *path, key = name.split(".")
+        arr = value.detach().to("cpu", torch.float32)
+        if key == "weight" and arr.dim() == 4:
+            key, arr = "kernel", arr.permute(2, 3, 1, 0)
+        elif key == "weight" and arr.dim() == 1:
+            key = "scale"
+        elif key != "bias":
+            raise ValueError(f"unexpected parameter {name}")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = np.ascontiguousarray(arr.numpy())
+    return out
+
+
+__all__ = ["read_msgpack", "write_msgpack", "params_from_flax",
+           "params_to_flax"]

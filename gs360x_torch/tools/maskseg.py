@@ -17,11 +17,13 @@ the expansion and the inpaint on the device
 (:mod:`gs360x_torch.kernels.morphology`); PNG encode on the host.
 
 Weights resolve in the JAX tool's order: the shipped weights, then the
-cached default, then ``--build-default``, then ``--allow-random``, else an
-error. Two deviations: ``--checkpoint`` reads the single-file msgpack that
-``gs360x.models.segmentation.save_weights`` writes, not an Orbax directory;
-the cached default (Orbax) and ``--build-default`` (training) are not
-available in the port yet, and print an ``[ERR]`` line.
+cached default, which ``--build-default`` trains on the device first, then
+``--allow-random``, else an error. The port's checkpoints are the
+single-file msgpack that ``gs360x.models.segmentation.save_weights``
+writes: ``--checkpoint`` takes such a file, and the cached default is
+``~/.cache/gs360x/seg_default_v3_torch.msgpack``. An Orbax directory, given
+to ``--checkpoint`` or cached by the JAX package when the port has no
+default of its own, gets an ``[ERR]`` line.
 """
 
 from __future__ import annotations
@@ -264,8 +266,9 @@ def create_arg_parser() -> argparse.ArgumentParser:
                     help="Proceed with randomly initialized weights when "
                          "no checkpoint is available (debug only)")
     ap.add_argument("--build-default", action="store_true",
-                    help="Build the default checkpoint (trains the U-Net; "
-                         "not available in the port yet)")
+                    help="Build the default checkpoint (trains the U-Net "
+                         "on a generated corpus on the device, cached in "
+                         "~/.cache)")
     ap.add_argument("--score-thresh", type=float, default=seg.SCORE_THRESH)
     ap.add_argument("--mask-thresh", type=float, default=seg.MASK_THRESH)
     ap.add_argument("--device", choices=list(DEVICE_CHOICES), default="cuda",
@@ -302,21 +305,17 @@ def main(argv=None, timers=None) -> int:
         return 130
 
 
-def _load_params(args):
+def _load_params(args, device: torch.device):
     """The weights in the JAX tool's order, as ``(state_dict or None,
-    exit code or None)``."""
+    exit code or None)``: ``--checkpoint``, the shipped weights, the port's
+    cached default (trained on ``device`` first with ``--build-default``),
+    the JAX package's cached Orbax default (refused), ``--allow-random``."""
     from gs360x_torch.models import synthseg
 
     if args.checkpoint:
-        path = pathlib.Path(args.checkpoint).resolve()
-        if path.is_dir():
-            print(f"[ERR] failed to load checkpoint: {path} is a directory; "
-                  "Orbax checkpoints are not readable by the port (pass the "
-                  "single-file msgpack that save_weights writes)",
-                  file=sys.stderr)
-            return None, 1
         try:
-            params = seg.load_weights(path)
+            params = seg.load_checkpoint(
+                pathlib.Path(args.checkpoint).resolve())
         except (OSError, ValueError) as exc:
             print(f"[ERR] failed to load checkpoint: {exc}", file=sys.stderr)
             return None, 1
@@ -334,14 +333,25 @@ def _load_params(args):
         except (OSError, ValueError) as exc:
             print(f"[WARN] shipped weights failed to load: {exc}",
                   file=sys.stderr)
-    default = synthseg.default_checkpoint_path()
+    default = synthseg.default_weights_path()
     if args.build_default and not default.exists():
-        print("[ERR] --build-default trains the U-Net, which the port does "
-              "not do yet (training comes with the port of segtrain)",
-              file=sys.stderr)
-        return None, 1
+        print("[INFO] building default checkpoint (one-time, trains "
+              "the U-Net on a generated corpus)...")
+        synthseg.build_default_checkpoint(default, device=device)
     if default.exists():
-        print(f"[ERR] failed to load default checkpoint: {default} is an "
+        try:
+            params = seg.load_weights(default)
+        except (OSError, ValueError) as exc:
+            print(f"[ERR] failed to load default checkpoint: {exc}",
+                  file=sys.stderr)
+            return None, 1
+        print(f"[INFO] loaded default checkpoint: {default}")
+        print("[INFO] (synthetic-corpus weights; fine-tune with "
+              "gs360x-torch-segtrain for photographic masks)")
+        return params, None
+    orbax = synthseg.default_checkpoint_path()
+    if orbax.exists():
+        print(f"[ERR] failed to load default checkpoint: {orbax} is an "
               "Orbax checkpoint; Orbax checkpoints are not readable by the "
               "port", file=sys.stderr)
         return None, 1
@@ -384,7 +394,7 @@ def _main(argv=None, timers=None) -> int:
         print("[WARN] no input images found", file=sys.stderr)
         return 0
 
-    params, rc = _load_params(args)
+    params, rc = _load_params(args, device)
     if rc is not None:
         return rc
     timers = StageTimers() if timers is None else timers

@@ -15,7 +15,10 @@ both optical flows; the 14 ``micro_ops`` kernels against their plain
 versions (movers bitwise, arithmetic at 1e-6, the products at 1e-5 a step
 and at most 8 steps); and MaskSeg's device steps against the CPU: the
 U-Net's logits with TF32 off (1e-3), the morphology bitwise, the blur
-(1e-6), the inpaint (1e-5) and ``combined_mask``. Marked ``cuda``: each test skips without a card. On a machine
+(1e-6), the inpaint (1e-5) and ``combined_mask``; the training step by
+both conv routes against the CPU, and the voxel count and picks on a
+200,000-point cloud against the CPU and over two card runs. Marked
+``cuda``: each test skips without a card. On a machine
 with one, run (the JAX-side conftest is not needed)::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -590,3 +593,85 @@ def test_combined_mask_matches_cpu(dev, shipped_state):
         band = (p - seg.MASK_THRESH).abs().numpy() < 1e-4
         assert not ((got != ref) & ~band).any()
     assert found
+
+
+# --- the training step and the voxel path ------------------------------------
+
+def test_train_step_matches_cpu(dev):
+    """Three steps at features (8, 16), 32², batch 2, fg_weight 4 by the
+    training conv route (cuDNN, TF32 off) from the same weights as three
+    steps on the CPU: the losses within 1e-5
+    relative of the CPU's, step 1's gradients within 1e-5 of the largest,
+    and the parameters within 2e-6 wherever step 1's gradient is above
+    1e-4 of the largest (Adam moves rounding noise by ±lr)."""
+    from gs360x_torch.models import segmentation as seg
+    params = seg.init_params(torch.Generator().manual_seed(0), (8, 16))
+    card = seg.create_train_state(None, 1e-3, (8, 16), device=dev,
+                                  params=params)
+    cpu = seg.create_train_state(None, 1e-3, (8, 16), device=CPU,
+                                 params=params)
+    rng = np.random.default_rng(12)
+    for step in range(3):
+        im = torch.from_numpy(rng.random((2, 32, 32, 3), dtype=np.float32))
+        lb = torch.from_numpy(rng.integers(0, 10, (2, 32, 32)))
+        got = float(seg.train_step(card, im.to(dev), lb.to(dev), 4.0))
+        ref = float(seg.train_step(cpu, im, lb, 4.0))
+        assert abs(got - ref) <= 1e-5 * ref
+        if step == 0:
+            grads = {n: p.grad.clone() for n, p in
+                     cpu.model.named_parameters()}
+            gmax = max(float(g.abs().max()) for g in grads.values())
+            for n, p in card.model.named_parameters():
+                assert float((p.grad.cpu() - grads[n]).abs().max()) \
+                    <= 1e-5 * gmax, n
+    got, ref = card.model.state_dict(), cpu.model.state_dict()
+    for n, g in grads.items():
+        keep = g.abs() >= 1e-4 * gmax
+        if keep.any():
+            assert float((got[n].cpu() - ref[n]).abs()[keep].max()) \
+                <= 2e-6, n
+
+
+@pytest.fixture(scope="module")
+def cloud_200k():
+    """200,000 points: noisy planes and a sphere with 3% outliers."""
+    rng = np.random.default_rng(13)
+    n = 200_000
+    plane = rng.random((n // 2, 3)) * [20.0, 20.0, 0.0]
+    plane[:, 2] = rng.normal(0.0, 0.02, n // 2)
+    d = rng.normal(size=(n // 2 - n // 32, 3))
+    sphere = d / np.linalg.norm(d, axis=1, keepdims=True) * 4.0 + 10.0
+    out = rng.random((n // 32, 3)) * 25.0
+    return np.concatenate([plane, sphere, out]).astype(np.float32)
+
+
+@pytest.mark.parametrize("rep", ["first", "random", "center", "centroid"])
+def test_voxel_path_matches_cpu(dev, cloud_200k, rep):
+    """``unique_voxel_count`` equal to the CPU's; ``_voxel_reduce_impl``'s
+    picks equal to the CPU's (centroid: apart only in near-tie voxels) and
+    equal over two card runs."""
+    from gs360x_torch import checks
+    from gs360x_torch.kernels import voxel as vox
+    xyz = torch.from_numpy(cloud_200k)
+    lo = xyz.min(dim=0).values
+    rand = torch.from_numpy(np.random.default_rng(0).random(
+        len(xyz)).astype(np.float32))
+    for v in (0.05, 0.2, 1.0):
+        assert vox.unique_voxel_count(xyz.to(dev), v, lo.to(dev)) == \
+            vox.unique_voxel_count(xyz, v, lo)
+        keys = vox.grid_keys(xyz, v, lo)
+        assert torch.equal(vox.grid_keys(xyz.to(dev), v, lo.to(dev)).cpu(),
+                           keys)
+        runs = [vox._voxel_reduce_impl(
+            xyz.to(dev), keys.to(dev), rand.to(dev), representative=rep,
+            xyz_min=lo.to(dev), voxel=v).sort().values.cpu()
+            for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+        ref = vox._voxel_reduce_impl(xyz, keys, rand, representative=rep,
+                                     xyz_min=lo, voxel=v).sort().values
+        if rep != "centroid":
+            assert torch.equal(runs[0], ref)
+            continue
+        _differ, far = checks.centroid_pick_differences(
+            cloud_200k, keys.numpy(), runs[0].numpy(), ref.numpy())
+        assert far == 0

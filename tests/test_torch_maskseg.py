@@ -12,10 +12,13 @@ within 1e-4 of ``--mask-thresh``, the only ones that could flip), RGB
 within 1 LSB; and the same stdout. The refinement helpers equal the JAX
 helpers; the error exits print the same lines with the same codes; the
 port's own ``[ERR]`` lines (an Orbax ``--checkpoint``, the cached Orbax
-default, ``--build-default``) and ``--checkpoint`` with single-file
-msgpack weights are checked.
+default) and ``--checkpoint`` with single-file msgpack weights are
+checked, and so are the port's default weights: ``--build-default`` trains
+them (in a few steps here) into the port's cache and loads them, and a
+cached port default loads, beside an Orbax default or not.
 """
 
+import functools
 import io
 import pathlib
 import shutil
@@ -232,27 +235,61 @@ def no_shipped_weights(tmp_path, monkeypatch):
     return tmp_path / "home"
 
 
-def test_build_default_is_not_available_yet(one_image, no_shipped_weights,
-                                            capsys):
-    args = ["-i", str(one_image), "--device", "cpu", "--build-default"]
-    assert tms.main(args) == 1
-    assert capsys.readouterr().err == (
-        "[ERR] --build-default trains the U-Net, which the port does not do "
-        "yet (training comes with the port of segtrain)\n")
-
-
 def test_cached_orbax_default_is_refused(one_image, no_shipped_weights,
                                          capsys):
     default = tsyn.default_checkpoint_path()
     assert str(default).startswith(str(no_shipped_weights))
     default.mkdir(parents=True)
-    for extra in ([], ["--build-default"], ["--allow-random"]):
+    for extra in ([], ["--allow-random"]):
         assert tms.main(["-i", str(one_image), "--device", "cpu",
                          *extra]) == 1
         assert capsys.readouterr().err == (
             f"[ERR] failed to load default checkpoint: {default} is an "
             "Orbax checkpoint; Orbax checkpoints are not readable by the "
             "port\n")
+
+
+# the port's default weights trained in 2 steps of batch 2 at 32²
+FEW = dict(steps=2, n_scenes=4, size=32, batch=2, verbose=False)
+
+
+@pytest.mark.parametrize("case", ["build", "build beside orbax", "cached",
+                                  "cached beside orbax"])
+def test_port_default_weights(case, one_image, no_shipped_weights, tmp_path,
+                              monkeypatch, capsys):
+    """--build-default trains the port's default into its cache and loads
+    it; a cached port default loads with or without the flag; the JAX
+    package's Orbax default beside it is not read."""
+    monkeypatch.setattr(tsyn, "build_default_checkpoint", functools.partial(
+        tsyn.build_default_checkpoint, **FEW))
+    default = tsyn.default_weights_path()
+    assert default == (no_shipped_weights / ".cache" / "gs360x"
+                       / "seg_default_v3_torch.msgpack")
+    if "orbax" in case:
+        tsyn.default_checkpoint_path().mkdir(parents=True)
+    if case.startswith("cached"):
+        tsyn.build_default_checkpoint(default, device=CPU)
+    before = default.read_bytes() if default.exists() else None
+    out = tmp_path / "out"
+    rc = tms.main(["-i", str(one_image), "--device", "cpu", "-o", str(out),
+                   "--build-default"])
+    assert rc == 0
+    lines = capsys.readouterr().out.splitlines()
+    built = ["[INFO] building default checkpoint (one-time, trains the "
+             "U-Net on a generated corpus)..."] if before is None else []
+    assert lines[:len(built) + 2] == built + [
+        f"[INFO] loaded default checkpoint: {default}",
+        "[INFO] (synthetic-corpus weights; fine-tune with "
+        "gs360x-torch-segtrain for photographic masks)"]
+    if before is not None:
+        assert default.read_bytes() == before
+        return
+    # the masks are those of a predictor with the weights just built
+    ref_dir = tmp_path / "ref"
+    assert tms.main(["-i", str(one_image), "--device", "cpu", "-o",
+                     str(ref_dir), "--checkpoint", str(default)]) == 0
+    assert (out / "frame_0001_A.png").read_bytes() == \
+        (ref_dir / "frame_0001_A.png").read_bytes()
 
 
 def test_without_weights_the_messages_match_jax(one_image,

@@ -1,12 +1,14 @@
 """The port never imports JAX, and nothing of the JAX package: every
 ``gs360x_torch`` module (the remap path, the tools, the sharpness and flow
-modules, the host IO and camera-format copies, the segmentation model and
-MaskSeg named explicitly), and ``chip_smoke`` as a module, import in a
+modules, the host IO and camera-format copies, the segmentation model,
+MaskSeg, segtrain, the voxel path, PlyOptimizer and the scene loader named
+explicitly), and ``chip_smoke`` as a module, import in a
 fresh interpreter with no ``jax``, no ``gs360x`` and no ``flax``,
 ``msgpack``, ``orbax`` or ``optax`` module in ``sys.modules`` afterwards. A
 subprocess, because this test process has already imported JAX. No source
 file of the port, nor ``chip_smoke.py``, names any of them in an
-import."""
+import, and every ``gs360x-torch-*`` script of ``pyproject.toml`` runs the
+``main`` of a port module."""
 
 import ast
 import json
@@ -69,7 +71,12 @@ def test_port_imports_no_jax():
             "gs360x_torch.models.segmentation",
             "gs360x_torch.models.instances",
             "gs360x_torch.models.synthseg",
-            "gs360x_torch.tools.maskseg"} <= set(seen["names"])
+            "gs360x_torch.tools.maskseg",
+            "gs360x_torch.kernels.voxel",
+            "gs360x_torch.io.scene",
+            "gs360x_torch.tools.segtrain",
+            "gs360x_torch.tools.plyopt",
+            "gs360x_torch.tools.scene"} <= set(seen["names"])
     assert seen["jax"] == [], seen["jax"]
     assert set(seen["gs360x"]) <= ALLOWED_GS360X, seen["gs360x"]
     assert seen["forbidden"] == [], seen["forbidden"]
@@ -127,3 +134,19 @@ def test_port_package_imports_nothing_of_the_jax_package(package):
     for path in sources:
         roots = imported_roots(path)
         assert not roots & FORBIDDEN_ROOTS, (path, sorted(roots))
+
+
+PORT_SCRIPTS = ["perspcut", "dualfisheye", "video2frames", "frameselector",
+                "ms360xml", "camconvert", "maskseg", "segtrain", "plyopt",
+                "scene"]
+
+
+@pytest.mark.parametrize("tool", PORT_SCRIPTS)
+def test_port_script_runs_a_port_module(tool):
+    text = (ROOT / "pyproject.toml").read_text()
+    line = f'gs360x-torch-{tool} = "gs360x_torch.tools.{tool}:main"'
+    assert line in text.splitlines()
+    roots = imported_roots(ROOT / "gs360x_torch" / "tools" / f"{tool}.py")
+    assert not roots & FORBIDDEN_ROOTS, (tool, sorted(roots))
+    assert sum(ln.startswith("gs360x-torch-")
+               for ln in text.splitlines()) == len(PORT_SCRIPTS)
