@@ -58,7 +58,10 @@ it went through the kernels only and that its pixels are right:
   exported, the cameras agreeing across them. None of the three launches
   a hand-written kernel;
 * ``python -m gs360x_torch.tools.micro_ops``: the 14 primitive kernels of
-  ``micro_ops.cu``, each first held to its plain version on the card.
+  ``micro_ops.cu``, each first held to its plain version on the card and
+  timed beside its bound; the two products (three TF32 passes on the
+  tensor cores, their HGMMA instructions counted in the built library)
+  also beside one cuBLAS f32 call a step.
 
 Phases print one line each; any failure raises and the exit code is not
 0. Without CUDA, or without the rest of the checkout (it then says what it
@@ -1984,72 +1987,145 @@ def phase_maskseg(dev, tmp, smi: str) -> dict:
     return {"launches": runs["mask"]["launches"]}
 
 
-def phase_micro_ops(dev) -> dict:
+def _micro_check(key, op, tensors, loops, grid) -> float:
+    """One launch of ``key`` at ``loops`` against its plain version at its
+    gate; returns the error relative to max|plain|."""
+    got = mo.micro_op(key, tensors, loops, grid)
+    ref = op.plain(*tensors, loops)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"micro_ops {key}: non-finite output")
+    err = float((got - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-30)
+    tol = mo.rel_tolerance(key, loops)
+    if (tol == 0.0 and not torch.equal(got, ref)) or rel > tol:
+        raise AssertionError(f"micro_ops {key}: kernel vs plain rel "
+                             f"{rel:.3e} (abs {err:.3e}) at {loops} loops, "
+                             f"gate {tol:g}")
+    return rel
+
+
+def _product_kernels() -> dict:
+    """HGMMA / HMMA instructions of each product kernel in the built
+    library (``cuobjdump -sass``); fails where a product has none."""
+    counts = _build.sass_counts()
+    found = {key: sum(n for name, n in counts.items()
+                      if f"tc_{key}_kernel" in name) for key in mo.PRODUCTS}
+    log("[micro_ops] tensor-core instructions (HGMMA/HMMA in cuobjdump "
+        "-sass): " + ", ".join(f"{k} {n}" for k, n in found.items()))
+    if not all(found.values()):
+        raise AssertionError(f"micro_ops: a product kernel has no "
+                             f"tensor-core instruction: {found}")
+    return found
+
+
+def phase_micro_ops(dev, smi: str) -> dict:
     """Each of the 14 micro_ops kernels against its plain version on the
     card (movers bitwise, arithmetic at 1e-6, the products at 1e-5 a step
-    and at most 8 steps), both timed at grid 2048, reps 64; then the tool
-    itself, whose lines are printed."""
+    at 1 and 8 steps, and bitwise across grids and launches), each timed
+    at grid 2048, reps 64 beside its bound and its plain version; the
+    products also beside one cuBLAS f32 product of the whole grid's blocks
+    a step (``library_ms``, TF32 off). Then the tool itself, whose lines
+    are printed and whose launches are the path's."""
+    mma = _product_kernels()
     inputs = mo.make_inputs(dev)
-    worst_rel, total_ms, total_plain_ms, ops_bound, bytes_moved = \
-        0.0, 0.0, 0.0, 0.0, 0
-    parts = []
-    for key, op in mo.OPS.items():
-        tensors = [inputs[name] for name in op.inputs]
-        loops = mo.bench_loops(op)
-        check = min(loops, mo.MATMUL_CHECK_LOOPS) \
-            if key.startswith("matmul") else loops
-        got = mo.micro_op(key, tensors, check, op.grid or mo.GRID)
-        ref = op.plain(*tensors, check)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"micro_ops {key}: non-finite output")
-        err = float((got - ref).abs().max())
-        rel = err / max(float(ref.abs().max()), 1e-30)
-        tol = mo.rel_tolerance(key, check)
-        if (tol == 0.0 and not torch.equal(got, ref)) or rel > tol:
-            raise AssertionError(f"micro_ops {key}: kernel vs plain rel "
-                                 f"{rel:.3e} (abs {err:.3e}), gate {tol:g}")
-        worst_rel = max(worst_rel, rel)
-        grid = op.grid or mo.GRID
-        ms = cuda_ms(lambda: mo.micro_op(key, tensors, loops, grid))
-        plain_ms = cuda_ms(lambda: op.plain(*tensors, loops),
-                           **PLAIN_TIMING)
-        total_ms += ms
-        total_plain_ms += plain_ms
-        ops_bound += grid * loops * op.flops_per_loop / (FP32_TFLOPS * 1e9)
-        bytes_moved += sum(t.numel() * t.element_size() for t in tensors) \
-            + got.numel() * 4
-        parts.append(f"{key} {'bitwise' if tol == 0.0 else f'rel {rel:.1e}'}"
-                     f" ({ms:.4f} / {plain_ms:.4f} ms)")
-    log("[micro_ops] kernel vs plain on the card at the benchmark depth "
-        f"(products at {mo.MATMUL_CHECK_LOOPS} steps), kernel / plain ms of "
-        "one launch (the plain version computes one block, the kernel "
-        f"{mo.GRID}): " + ", ".join(parts))
+    stats = {}
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # the function is f32
+    try:
+        for key, op in mo.OPS.items():
+            tensors = [inputs[name] for name in op.inputs]
+            loops = mo.bench_loops(op)
+            grid = op.grid or mo.GRID
+            product = key in mo.PRODUCTS
+            checks = (1, mo.MATMUL_CHECK_LOOPS) if product else (loops,)
+            rel = max(_micro_check(key, op, tensors, n, grid)
+                      for n in checks)
+            library_ms = None
+            if product:
+                n = mo.MATMUL_CHECK_LOOPS
+                one = mo.micro_op(key, tensors, n, 1)
+                runs = [mo.micro_op(key, tensors, n, grid) for _ in range(2)]
+                if not (torch.equal(one, runs[0])
+                        and torch.equal(runs[0], runs[1])):
+                    raise AssertionError(f"micro_ops {key}: the block "
+                                         "differs across grids or launches")
+                x, b = tensors
+                blocks = x.expand(grid, *x.shape).contiguous()
+                library_ms = cuda_ms(lambda: torch.matmul(blocks, b)) * loops
+            ms = cuda_ms(lambda: mo.micro_op(key, tensors, loops, grid))
+            plain_ms = cuda_ms(lambda: op.plain(*tensors, loops),
+                               **PLAIN_TIMING)
+            bound, by, times = mo.bound_ms(op, loops)
+            stats[key] = {"max_abs_err": rel, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound, "bound_by": by,
+                          "library_ms": library_ms}
+            extra = "" if not product else (
+                f" | FMA bound {times['f32']:.4f} ms | cuBLAS "
+                f"f32 {library_ms:.4f} ms ({loops} calls of "
+                f"({grid}x{op.out_shape[0]}, 128) @ (128, 128)) | {mma[key]} "
+                f"HGMMA | bitwise across grids 1/{grid} and launches")
+            gate = ("bitwise" if mo.rel_tolerance(key, loops) == 0.0
+                    else f"rel {rel:.2e}")
+            log(f"[micro_ops] {smi} | {key}: {gate} | kernel {ms:.4f} ms, "
+                f"bound {bound:.5f} ms by {by} ({bound / ms:.1%}), plain "
+                f"{plain_ms:.4f} ms (one block){extra}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
 
     _reset_counters()
     buf = io.StringIO()
     with redirect_stdout(buf):
         rc = micro_ops_tool.main([])
     torch.cuda.synchronize()
-    launches, plain = _counters()
+    plain = _counters()[1]
+    per_op = dict(mo.OP_LAUNCHES)
     lines = buf.getvalue().splitlines()
     if rc != 0 or sum("ns/op" in ln for ln in lines) != len(mo.OPS):
         raise AssertionError(f"micro_ops tool exited {rc}: {lines[-5:]}")
-    if launches["micro_ops"] < len(mo.OPS) or any(plain.values()):
-        raise AssertionError(f"micro_ops tool: launches {launches}, plain "
+    if not all(per_op.values()) or any(plain.values()):
+        raise AssertionError(f"micro_ops tool: launches {per_op}, plain "
                              f"{plain}")
     for line in lines:
         log(f"[micro_ops] {line}")
-    by_bytes = bytes_moved / (HBM_TBS * 1e9)
-    # the products grow by ~64x a step, so the row's error is the worst of
-    # the 14 taken relative to max|plain|, which is O(1) for the other 12
-    log(f"[micro_ops] worst kernel-vs-plain error of the 14, relative to "
-        f"max|plain|: {worst_rel:.3e}")
-    return {"launches": launches, "max_abs_err": worst_rel, "ms": total_ms,
-            "plain_ms": total_plain_ms,
-            "bound_ms": max(ops_bound, by_bytes),
-            "bound_by": "operations" if ops_bound >= by_bytes else "bytes",
-            "library_ms": None}
+    for key in stats:
+        stats[key]["launches"] = per_op[key]
+    return stats
+
+
+def _micro_rows(micro: dict) -> list:
+    """The ``kernels`` rows of ``[micro_ops]``: one a product, then the 12
+    other primitives summed."""
+    rows = []
+    for key, line in (("matmul64", 119), ("matmul8", 132)):
+        st = micro[key]
+        rows.append({
+            "name": f"micro_ops {key} ({mo.OPS[key].label}: three TF32 "
+                    "passes on the tensor cores, grid 2048, reps 64; error "
+                    "relative to max|plain| at 8 steps; library: cuBLAS f32)",
+            "route": "cuda", "source": "gs360x_torch/csrc/micro_ops.cu",
+            "replaces": f"micro_ops.py:{line}",
+            **{k: st[k] for k in ("launches", "max_abs_err", "ms",
+                                  "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "operations"})
+    rest = [st for key, st in micro.items() if key not in mo.PRODUCTS]
+    by_smem = sum(st["bound_ms"] for st in rest
+                  if st["bound_by"] == "shared memory")
+    bound = sum(st["bound_ms"] for st in rest)
+    rows.append({
+        "name": "micro_ops (bench: the 12 other primitives, grid 2048, reps "
+                "64, summed; bounds by f32 issue or shared memory, so "
+                "bound_by 'bytes' means shared-memory bytes at 33.5 TB/s; "
+                "error relative to max|plain|)",
+        "route": "cuda", "source": "gs360x_torch/csrc/micro_ops.cu",
+        "replaces": "micro_ops.py:22",
+        "launches": sum(st["launches"] for st in rest),
+        "max_abs_err": max(st["max_abs_err"] for st in rest),
+        "ms": sum(st["ms"] for st in rest),
+        "plain_ms": sum(st["plain_ms"] for st in rest), "bound_ms": bound,
+        "bound_by": "bytes" if by_smem >= bound / 2 else "operations",
+        "library_ms": None})
+    return rows
 
 
 # --- [segtrain]: the U-Net's training step, segtrain, --make-default and a
@@ -2744,12 +2820,12 @@ def main() -> int:
             t0 = time.perf_counter()
             phase()
             log(f"[{name}] phase wall {time.perf_counter() - t0:.1f}s")
-    micro = phase_micro_ops(dev)
+    micro = phase_micro_ops(dev, info["smi"])
 
     def total(kernel: str) -> int:
         return sum(r["launches"].get(kernel, 0)
                    for r in [*runs.values(), dfe, dfe_lut, *v2f.values(),
-                             *fsel.values(), ms_xml, dfe_xml, masks, micro])
+                             *fsel.values(), ms_xml, dfe_xml, masks])
 
     checks = remap["checks"]
 
@@ -2803,10 +2879,8 @@ def main() -> int:
             checks["undistort"]),
         row("remap (_remap_kernel_wide3: SFM10 10x1750²)", "remap.cu",
             "gs360x/kernels/remap_pallas.py:283", "remap", checks["batch"]),
-        row("micro_ops (bench: 14 primitives, grid 2048, reps 64; error "
-            "relative to max|plain|)",
-            "micro_ops.cu", "micro_ops.py:22", "micro_ops", micro),
     ]
+    kernels += _micro_rows(micro)
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the main paths was never launched: "
                              + str([k["name"] for k in kernels

@@ -2,40 +2,89 @@
 // made of, as this card executes them. One __global__ function per
 // primitive; each loads its block once, applies the primitive `reps` times
 // with every application depending on the one before, and stores the
-// result block. Every block of the grid does the same work on the same
-// inputs and stores the same values to the same output (a benign race), so
-// time / (grid * reps) is the cost of one application with the launch and
-// the loads amortised.
+// result block. Every block of the grid (for a product, every chain, two
+// or four of them a CUDA block) does the same work on the same inputs and
+// stores the same values to the same output (a benign race), so time /
+// (grid * reps) is the cost of one application with the launch and the
+// loads amortised.
 //
 // Replaces micro_ops.py `bench` (the Pallas call) and the 14 kernel bodies
 // of its `main`: mul on an (8,128) and a (64,128) tile; gather along axis
 // 1 on both tiles; gather along axis 0; where; 8-fold concat; the f32
-// products (64,128)@(128,128) and (8,128)@(128,128); dynamic roll; a
-// counted loop; a predicated read-modify-write; a dynamic row slice; and
-// the bicubic chunk-body composite (3 channels, 4 horizontal + 4 vertical
-// taps). The TPU bodies work on (8,128) vector registers and VMEM blocks;
-// none of that layout carries over. Here a tile element lives in a
-// register of the thread that owns it (element e = thread + j * 256), and
-// whatever crosses threads goes through shared memory: a gather along
-// axis 1 or 0 is a shared-memory gather, the roll and the row slice read
-// shared memory at an offset taken from the index block at run time, the
-// predicated update is a read-modify-write of shared memory under a
-// run-time predicate, and the products are f32 FMA loops over
-// shared-memory tiles (no tensor cores, no library).
+// products (64,128)@(128,128) and (8,128)@(128,128) (`k_mxu`, `k_mxu8`);
+// dynamic roll; a counted loop; a predicated read-modify-write; a dynamic
+// row slice; and the bicubic chunk-body composite (3 channels, 4
+// horizontal + 4 vertical taps). The TPU bodies work on (8,128) vector
+// registers and VMEM blocks; none of that layout carries over. Here a tile
+// element lives in a register of the thread that owns it (element e =
+// thread + j * 256), and whatever crosses threads goes through shared
+// memory: a gather along axis 1 or 0 is a shared-memory gather, the roll
+// and the row slice read shared memory at an offset taken from the index
+// block at run time, and the predicated update is a read-modify-write of
+// shared memory under a run-time predicate.
 //
-// Bound: none of these moves data worth naming (a few KB to 0.4 MB per
-// block, all of it resident in L1/L2 after the first block); each is bound
-// by what it prices: FP32 issue (mul, where, loop), shared-memory
-// bandwidth and bank conflicts (gathers, roll, slice, update), FMA issue
-// plus shared-memory reads (products), and L1/L2 reads of the index and
-// weight tables plus shared-memory gathers (composite).
+// Bound of the 12 that are not products: none moves device memory worth
+// naming (a few KB to 0.4 MB per block, resident in L1/L2 after the first
+// block); each is bound by FP32 issue (mul, where, loop: 67 TFLOP/s) or by
+// shared memory (gathers, roll, slice, update, replication, composite:
+// 128 B a clock an SM, 33.5 TB/s), whichever its count of f32 operations
+// and of elements it must gather, roll, slice, update or replicate makes
+// larger (micro_ops_cuda.MicroOp).
+//
+// The products run on the tensor cores, as the TPU bodies run on the MXU:
+// `wgmma` with TF32 operands, the only route to Hopper's tensor-core rate.
+// One TF32 pass keeps 11 bits of each operand and misses the f32 gate
+// (1e-5 of max|plain| a step) 8-10x over, so every product is three passes:
+// v = hi + lo with hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v - hi), and
+// x @ b ~ x_lo @ b_hi + x_hi @ b_lo + x_hi @ b_hi, accumulated in f32 in
+// that order (the two small terms first, then the large one), each term a
+// pass over K = 128 in 16 k-steps of 8. The split operands are stored as
+// rounded TF32 bit patterns, since wgmma would otherwise truncate the low
+// 13 bits of an f32. b is split once a block, at load; x after every
+// step. Bound: 3 * 2*M*N*K operations a step at 495 TFLOP/s (TF32, dense).
+//
+// (64,128)@(128,128): wgmma m64n128k8 with A (= x) in registers and B (=
+// b) in shared memory. B must be K-major for TF32, so b is stored
+// transposed (b^T, K contiguous) in 8x16-byte core matrices without
+// swizzle, hi and lo 64 KB each. Inside each group of 8 k the stored rows
+// are permuted (stored position p holds b row 2p for p < 4, 2(p-4)+1 for
+// p >= 4): the accumulator fragment of step r (columns 2t, 2t+1 of each
+// 8-column chunk) is then exactly the A fragment of step r+1 (k positions
+// t, t+4), so a chain runs in registers with no shared-memory round trip
+// for x and no barrier, 48 wgmma a step. A chain alone leaves the tensor
+// cores idle while it splits its accumulators and while its last wgmma
+// drains, so a block holds two chains (two of the grid's blocks), one a
+// warpgroup, over the one b: neither waits for the other, and one's
+// wgmma fill the other's split.
+// (8,128)@(128,128): transposed, y^T = b^T x^T: two warpgroups, each an
+// m64 half of b^T as the A operand, held in registers for the whole launch
+// (hi and lo, 128 registers a thread), and x^T as the B operand, which is
+// x's own row-major layout, split and written to one of two shared-memory
+// buffers after every step (a fence to the async proxy and one block
+// barrier a step; a step writes the buffer no wgmma is reading). The
+// tensor cores keep no operand from one wgmma to the next, so every wgmma
+// moves its slice of b^T in again: 128 KB a step, 2.5x the time of one
+// chain's 3-pass operations at shared memory's 128 bytes a clock an SM.
+// So a block runs four chains (four of the grid's blocks) in one B
+// operand of 64 rows, x_hi of each chain then x_lo of each: b_hi meets
+// all 64 rows in one wgmma m64n64k8 (hi.hi and hi.lo of every chain in
+// its 8-column chunks) and b_lo meets the 32 x_hi rows in one m64n32k8,
+// 32 wgmma a warpgroup a step for four chains, and y = (hi.lo + lo.hi) +
+// hi.hi for each: b^T moves once for four chains. Between steps the
+// tensor cores wait for the split, the stores and the barrier; nothing
+// else feeds them.
+// b_hi + b_lo take 128 KB of shared memory (64 rows) or 128 registers a
+// thread (8 rows): one block an SM. 2048 chains are 1024 blocks (7.8 waves
+// over 132 SMs) or 512 (3.9 waves); the loads of b (64 KB from L2 a block)
+// are not overlapped with another block's steps. A grid that is not a
+// multiple of a block's chains computes the last block's spare chains too
+// (same inputs, same values) and stores only the grid's.
 //
 // Loop-invariant shared-memory reads (axis-0 gather, roll, slice, update)
 // go through volatile pointers, so that each application really reads;
 // the dependent chain is kept alive by the store of its final value.
 // Arithmetic that a plain version repeats in another order of rounding
-// uses round-to-nearest intrinsics (no FMA contraction), except the
-// products, whose k-loop is an fmaf chain.
+// uses round-to-nearest intrinsics (no FMA contraction).
 //
 // Gather indices are masked to the tile (& 127, & 7), so an index out of
 // range cannot read outside shared memory.
@@ -171,52 +220,321 @@ __global__ void concat_kernel(const float* __restrict__ a,
   for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = acc[j];
 }
 
-// x(ROWS,128) = x @ b(128,128), `reps` times, in f32: b and two copies of
-// x (read one, write the other) in dynamic shared memory; a thread owns
-// one column of ROWS / 2 rows and runs the k-loop as an fmaf chain, four
-// k a step, x read as one 16-byte broadcast.
-template <int ROWS>
-__global__ void matmul_kernel(const float* __restrict__ a,
-                              const float* __restrict__ b,
-                              float* __restrict__ out, int reps) {
-  constexpr int kRpt = ROWS / 2;
-  extern __shared__ __align__(16) float smem[];
-  float* bs = smem;                         // (128, 128)
-  float* xs = smem + kLanes * kLanes;       // 2 x (ROWS, 128)
-  for (int e = threadIdx.x; e < kLanes * kLanes; e += kThreads) bs[e] = b[e];
-  for (int e = threadIdx.x; e < ROWS * kLanes; e += kThreads) xs[e] = a[e];
-  __syncthreads();
-  const int c = threadIdx.x % kLanes;
-  const int r0 = (threadIdx.x / kLanes) * kRpt;
-  int cur = 0;
-  for (int r = 0; r < reps; ++r) {
-    const float* x = xs + cur * ROWS * kLanes;
-    float* y = xs + (cur ^ 1) * ROWS * kLanes;
-    float acc[kRpt];
-#pragma unroll
-    for (int i = 0; i < kRpt; ++i) acc[i] = 0.0f;
-    for (int k = 0; k < kLanes; k += 4) {
-      const float b0 = bs[(k + 0) * kLanes + c];
-      const float b1 = bs[(k + 1) * kLanes + c];
-      const float b2 = bs[(k + 2) * kLanes + c];
-      const float b3 = bs[(k + 3) * kLanes + c];
-#pragma unroll
-      for (int i = 0; i < kRpt; ++i) {
-        const float4 xv =
-            *reinterpret_cast<const float4*>(x + (r0 + i) * kLanes + k);
-        acc[i] = fmaf(xv.x, b0, acc[i]);
-        acc[i] = fmaf(xv.y, b1, acc[i]);
-        acc[i] = fmaf(xv.z, b2, acc[i]);
-        acc[i] = fmaf(xv.w, b3, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRpt; ++i) y[(r0 + i) * kLanes + c] = acc[i];
-    __syncthreads();
-    cur ^= 1;
+// ---- the products on the tensor cores (see the note at the top) ----------
+
+constexpr int kWarpgroup = 128;
+constexpr int kKSteps = kLanes / 8;                    // k-steps of 8 a pass
+constexpr uint32_t kCoreBytes = 128;                   // leading byte offset
+constexpr uint32_t kGroupBytes = kLanes * 8 * 4;       // stride byte offset
+constexpr int kProduct64Smem = 2 * kLanes * kLanes * 4;  // b^T hi + lo
+constexpr int kChains64 = 2;    // chains (warpgroups) a 64-row block
+constexpr int kChains8 = 4;     // chains an 8-row block
+constexpr int kOperand8 = 2 * kChains8 * kTile8;   // x_hi rows, x_lo rows
+constexpr int kProduct8Smem = 2 * kOperand8 * 4;   // two B operands
+
+// f32 -> TF32 rounded to nearest, ties away from zero (low 13 bits 0).
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v -> (hi, lo): hi its TF32 rounding, lo the TF32 rounding of v - hi.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// Element (row, k) of a K-major operand with K = 128 in shared memory,
+// without swizzle: 8 rows x 4 k (16 bytes a row) make a 128-byte core
+// matrix; core matrices follow along K every kCoreBytes, 8-row groups every
+// kGroupBytes.
+__device__ __forceinline__ int kmajor_offset(int row, int k) {
+  return (row >> 3) * (kLanes * 8) + (k >> 2) * 32 + (row & 7) * 4 + (k & 3);
+}
+
+// The descriptor of such an operand at `p` (layout type 0: no swizzle); a
+// k-step of 8 adds 256 bytes, 16 to the descriptor.
+__device__ __forceinline__ uint64_t smem_desc(const float* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(kCoreBytes >> 4) << 16) |
+         (static_cast<uint64_t>(kGroupBytes >> 4) << 32);
+}
+
+// Stored position, inside its group of 8, of b's row q (64-row product).
+__device__ __forceinline__ int stored_k(int q) {
+  return (q >> 1) + 4 * (q & 1);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Generic-proxy stores to shared memory, made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving a read of an accumulator register above
+// the wait for the wgmma that writes it.
+__device__ __forceinline__ void hold(float& v) {
+  asm volatile("" : "+f"(v)::"memory");
+}
+
+// d(64x128) = (accumulate ? d : 0) + A(64x8, TF32 registers) @ B(8x128,
+// TF32, K-major in shared memory at desc_b).
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+}
+
+// d(64x32) = (accumulate ? d : 0) + A(64x8, TF32 registers) @ B(8x32,
+// TF32, K-major in shared memory at desc_b).
+__device__ __forceinline__ void wgmma_m64n32k8(float (&d)[16], uint32_t a0,
+                                               uint32_t a1, uint32_t a2,
+                                               uint32_t a3, uint64_t desc_b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+}
+
+// d(64x64) = (accumulate ? d : 0) + A(64x8, TF32 registers) @ B(8x64,
+// TF32, K-major in shared memory at desc_b).
+__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], uint32_t a0,
+                                               uint32_t a1, uint32_t a2,
+                                               uint32_t a3, uint64_t desc_b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+}
+
+// x(64,128) = x @ b(128,128), `reps` times, one chain a warpgroup, chain
+// kChains64 * block + warpgroup of the grid's `grid`. Thread (warp w, lane
+// 4g + t) of a warpgroup holds its x's accumulator fragment: d[4j + h] is
+// x[16w + g + 8 * (h >> 1)][8j + 2t + (h & 1)], which read in the order
+// d[4j], d[4j+2], d[4j+1], d[4j+3] is the A fragment of k-step j against
+// the permuted b^T (stored_k).
+__global__ void __launch_bounds__(kChains64 * kWarpgroup, 1)
+    tc_matmul64_kernel(const float* __restrict__ a,
+                       const float* __restrict__ b, float* __restrict__ out,
+                       int reps, int grid) {
+  extern __shared__ __align__(128) float smem[];
+  float* bh = smem;                      // b^T, TF32 hi
+  float* bl = smem + kLanes * kLanes;    // b^T, TF32 lo
+  for (int e = threadIdx.x; e < kLanes * kLanes; e += blockDim.x) {
+    const int k = e / kLanes, n = e % kLanes;
+    uint32_t hi, lo;
+    split_tf32(b[e], hi, lo);
+    const int off = kmajor_offset(n, (k & ~7) | stored_k(k & 7));
+    bh[off] = __uint_as_float(hi);
+    bl[off] = __uint_as_float(lo);
   }
-  const float* x = xs + cur * ROWS * kLanes;
-  for (int e = threadIdx.x; e < ROWS * kLanes; e += kThreads) out[e] = x[e];
+  fence_async_shared();
+  __syncthreads();
+  // no barrier follows: a spare chain's warpgroup may leave
+  if (static_cast<int>(blockIdx.x) * kChains64 +
+          static_cast<int>(threadIdx.x / kWarpgroup) >= grid)
+    return;
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float d[64];
+#pragma unroll
+  for (int j = 0; j < kKSteps; ++j) {
+    const float2 top =
+        *reinterpret_cast<const float2*>(a + r0 * kLanes + 8 * j + c0);
+    const float2 bot =
+        *reinterpret_cast<const float2*>(a + (r0 + 8) * kLanes + 8 * j + c0);
+    d[4 * j] = top.x;
+    d[4 * j + 1] = top.y;
+    d[4 * j + 2] = bot.x;
+    d[4 * j + 3] = bot.y;
+  }
+  const uint64_t desc_h = smem_desc(bh), desc_l = smem_desc(bl);
+  for (int r = 0; r < reps; ++r) {
+    uint32_t xh[64], xl[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) split_tf32(d[i], xh[i], xl[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kKSteps; ++j)   // x_lo @ b_hi
+      wgmma_m64n128k8(d, xl[4 * j], xl[4 * j + 2], xl[4 * j + 1],
+                      xl[4 * j + 3], desc_h + 16 * j, j > 0);
+#pragma unroll
+    for (int j = 0; j < kKSteps; ++j)   // + x_hi @ b_lo
+      wgmma_m64n128k8(d, xh[4 * j], xh[4 * j + 2], xh[4 * j + 1],
+                      xh[4 * j + 3], desc_l + 16 * j, 1);
+#pragma unroll
+    for (int j = 0; j < kKSteps; ++j)   // + x_hi @ b_hi
+      wgmma_m64n128k8(d, xh[4 * j], xh[4 * j + 2], xh[4 * j + 1],
+                      xh[4 * j + 3], desc_h + 16 * j, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hold(d[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < kKSteps; ++j) {
+    *reinterpret_cast<float2*>(out + r0 * kLanes + 8 * j + c0) =
+        make_float2(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<float2*>(out + (r0 + 8) * kLanes + 8 * j + c0) =
+        make_float2(d[4 * j + 2], d[4 * j + 3]);
+  }
+}
+
+// x(8,128) = x @ b(128,128), `reps` times, in kChains8 chains a block
+// (chains kChains8 * block + c of the grid's `grid`), as y^T = b^T x^T:
+// warpgroup h computes rows 64h .. 64h+63 of y^T (columns of y) for every
+// chain. Thread (warp w, lane 4g + t) of it holds the A fragments of b^T's
+// rows m = 64h + 16w + g and m + 8 for all 16 k-steps (k = 8j + t and
+// 8j + t + 4), and gets y[2t][m], y[2t+1][m], y[2t][m+8], y[2t+1][m+8] of
+// each chain from each step. The B operand lives in shared memory as
+// K-major (row n, k) core matrices, two buffers of 64 rows: row 8c + i is
+// row i of chain c's x_hi, row 8 * (kChains8 + c) + i that of its x_lo.
+__global__ void __launch_bounds__(2 * kWarpgroup, 1)
+    tc_matmul8_kernel(const float* __restrict__ a,
+                      const float* __restrict__ b, float* __restrict__ out,
+                      int reps, int grid) {
+  extern __shared__ __align__(128) float xs[];   // [buffer][kOperand8]
+  if (reps == 0) {
+    for (int e = threadIdx.x; e < kTile8; e += blockDim.x) out[e] = a[e];
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int m = (threadIdx.x >> 7) * 64 + ((threadIdx.x >> 5) & 3) * 16 +
+                (lane >> 2);
+  uint32_t bh[4 * kKSteps], bl[4 * kKSteps];
+#pragma unroll
+  for (int j = 0; j < kKSteps; ++j) {
+    const float* row = b + (8 * j + t) * kLanes;
+    split_tf32(row[m], bh[4 * j], bl[4 * j]);
+    split_tf32(row[m + 8], bh[4 * j + 1], bl[4 * j + 1]);
+    split_tf32(row[4 * kLanes + m], bh[4 * j + 2], bl[4 * j + 2]);
+    split_tf32(row[4 * kLanes + m + 8], bh[4 * j + 3], bl[4 * j + 3]);
+  }
+  for (int e = threadIdx.x; e < kTile8; e += blockDim.x) {
+    uint32_t hi, lo;
+    split_tf32(a[e], hi, lo);
+    const int n = e / kLanes, k = e % kLanes;
+#pragma unroll
+    for (int c = 0; c < kChains8; ++c) {
+      xs[kmajor_offset(8 * c + n, k)] = __uint_as_float(hi);
+      xs[kmajor_offset(8 * (kChains8 + c) + n, k)] = __uint_as_float(lo);
+    }
+  }
+  fence_async_shared();
+  __syncthreads();
+
+  // chunk c of hh: b_hi^T @ x_hi^T of chain c; chunk kChains8 + c: b_hi^T
+  // @ x_lo^T of chain c; chunk c of lh: b_lo^T @ x_hi^T of chain c
+  float hh[8 * kChains8] = {};
+  float lh[4 * kChains8] = {};
+  float d[4 * kChains8];
+  for (int r = 0; r < reps; ++r) {
+    const uint64_t desc = smem_desc(xs + (r & 1) * kOperand8);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kKSteps; ++j)   // all 64 rows
+      wgmma_m64n64k8(hh, bh[4 * j], bh[4 * j + 1], bh[4 * j + 2],
+                     bh[4 * j + 3], desc + 16 * j, j > 0);
+#pragma unroll
+    for (int j = 0; j < kKSteps; ++j)   // the 32 x_hi rows
+      wgmma_m64n32k8(lh, bl[4 * j], bl[4 * j + 1], bl[4 * j + 2],
+                     bl[4 * j + 3], desc + 16 * j, j > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < 4 * kChains8; ++i) {
+      hold(hh[i]);
+      hold(hh[4 * kChains8 + i]);
+      hold(lh[i]);
+      d[i] = __fadd_rn(__fadd_rn(hh[4 * kChains8 + i], lh[i]), hh[i]);
+    }
+    if (r + 1 < reps) {
+      float* next = xs + ((r & 1) ^ 1) * kOperand8;
+#pragma unroll
+      for (int i = 0; i < 4 * kChains8; ++i) {
+        const int n = 8 * (i >> 2) + 2 * t + (i & 1);
+        const int k = m + 8 * ((i >> 1) & 1);
+        uint32_t hi, lo;
+        split_tf32(d[i], hi, lo);
+        next[kmajor_offset(n, k)] = __uint_as_float(hi);
+        next[kmajor_offset(8 * kChains8 + n, k)] = __uint_as_float(lo);
+      }
+      fence_async_shared();
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * kChains8; ++i)
+    if (static_cast<int>(blockIdx.x) * kChains8 + (i >> 2) < grid)
+      out[(2 * t + (i & 1)) * kLanes + m + 8 * ((i >> 1) & 1)] = d[i];
 }
 
 // acc[r, c] += x[r, (c - s) mod 128] with s = idx[0, 0] read at run time,
@@ -382,22 +700,33 @@ __global__ void chunk_kernel(const float* __restrict__ win,
   for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = acc[j];
 }
 
-template <int ROWS>
-cudaError_t launch_matmul(const float* a, const float* b, float* out,
-                          int reps, int grid, cudaStream_t stream) {
-  constexpr int kBytes =
-      (kLanes * kLanes + 2 * ROWS * kLanes) * static_cast<int>(sizeof(float));
+cudaError_t launch_matmul64(const float* a, const float* b, float* out,
+                            int reps, int grid, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      matmul_kernel<ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kBytes);
+      tc_matmul64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kProduct64Smem);
   if (err != cudaSuccess) return err;
-  matmul_kernel<ROWS><<<grid, kThreads, kBytes, stream>>>(a, b, out, reps);
+  tc_matmul64_kernel<<<(grid + kChains64 - 1) / kChains64,
+                       kChains64 * kWarpgroup, kProduct64Smem, stream>>>(
+      a, b, out, reps, grid);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_matmul8(const float* a, const float* b, float* out,
+                           int reps, int grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      tc_matmul8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kProduct8Smem);
+  if (err != cudaSuccess) return err;
+  tc_matmul8_kernel<<<(grid + kChains8 - 1) / kChains8, 2 * kWarpgroup,
+                      kProduct8Smem, stream>>>(a, b, out, reps, grid);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// One primitive, `grid` blocks of 256 threads, `reps` applications each.
+// One primitive, `grid` blocks of 256 threads (the products: `grid` chains,
+// kChains64 or kChains8 a block), `reps` applications each.
 // op: 0 mul (8,128) | 1 mul (64,128) | 2 gather axis 1 (8,128) | 3 gather
 // axis 1 (64,128) | 4 gather axis 0 (8,128) | 5 where | 6 concat | 7
 // product (64,128)@(128,128) | 8 product (8,128)@(128,128) | 9 dynamic
@@ -446,9 +775,9 @@ extern "C" int gs360x_micro_op(int op, const void* in0, const void* in1,
       concat_kernel<<<grid, kThreads, 0, s>>>(f0, o, reps);
       break;
     case kMatmul64:
-      return static_cast<int>(launch_matmul<64>(f0, f1, o, reps, grid, s));
+      return static_cast<int>(launch_matmul64(f0, f1, o, reps, grid, s));
     case kMatmul8:
-      return static_cast<int>(launch_matmul<8>(f0, f1, o, reps, grid, s));
+      return static_cast<int>(launch_matmul8(f0, f1, o, reps, grid, s));
     case kDynRoll:
       dyn_roll_kernel<<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
       break;

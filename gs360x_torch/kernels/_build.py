@@ -19,11 +19,12 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -37,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+library_path: Optional[pathlib.Path] = None   # the library loaded
 build_seconds: float = 0.0   # wall time of the last build (0 when reused)
 build_log: str = ""          # the compilers' output of the last build
 
@@ -45,16 +47,16 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def _nvcc() -> str:
+def _cuda_tool(name: str) -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand:
-            path = pathlib.Path(cand) / "bin" / "nvcc"
+            path = pathlib.Path(cand) / "bin" / name
             if path.is_file():
                 return str(path)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH): the CUDA kernels cannot be built")
+        raise RuntimeError(f"{name} not found (set CUDA_HOME or put {name} "
+                           "on PATH): the CUDA kernels cannot be built")
     return found
 
 
@@ -97,7 +99,8 @@ def _compile(lib_path: pathlib.Path) -> str:
         jobs = []
         for src in (s for s in _sources() if s.suffix == ".cu"):
             obj = work / f"{src.stem}.o"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-c", "-o", str(obj),
+                   str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -112,7 +115,7 @@ def _compile(lib_path: pathlib.Path) -> str:
         if failed:
             raise RuntimeError("\n".join(failed))
         tmp = work / lib_path.name
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+        cmd = [_cuda_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
                "-shared", "-o", str(tmp), *[str(o) for _c, o, _p in jobs]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -128,7 +131,7 @@ def _compile(lib_path: pathlib.Path) -> str:
 def load() -> ctypes.CDLL:
     """Return the kernel library, building it first if this checkout has
     no build of the current sources."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds, build_log, library_path
     with _lock:
         if _lib is not None:
             return _lib
@@ -140,7 +143,7 @@ def load() -> ctypes.CDLL:
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(lib_path))
         _declare(lib)
-        _lib = lib
+        _lib, library_path = lib, lib_path
         return lib
 
 
@@ -164,6 +167,26 @@ def ptxas_report() -> list:
             report.append((name, int(used.split()[1]), sum(nums[1:3]),
                            f"{used}; {frame}"))
     return report
+
+
+def sass_counts(opcodes: Tuple[str, ...] = ("HGMMA", "HMMA")
+                ) -> Dict[str, int]:
+    """How many instructions with one of ``opcodes`` each kernel of the
+    loaded library holds, by mangled name, read from ``cuobjdump -sass``
+    (kernels with none are left out)."""
+    load()
+    proc = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
+                           str(library_path)], capture_output=True,
+                          text=True, check=True)
+    wanted = re.compile(r"\b(?:%s)\." % "|".join(opcodes))
+    counts: Dict[str, int] = {}
+    name = ""
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+        elif name and wanted.search(line):
+            counts[name] = counts.get(name, 0) + 1
+    return counts
 
 
 def check(err: int, what: str) -> None:

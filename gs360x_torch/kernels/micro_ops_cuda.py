@@ -3,20 +3,22 @@
 
 ``gs360x_torch/csrc/micro_ops.cu`` holds one hand-written kernel per
 primitive (multiply, gathers along either axis of a tile, ``where``,
-concat, two f32 products, dynamic roll, a counted loop, a predicated
-read-modify-write, a dynamic row slice and the bicubic chunk-body
-composite). Each applies its primitive ``reps`` times, every application
-depending on the last, in each of ``grid`` blocks that all do the same work
-on the same block of data, so that ``time / (grid · reps)`` prices one
-application.
+concat, two f32 products on the tensor cores in three TF32 passes,
+dynamic roll, a counted loop, a predicated read-modify-write, a dynamic
+row slice and the bicubic chunk-body composite). Each applies its
+primitive ``reps`` times, every application depending on the last, in each
+of ``grid`` blocks that all do the same work on the same block of data, so
+that ``time / (grid · reps)`` prices one application.
 
 :data:`OPS` lists the primitives under the labels ``micro_ops.py`` prints;
 :func:`make_inputs` builds that script's seeded inputs (``default_rng(0)``,
 drawn in its order); :func:`micro_op` runs one primitive. A CUDA tensor
 launches the kernel (or raises); a CPU tensor runs the plain torch version
 (``OPS[key].plain``), which is also what the tests and ``chip_smoke.py``
-hold the kernels against. ``LAUNCHES`` and ``PLAIN_CALLS`` count each, as
-in :mod:`gs360x_torch.kernels.warp_cuda`.
+hold the kernels against. ``OP_LAUNCHES`` counts the launches of each
+primitive; ``LAUNCHES`` (their sum) and ``PLAIN_CALLS`` count as in
+:mod:`gs360x_torch.kernels.warp_cuda`. :func:`bound_ms` is the least time
+the card could take for a launch.
 
 Indices are int32 and must lie inside the tile (the kernels mask them to
 it, the plain versions raise on an index outside it).
@@ -25,23 +27,32 @@ it, the plain versions raise on an index outside it).
 from __future__ import annotations
 
 import ctypes
+import math
+from collections.abc import Mapping
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from gs360x_torch.kernels import _build
 
-LAUNCHES: Dict[str, int] = {"micro_ops": 0}
 PLAIN_CALLS: Dict[str, int] = {"micro_ops": 0}
 
 GRID = 2048      # blocks of the benchmark grid
 OP_REPS = 64     # nominal applications per block
 
+# Published H100 SXM rates (dense): f32 outside the tensor cores, TF32 on
+# them, and shared memory: 128 B a clock an SM x 132 SMs x 1.98 GHz, the
+# clock the 67 TFLOP/s is quoted at.
+FP32_TFLOPS = 67.0
+TF32_TFLOPS = 495.0
+SMEM_TBS = 33.5
+TF32_PASSES = 3  # hi.lo + lo.hi + hi.hi: the products' f32 accuracy
+
 
 def reset_counters() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (PLAIN_CALLS, OP_LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -155,7 +166,15 @@ class MicroOp:
     ``shapes`` are their shapes (int32 where ``ints`` says so, else f32).
     The benchmark loops ``OP_REPS // loops_div`` times and reports
     ``per_loop`` applications a loop, on ``grid`` blocks (None: ``GRID``),
-    as ``micro_ops.py`` does."""
+    as ``micro_ops.py`` does.
+
+    What one loop of one block must do, for its bound: ``flops_per_loop``
+    f32 operations (a product's 2·M·N·K, which the kernel runs on the
+    tensor cores: that count gives the FMA bound only);
+    ``smem_bytes_per_loop``, 4 bytes an element gathered, rolled, sliced,
+    updated or replicated across threads, nothing for the kernel's own
+    layout; ``tc_flops_per_loop``, a product's tensor-core operations,
+    ``TF32_PASSES`` · 2·M·N·K."""
 
     key: str
     label: str
@@ -168,7 +187,9 @@ class MicroOp:
     loops_div: int = 1
     per_loop: int = 1
     grid: Optional[int] = None
-    flops_per_loop: int = 0    # f32 operations of one loop of one block
+    flops_per_loop: int = 0
+    smem_bytes_per_loop: int = 0
+    tc_flops_per_loop: int = 0
 
 
 _T8, _T64, _T128 = (8, 128), (64, 128), (128, 128)
@@ -181,42 +202,96 @@ OPS: Dict[str, MicroOp] = {op.key: op for op in (
             _plain_mul, flops_per_loop=8192),
     MicroOp("gather_lane8", "lane-gather axis1 (8,128)", 2, ("a8", "idx8"),
             (_T8, _T8), (False, True), _T8, _plain_gather_lane,
-            flops_per_loop=1024),
+            flops_per_loop=1024, smem_bytes_per_loop=4 * 1024),
     MicroOp("gather_lane64", "lane-gather axis1 (64,128)", 3,
             ("a64", "idx64"), (_T64, _T64), (False, True), _T64,
-            _plain_gather_lane, flops_per_loop=8192),
+            _plain_gather_lane, flops_per_loop=8192,
+            smem_bytes_per_loop=4 * 8192),
     MicroOp("gather_sub8", "sublane-gather axis0 (8,128)<-8", 4,
             ("a8", "ridx8"), (_T8, _T8), (False, True), _T8,
-            _plain_gather_sub, flops_per_loop=1024),
+            _plain_gather_sub, flops_per_loop=1024,
+            smem_bytes_per_loop=4 * 1024),
     MicroOp("where", "where (8,128)", 5, ("a8", "ridx8"), (_T8, _T8),
             (False, True), _T8, _plain_where, flops_per_loop=1024),
     MicroOp("concat", "concat 8x(8,128)->(64,128) [/8 reps]", 6, ("a8",),
             (_T8,), (False,), _T64, _plain_concat, loops_div=8, per_loop=8,
-            flops_per_loop=8192),
+            flops_per_loop=8192, smem_bytes_per_loop=4 * 8192),
     MicroOp("matmul64", "matmul (64,128)@(128,128) f32-default", 7,
             ("a64", "a128"), (_T64, _T128), (False, False), _T64,
-            _plain_matmul, flops_per_loop=2 * 64 * 128 * 128),
+            _plain_matmul, flops_per_loop=2 * 64 * 128 * 128,
+            tc_flops_per_loop=TF32_PASSES * 2 * 64 * 128 * 128),
     MicroOp("matmul8", "matmul (8,128)@(128,128) f32-default", 8,
             ("a8", "a128"), (_T8, _T128), (False, False), _T8,
-            _plain_matmul, flops_per_loop=2 * 8 * 128 * 128),
+            _plain_matmul, flops_per_loop=2 * 8 * 128 * 128,
+            tc_flops_per_loop=TF32_PASSES * 2 * 8 * 128 * 128),
     MicroOp("dyn_roll", "dynamic lane-roll (8,128)", 9, ("a8", "ridx8"),
             (_T8, _T8), (False, True), _T8, _plain_dyn_roll,
-            flops_per_loop=1024),
+            flops_per_loop=1024, smem_bytes_per_loop=4 * 1024),
     MicroOp("loop", "fori_loop iteration (trivial body)", 10, ("a8",),
             (_T8,), (False,), _T8, _plain_loop, flops_per_loop=1024),
     MicroOp("when_rmw", "pl.when + vmem rmw (8,128)", 11, ("a8",), (_T8,),
-            (False,), _T8, _plain_when_rmw, flops_per_loop=1024),
+            (False,), _T8, _plain_when_rmw, flops_per_loop=1024,
+            smem_bytes_per_loop=4 * 1024),
     MicroOp("dyn_slice", "dynamic-slice rows (8,128)<-(64,128)", 12,
             ("a64", "ridx8"), (_T64, _T8), (False, True), _T8,
-            _plain_dyn_slice, flops_per_loop=1024),
+            _plain_dyn_slice, flops_per_loop=1024,
+            smem_bytes_per_loop=4 * 1024),
     MicroOp("chunk", "chunk_body composite (3ch)", 13,
             ("win", "relb", "wfb", "ry", "wv"),
             ((3, 8, 128), _TAPS, _TAPS, _ROWS, _ROWS),
             (False, True, False, True, False), _T8, _plain_chunk,
             loops_div=16, grid=256,
-            # per channel: 4 mul + 3 add on (64,128), 4 mul + 4 add on (8,128)
-            flops_per_loop=3 * (7 * 8192 + 8 * 1024)),
+            # per channel: 4 mul + 3 add on (64,128), 4 mul + 4 add on
+            # (8,128); gathered: 4 taps of (64,128) along axis 1 from the
+            # replicated window, 4 of the kept row (8,128) along axis 0
+            flops_per_loop=3 * (7 * 8192 + 8 * 1024),
+            smem_bytes_per_loop=3 * 4 * (4 * 8192 + 4 * 1024)),
 )}
+
+
+OP_LAUNCHES: Dict[str, int] = {key: 0 for key in OPS}
+
+
+class _LaunchTotal(Mapping):
+    """``{"micro_ops": the sum of OP_LAUNCHES}``, read-only."""
+
+    def __getitem__(self, key: str) -> int:
+        if key != "micro_ops":
+            raise KeyError(key)
+        return sum(OP_LAUNCHES.values())
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(("micro_ops",))
+
+    def __len__(self) -> int:
+        return 1
+
+
+LAUNCHES = _LaunchTotal()
+
+
+def bound_ms(op: MicroOp, loops: int, grid: Optional[int] = None
+             ) -> Tuple[float, str, Dict[str, float]]:
+    """The least time in ms the card could take for one launch of ``op`` at
+    ``loops`` loops on ``grid`` blocks (None: the op's own grid), what
+    bounds it, and each resource's time: ``"f32"`` (``FP32_TFLOPS``),
+    ``"shared memory"`` (``SMEM_TBS``), ``"tensor cores"``
+    (``TF32_TFLOPS``) and ``"device memory"`` (inputs read once and the
+    block written once at 3.35 TB/s). A product's operations run on the
+    tensor cores, so its ``"f32"`` time, its bound on the FMA units, does
+    not enter its bound."""
+    n = (grid or op.grid or GRID) * loops
+    elements = sum(math.prod(shape) for shape in op.shapes) \
+        + math.prod(op.out_shape)
+    times = {
+        "f32": n * op.flops_per_loop / (FP32_TFLOPS * 1e9),
+        "shared memory": n * op.smem_bytes_per_loop / (SMEM_TBS * 1e9),
+        "tensor cores": n * op.tc_flops_per_loop / (TF32_TFLOPS * 1e9),
+        "device memory": 4 * elements / (3.35 * 1e9),
+    }
+    used = [k for k in times if not (k == "f32" and op.tc_flops_per_loop)]
+    by = max(used, key=times.get)
+    return times[by], by, times
 
 
 def make_inputs(device: Optional[torch.device] = None
@@ -284,7 +359,7 @@ def micro_op(key: str, tensors: Sequence[torch.Tensor], reps: int,
             int(grid), 0,
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     _build.check(err, f"micro_op {key}")
-    LAUNCHES["micro_ops"] += 1
+    OP_LAUNCHES[key] += 1
     return out
 
 
@@ -293,9 +368,10 @@ def micro_op(key: str, tensors: Sequence[torch.Tensor], reps: int,
 # accumulations add in one order: bitwise. mul, the counted loop, the
 # predicated update and the composite: 1e-6 relative (a plain version may
 # contract a multiply-add). The products: 1e-5 relative a step against the
-# f32 product, whose sum runs in another order; they are compared at no
-# more than ``MATMUL_CHECK_LOOPS`` steps, since 64 steps of uniform [0, 1)
-# rows overflow f32.
+# f32 product (three TF32 passes keep ~21 bits of each operand and sum in
+# another order); they are compared at no more than ``MATMUL_CHECK_LOOPS``
+# steps, since 64 steps of uniform [0, 1) rows overflow f32.
+PRODUCTS = ("matmul64", "matmul8")
 BITWISE = frozenset({"gather_lane8", "gather_lane64", "gather_sub8", "where",
                      "concat", "dyn_roll", "dyn_slice"})
 MATMUL_CHECK_LOOPS = 8
@@ -307,7 +383,7 @@ def rel_tolerance(key: str, loops: int) -> float:
     applications; 0.0 means bitwise."""
     if key in BITWISE:
         return 0.0
-    if key in ("matmul64", "matmul8"):
+    if key in PRODUCTS:
         return 1e-5 * max(1, loops)
     return 1e-6
 

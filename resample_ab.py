@@ -33,6 +33,14 @@ bitwise the same across trees. ptxas's register counts and spills of the
 warp and remap kernels are printed for trees that have
 ``_build.ptxas_report``. Results go to standard output, and with
 ``--out FILE`` every run's numbers to that file as JSON.
+
+With ``--micro-ops`` it times the two ``micro_ops`` products instead
+(``matmul64``: (64,128)@(128,128), ``matmul8``: (8,128)@(128,128), each
+``x <- x @ b`` 64 times in each of 2048 blocks), in the same turns: the
+kernel's ms a launch, its error against the plain f32 product at 1 and 8
+steps relative to max|plain| (a tree fails above the gate, 1e-5 a step),
+and one cuBLAS f32 product of the 2048 blocks stacked, times 64, with TF32
+off.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import subprocess
 import sys
 import tempfile
 
+PRODUCTS = ("matmul64", "matmul8")
 SHAPES = ("yaw ring 8x1920x1080", "default 8x1600²", "full360coverage 12x1600²",
           "fisheyeXY 2x3600²", "pole 1x1600²", "equisolid 1x2048²",
           "SFM10 10x1750²", "undistort 3840²",
@@ -193,18 +202,81 @@ def measure() -> dict:
                       "spilling": [f"{r[0]}: {r[3]}" for r in report if r[2]]}}
 
 
+def measure_products() -> dict:
+    """Runs inside one tree: the two products' times, errors and cuBLAS
+    times, and the card."""
+    sys.path[0] = os.getcwd()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("resample_ab: torch.cuda.is_available() is False")
+    from gs360x_torch.kernels import _build
+    from gs360x_torch.kernels import micro_ops_cuda as mo
+    from gs360x_torch.runtime.profiling import cuda_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.load()
+    inputs = mo.make_inputs(dev)
+    out = {}
+    for key in PRODUCTS:
+        op = mo.OPS[key]
+        x, b = (inputs[name] for name in op.inputs)
+        errs = []
+        for steps in (1, 8):
+            got = mo.micro_op(key, [x, b], steps, mo.GRID)
+            ref = op.plain(x, b, steps)
+            errs.append(float((got - ref).abs().max() / ref.abs().max()))
+            if errs[-1] > 1e-5 * steps:
+                raise SystemExit(f"{key}: rel {errs[-1]:.3e} at {steps} "
+                                 "steps, gate 1e-5 a step")
+        blocks = x.expand(mo.GRID, *x.shape).contiguous()
+        out[key] = {
+            "ms": cuda_ms(lambda: mo.micro_op(key, [x, b], mo.OP_REPS,
+                                              mo.GRID)),
+            "cublas_ms": cuda_ms(lambda: torch.matmul(blocks, b))
+            * mo.OP_REPS,
+            "rel_err_1_8": errs}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    ptxas = [f"{r[0]}: {r[3]}" for r in _build.ptxas_report()
+             if "matmul" in r[0]]
+    return {"card": smi, "build_s": _build.build_seconds, "products": out,
+            "ptxas": ptxas}
+
+
+def _report_products(trees, runs) -> None:
+    for name, _d in trees:
+        print(f"== {name}: {runs[name][0]['card']}")
+        for line in runs[name][0]["ptxas"]:
+            print(f"   [ptxas] {line}")
+        for key in PRODUCTS:
+            cells = [r["products"][key] for r in runs[name]]
+            print(f"   {key}: kernel "
+                  + "/".join(f"{c['ms']:.4f}" for c in cells)
+                  + " ms | cuBLAS f32 "
+                  + "/".join(f"{c['cublas_ms']:.4f}" for c in cells)
+                  + " ms | rel err at 1 and 8 steps "
+                  + "/".join(f"{c['rel_err_1_8'][0]:.2e},"
+                             f"{c['rel_err_1_8'][1]:.2e}" for c in cells))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[],
                     metavar="NAME=DIR", help="another checkout to measure")
     ap.add_argument("--out", metavar="FILE",
                     help="also write every run's numbers there as JSON")
+    ap.add_argument("--micro-ops", action="store_true",
+                    help="time the two micro_ops products instead")
     ap.add_argument("--one", action="store_true",
                     help="measure the tree in the current directory and "
                          "print one JSON line (what each subprocess runs)")
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(measure()), flush=True)
+        measure_one = measure_products if args.micro_ops else measure
+        print(json.dumps(measure_one()), flush=True)
         return 0
 
     here = pathlib.Path(__file__).resolve()
@@ -212,8 +284,9 @@ def main() -> int:
         + [("change", str(here.parent))]
     order = trees + trees[::-1] if len(trees) > 1 else trees
     runs = {name: [] for name, _d in trees}
+    flags = ["--one"] + (["--micro-ops"] if args.micro_ops else [])
     for name, directory in order:
-        proc = subprocess.run([sys.executable, str(here), "--one"],
+        proc = subprocess.run([sys.executable, str(here), *flags],
                               cwd=directory, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n")
@@ -221,6 +294,12 @@ def main() -> int:
         runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(f"[{name}] measured ({runs[name][-1]['card']}, build "
               f"{runs[name][-1]['build_s']:.1f}s)", flush=True)
+    if args.micro_ops:
+        _report_products(trees, runs)
+        if args.out:
+            pathlib.Path(args.out).write_text(json.dumps(runs, indent=1))
+        print(json.dumps(runs))
+        return 0
 
     keys = ("source", "f32", "quantize", "u8", "path")
     table = {}

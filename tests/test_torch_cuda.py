@@ -12,10 +12,12 @@ new paths on the card against the same code on the CPU (rtol 1e-4): the
 fisheye→perspective maps through ``remap.cu``, the planar ``.cube`` apply,
 the FrameSelector gray (bitwise) and ``score_frame`` for every metric, and
 both optical flows; the 14 ``micro_ops`` kernels against their plain
-versions (movers bitwise, arithmetic at 1e-6, the products at 1e-5 a step
-and at most 8 steps); and MaskSeg's device steps against the CPU: the
-U-Net's logits with TF32 off (1e-3), the morphology bitwise, the blur
-(1e-6), the inpaint (1e-5) and ``combined_mask``; the training step by
+versions (movers bitwise, arithmetic at 1e-6, the products, three TF32
+passes on the tensor cores, at 1e-5 a step and at most 8 steps), the
+grid-invariant and repeated blocks of the products; and MaskSeg's device
+steps against the CPU: the U-Net's logits with TF32 off (1e-3), the
+morphology bitwise, the blur (1e-6), the inpaint (1e-5) and
+``combined_mask``; the training step by
 both conv routes against the CPU, and the voxel count and picks on a
 200,000-point cloud against the CPU and over two card runs. Marked
 ``cuda``: each test skips without a card. On a machine
@@ -482,6 +484,7 @@ def test_micro_op_kernel_matches_plain(dev, key, loops):
     got = mo.micro_op(key, tensors, loops, grid=7)
     torch.cuda.synchronize()
     assert mo.LAUNCHES["micro_ops"] == 1 and mo.PLAIN_CALLS["micro_ops"] == 0
+    assert mo.OP_LAUNCHES[key] == 1
     ref = op.plain(*tensors, loops)
     assert got.shape == ref.shape == op.out_shape and got.dtype == ref.dtype
     assert bool(torch.isfinite(got).all())
@@ -492,14 +495,21 @@ def test_micro_op_kernel_matches_plain(dev, key, loops):
         assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
 
 
-def test_micro_op_grid_and_zero_reps(dev):
+@pytest.mark.parametrize("key", ["chunk", "matmul64", "matmul8"])
+def test_micro_op_grid_and_zero_reps(dev, key):
     """Every block stores the same block: the grid does not enter the
-    result; zero applications return the primitive's start value."""
+    result, and a second launch repeats it bit for bit; zero applications
+    return the primitive's start value (``x`` for the products)."""
+    op = mo.OPS[key]
     inputs = mo.make_inputs(dev)
-    tensors = [inputs[n] for n in mo.OPS["chunk"].inputs]
-    one = mo.micro_op("chunk", tensors, 2, grid=1)
-    many = mo.micro_op("chunk", tensors, 2, grid=300)
+    tensors = [inputs[n] for n in op.inputs]
+    one = mo.micro_op(key, tensors, 2, grid=1)
+    many = mo.micro_op(key, tensors, 2, grid=300)
+    again = mo.micro_op(key, tensors, 2, grid=300)
     assert torch.equal(one, many)
+    assert torch.equal(many, again)
+    assert torch.equal(mo.micro_op(key, tensors, 0, grid=300),
+                       op.plain(*tensors, 0))
     assert torch.equal(mo.micro_op("mul8", [inputs["a8"]], 0), inputs["a8"])
     assert torch.equal(mo.micro_op("gather_sub8",
                                    [inputs["a8"], inputs["ridx8"]], 0),

@@ -15,6 +15,16 @@ composite and the predicated update at 1e-6 relative (XLA may fuse a
 multiply-add, and folds the update's eight ``+= 1`` into one add); the
 products at 1e-5 relative a step against the f32 product (the CPU
 interpreter computes them in f32).
+
+The kernels compute the products on the tensor cores in three TF32 passes
+(``csrc/micro_ops.cu``). A plain emulation of that arithmetic, kept here
+(TF32 rounding to nearest with ties away from zero, as ``cvt.rna.tf32.f32``,
+then ``x_lo @ b_hi + x_hi @ b_lo + x_hi @ b_hi`` with f32 sums), is held to
+the Pallas bodies at the same gate, and one TF32 pass is shown to miss it.
+The register fragments the kernels hand from one step to the next are
+emulated too: with the permuted K of the stored ``b^T`` (64 rows) and the
+transposed product over four chains a block (8 rows) they give the plain
+product.
 """
 
 import pathlib
@@ -94,6 +104,7 @@ def test_plain_version_matches_pallas_body(recorded, key):
     mo.reset_counters()
     got = mo.micro_op(key, tensors, loops, grid=4).numpy()
     assert mo.PLAIN_CALLS["micro_ops"] == 1 and mo.LAUNCHES["micro_ops"] == 0
+    assert not any(mo.OP_LAUNCHES.values())
     assert got.shape == ref.shape == op.out_shape
     assert np.isfinite(ref).all() and np.isfinite(got).all()
     if key in BITWISE:
@@ -101,6 +112,213 @@ def test_plain_version_matches_pallas_body(recorded, key):
     else:
         np.testing.assert_allclose(got, ref, rtol=RTOL[key],
                                    atol=RTOL[key] * float(np.abs(ref).max()))
+
+
+def tf32_rna(v):
+    """f32 -> TF32 as ``cvt.rna.tf32.f32``: the low 13 bits rounded off to
+    nearest, ties away from zero (sign and magnitude: the carry rounds the
+    magnitude up)."""
+    bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32_product(x, b, passes):
+    """x @ b as the kernels compute it: one pass ``x_hi @ b_hi``, or three,
+    ``x_lo @ b_hi + x_hi @ b_lo + x_hi @ b_hi`` accumulated in f32 in that
+    order. TF32 products are exact in f32; only the sums round."""
+    xh, bh = tf32_rna(x), tf32_rna(b)
+    if passes == 1:
+        return xh @ bh
+    xl, bl = tf32_rna(x - xh), tf32_rna(b - bh)
+    return (xl @ bh + xh @ bl) + xh @ bh
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)                # a TF32 ulp at 1
+    half = np.float32(2.0 ** -11)
+    got = tf32_rna(np.array([one + half, -(one + half), one + half * 0.5,
+                             one + ulp + half], np.float32))
+    np.testing.assert_array_equal(
+        got, np.array([one + ulp, -(one + ulp), one, one + 2 * ulp],
+                      np.float32))
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("key", ["matmul64", "matmul8"])
+def test_tf32_passes_against_pallas_body(recorded, key, passes):
+    """Three TF32 passes hold the products' gate (1e-5 of max|f32| a step)
+    against the Pallas body at every step up to REPS; one pass misses it,
+    which is why the kernels take three."""
+    op = mo.OPS[key]
+    body, out_shape, arrays = recorded[op.label]
+    x, b = (np.array(arr, np.float32) for arr in arrays)
+    worst = 0.0
+    for step in range(1, REPS + 1):
+        x = tf32_product(x, b, passes)
+        ref = run_pallas(body, out_shape, arrays) if step == REPS else \
+            np.asarray(arrays[0], np.float64) @ np.linalg.matrix_power(
+                np.asarray(b, np.float64), step)
+        rel = float(np.abs(x - ref).max()) / float(np.abs(ref).max())
+        worst = max(worst, rel / (1e-5 * step))
+    if passes == 3:
+        assert worst <= 1.0
+    else:
+        assert worst > 1.0
+
+
+STORED_K = [(q >> 1) + 4 * (q & 1) for q in range(8)]   # micro_ops.cu
+
+
+def _fragments(rows):
+    """(warp, lane) -> the thread's rows and column pairs, as the kernels
+    name them: g = lane // 4, t = lane % 4, rows 16w + g and 16w + g + 8."""
+    for warp in range(rows // 16):
+        for lane in range(32):
+            yield warp * 16 + lane // 4, lane % 4
+
+
+def _bt_fragments(b):
+    """The A operand of the 8-row product, b^T, as its threads load it:
+    thread (m, t) holds b[8j + t][m], b[8j + t][m + 8], b[8j + t + 4][m],
+    b[8j + t + 4][m + 8] in registers a0..a3 of k-step j, which wgmma reads
+    as A rows m, m + 8 at k positions t, t + 4."""
+    frags = []
+    for j in range(16):
+        a_j = np.zeros((128, 8))
+        for half in range(2):
+            for m, t in _fragments(64):
+                m += 64 * half
+                a_j[m, t] = b[8 * j + t, m]
+                a_j[m + 8, t] = b[8 * j + t, m + 8]
+                a_j[m, t + 4] = b[8 * j + t + 4, m]
+                a_j[m + 8, t + 4] = b[8 * j + t + 4, m + 8]
+        frags.append(a_j)
+    return frags
+
+
+CHAINS8 = 4   # chains of a block of the 8-row product (micro_ops.cu)
+
+
+@pytest.mark.parametrize("key", ["matmul64", "matmul8"])
+def test_fragment_layout_gives_the_plain_product(key):
+    """The kernels' register fragments, emulated in f64 on make_inputs'
+    arrays. 64 rows: the accumulator fragment of a step, read as the next
+    step's A fragment against b^T stored with K permuted inside each group
+    of 8, is x @ b. 8 rows: four chains through the kernel's indexing for
+    two steps, with a stand-in split (hi = v, lo = eps * v, exact in f64):
+    b^T's A fragments against the 64-row B operand (each chain's x_hi, then
+    each chain's x_lo) and the 32 x_hi rows, read back from the
+    accumulator chunks, summed as (hi.lo + lo.hi) + hi.hi, written back as
+    the next B operand and stored as each chain's result, give
+    x_c @ b @ b (1 + 2 eps)^2 for every chain c."""
+    inputs = mo.make_inputs()
+    b = inputs["a128"].double().numpy()
+    if key == "matmul64":
+        x = inputs["a64"].double().numpy()
+        y = np.zeros((64, 128))
+        for j in range(16):
+            a_j = np.zeros((64, 8))             # A of k-step j: (row, pos)
+            for r0, t in _fragments(64):
+                d = [x[r0 + 8 * (h >> 1), 8 * j + 2 * t + (h & 1)]
+                     for h in range(4)]
+                # registers a0..a3: (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+                a_j[r0, t], a_j[r0 + 8, t] = d[0], d[2]
+                a_j[r0, t + 4], a_j[r0 + 8, t + 4] = d[1], d[3]
+            b_j = np.zeros((8, 128))            # stored b^T, transposed back
+            for q in range(8):
+                b_j[STORED_K[q]] = b[8 * j + q]
+            y += a_j @ b_j
+        np.testing.assert_allclose(y, x @ b, rtol=1e-12)
+        return
+    eps = 2.0 ** -12
+    x = inputs["a8"].double().numpy()
+    xs = [np.roll(x, c, axis=1) * (1 + c) for c in range(CHAINS8)]
+    operand = np.zeros((16 * CHAINS8, 128))      # rows n, K = 128
+    for c, xc in enumerate(xs):
+        operand[8 * c:8 * c + 8] = xc
+        operand[8 * (CHAINS8 + c):8 * (CHAINS8 + c) + 8] = eps * xc
+    a_hi, a_lo = _bt_fragments(b), _bt_fragments(eps * b)
+    out = [np.zeros((8, 128)) for _ in xs]
+    for _step in range(2):
+        hh = sum(a_hi[j] @ operand[:, 8 * j:8 * j + 8].T for j in range(16))
+        lh = sum(a_lo[j] @ operand[:8 * CHAINS8, 8 * j:8 * j + 8].T
+                 for j in range(16))
+        nxt = np.zeros_like(operand)
+        for half in range(2):
+            for m, t in _fragments(64):
+                m += 64 * half
+                for i in range(4 * CHAINS8):
+                    # register 4 * chunk + h: row m + 8 (h >> 1), column
+                    # 8 * chunk + 2t + (h & 1) of the accumulator
+                    row = m + 8 * ((i >> 1) & 1)
+                    col = 8 * (i >> 2) + 2 * t + (i & 1)
+                    d = (hh[row, 8 * CHAINS8 + col] + lh[row, col]) \
+                        + hh[row, col]
+                    nxt[col, row] = d
+                    nxt[8 * CHAINS8 + col, row] = eps * d
+                    out[i >> 2][2 * t + (i & 1), row] = d
+        operand = nxt
+    for xc, yc in zip(xs, out):
+        np.testing.assert_allclose(yc, xc @ b @ b * (1 + 2 * eps) ** 2,
+                                   rtol=1e-12)
+
+
+@pytest.mark.parametrize("key", list(mo.OPS))
+def test_every_primitive_has_a_bound(key):
+    """Each primitive's least time at grid 2048, reps 64, by the quotient
+    that bounds it: the products by three TF32 passes on the tensor cores
+    (their f32 time, the FMA bound, does not enter), movers by shared
+    memory, the rest by f32 issue."""
+    op = mo.OPS[key]
+    loops = mo.bench_loops(op)
+    ms, by, times = mo.bound_ms(op, loops)
+    assert ms > 0.0 and ms == times[by]
+    applications = (op.grid or mo.GRID) * loops
+    assert times["f32"] == pytest.approx(applications * op.flops_per_loop
+                                         / 67e9)
+    if key in mo.PRODUCTS:
+        assert by == "tensor cores"
+        assert ms == pytest.approx(applications * 3 * op.flops_per_loop
+                                   / 495e9)
+        assert times["f32"] > ms
+    elif op.smem_bytes_per_loop:
+        assert by == "shared memory"
+        assert ms == pytest.approx(applications * op.smem_bytes_per_loop
+                                   / 33.5e9)
+    else:
+        assert by == "f32"
+    assert ms == max(t for k, t in times.items()
+                     if not (k == "f32" and key in mo.PRODUCTS))
+
+
+def test_product_bounds_at_the_benchmark_size():
+    """grid 2048, reps 64: matmul64 1.67 ms on the tensor cores (4.10 on
+    the FMA units), matmul8 0.208 (0.513)."""
+    got = {}
+    for key in mo.PRODUCTS:
+        ms, _by, times = mo.bound_ms(mo.OPS[key], mo.OP_REPS)
+        got[key] = (ms, times["f32"])
+    assert got["matmul64"] == pytest.approx((1.666, 4.103), rel=1e-3)
+    assert got["matmul8"] == pytest.approx((0.2082, 0.5128), rel=1e-3)
+
+
+def test_launch_total_is_the_sum_of_each_primitive():
+    """``LAUNCHES["micro_ops"]`` is the sum of ``OP_LAUNCHES``, read-only,
+    and merges into a plain dict as the other wrappers' counts do."""
+    mo.reset_counters()
+    assert dict(mo.LAUNCHES) == {"micro_ops": 0}
+    mo.OP_LAUNCHES["matmul8"] += 2
+    mo.OP_LAUNCHES["chunk"] += 1
+    try:
+        assert {**mo.LAUNCHES} == {"micro_ops": 3}
+        assert mo.LAUNCHES == {"micro_ops": 3}
+        with pytest.raises(TypeError):
+            mo.LAUNCHES["micro_ops"] = 0
+    finally:
+        mo.reset_counters()
+    assert mo.LAUNCHES["micro_ops"] == 0
 
 
 def test_every_body_has_a_counterpart(recorded):
