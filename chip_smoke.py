@@ -58,10 +58,14 @@ it went through the kernels only and that its pixels are right:
   exported, the cameras agreeing across them. None of the three launches
   a hand-written kernel;
 * ``python -m gs360x_torch.tools.micro_ops``: the 14 primitive kernels of
-  ``micro_ops.cu``, each first held to its plain version on the card and
-  timed beside its bound; the two products (three TF32 passes on the
-  tensor cores, their HGMMA instructions counted in the built library)
-  also beside one cuBLAS f32 call a step.
+  ``micro_ops.cu``, each first held to its plain version on the card, then
+  timed on the device without the wrapper's host time (events around a
+  CUDA graph's replay of 10 launches) beside its event time, its bound and, where one torch
+  call computes an application, that call over the grid's blocks; the two
+  products (three TF32 passes on the tensor cores, their HGMMA
+  instructions counted in the built library) beside one cuBLAS f32 call a
+  step; the composite and the (64,128) gather beside the floor of their
+  shared-memory wavefronts.
 
 Phases print one line each; any failure raises and the exit code is not
 0. Without CUDA, or without the rest of the checkout (it then says what it
@@ -114,7 +118,8 @@ try:
     from gs360x_torch.models import segmentation as seg
     from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
     from gs360x_torch.runtime.executor import _view_groups
-    from gs360x_torch.runtime.profiling import StageTimers, cuda_ms
+    from gs360x_torch.runtime.profiling import (StageTimers, cuda_ms,
+                                                device_ms)
     from gs360x_torch.tools import (dualfisheye, frameselector, maskseg,
                                     ms360xml, perspcut, plyopt, segtrain,
                                     video2frames)
@@ -2019,16 +2024,76 @@ def _product_kernels() -> dict:
     return found
 
 
+# the primitives with rows of their own in the kernels line, and the Pallas
+# body each replaces (root micro_ops.py); they are also held bitwise across
+# grids 1 / GRID and two launches
+MICRO_ROWS = {"matmul64": 119, "matmul8": 132, "gather_lane64": 77,
+              "chunk": 196}
+
+
+def _micro_library(key: str, tensors: list, grid: int):
+    """(one PyTorch call that computes one application of ``key`` over the
+    ``grid`` blocks stacked, what of the primitive it leaves out), or
+    (None, why there is none). Inputs are stacked before the call."""
+    if key == "chunk":
+        return None, "none: no one call gathers, weighs and sums the taps"
+
+    def stack(t):
+        return t.expand(grid, *t.shape).contiguous()
+
+    x = stack(tensors[0])
+    if key in mo.PRODUCTS:
+        b = tensors[1]
+        return (lambda: torch.matmul(x, b)), "cuBLAS f32, TF32 off"
+    if key in ("mul8", "mul64"):
+        return (lambda: torch.mul(x, 1.0001)), "torch.mul"
+    if key in ("gather_lane8", "gather_lane64", "gather_sub8"):
+        axis = 2 if key != "gather_sub8" else 1
+        idx = stack(tensors[1].long())
+        left = "+ 0.5" if axis == 2 else "the accumulating add"
+        return (lambda: torch.gather(x, axis, idx)), \
+            f"torch.gather along axis {axis - 1}, {left} left out"
+    if key == "where":
+        mask, scaled = stack(tensors[1] == 0), x * 1.0001
+        return (lambda: torch.where(mask, x, scaled)), \
+            "torch.where, the compare and the multiply left out"
+    if key == "concat":
+        return (lambda: torch.cat([x] * 8, 1)), \
+            "torch.cat, the accumulating add left out"
+    if key == "dyn_roll":
+        shift = int(tensors[1][0, 0])
+        return (lambda: torch.roll(x, shift, 2)), \
+            "torch.roll, the accumulating add left out"
+    if key == "loop":
+        return (lambda: torch.add(x, 1.0)), "torch.add"
+    if key == "when_rmw":
+        return (lambda: torch.add(x, 1.0, out=x)), "torch.add in place"
+    if key == "dyn_slice":
+        start = (int(tensors[1][0, 0]) % 8) * 8
+        acc = torch.zeros_like(x[:, :8])
+        return (lambda: torch.add(acc, x[:, start:start + 8])), \
+            "torch.add of a row slice (a view)"
+    raise KeyError(key)
+
+
 def phase_micro_ops(dev, smi: str) -> dict:
     """Each of the 14 micro_ops kernels against its plain version on the
     card (movers bitwise, arithmetic at 1e-6, the products at 1e-5 a step
-    at 1 and 8 steps, and bitwise across grids and launches), each timed
-    at grid 2048, reps 64 beside its bound and its plain version; the
-    products also beside one cuBLAS f32 product of the whole grid's blocks
-    a step (``library_ms``, TF32 off). Then the tool itself, whose lines
-    are printed and whose launches are the path's."""
+    at 1 and 8 steps; the composite at 1, 4 and 8 loops, the (64,128)
+    gather at 1, 8 and 64; the products, the composite and the (64,128)
+    gather bitwise across grids and launches), each timed at grid 2048
+    (composite 256), reps 64 beside its bound, its plain version and, where
+    one PyTorch call computes one application, that call over the whole
+    grid's blocks times the loops (``library_ms``; TF32 off). A kernel's
+    ``ms`` is its device time without the wrapper's host time
+    (``device_ms``, events around a CUDA graph of 10 launches), its
+    share of the bound is taken of that, and ``cuda_ms``'s event time of
+    the same launches stands beside it. The composite and the (64,128)
+    gather also beside their shared-memory wavefront floor. Then the tool
+    itself, whose lines are printed and whose launches are the path's."""
     mma = _product_kernels()
     inputs = mo.make_inputs(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stats = {}
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False   # the function is f32
@@ -2038,38 +2103,70 @@ def phase_micro_ops(dev, smi: str) -> dict:
             loops = mo.bench_loops(op)
             grid = op.grid or mo.GRID
             product = key in mo.PRODUCTS
-            checks = (1, mo.MATMUL_CHECK_LOOPS) if product else (loops,)
+            checks = mo.CHECK_LOOPS.get(key, (loops,))
             rel = max(_micro_check(key, op, tensors, n, grid)
                       for n in checks)
-            library_ms = None
-            if product:
-                n = mo.MATMUL_CHECK_LOOPS
+            if key in MICRO_ROWS:
+                n = max(checks)
                 one = mo.micro_op(key, tensors, n, 1)
                 runs = [mo.micro_op(key, tensors, n, grid) for _ in range(2)]
                 if not (torch.equal(one, runs[0])
                         and torch.equal(runs[0], runs[1])):
                     raise AssertionError(f"micro_ops {key}: the block "
                                          "differs across grids or launches")
-                x, b = tensors
-                blocks = x.expand(grid, *x.shape).contiguous()
-                library_ms = cuda_ms(lambda: torch.matmul(blocks, b)) * loops
-            ms = cuda_ms(lambda: mo.micro_op(key, tensors, loops, grid))
+            library, what = _micro_library(key, tensors, grid)
+            library_ms = None if library is None else \
+                device_ms(library)[0] * loops
+            launch = (lambda: mo.micro_op(key, tensors, loops, grid))
+            ms, kernels = device_ms(launch)
+            if kernels != 1:
+                raise AssertionError(f"micro_ops {key}: {kernels} kernels "
+                                     "a launch")
+            events_ms = cuda_ms(launch)
             plain_ms = cuda_ms(lambda: op.plain(*tensors, loops),
                                **PLAIN_TIMING)
             bound, by, times = mo.bound_ms(op, loops)
-            stats[key] = {"max_abs_err": rel, "ms": ms, "plain_ms": plain_ms,
+            stats[key] = {"max_abs_err": rel, "ms": ms,
+                          "events_ms": events_ms, "plain_ms": plain_ms,
                           "bound_ms": bound, "bound_by": by,
-                          "library_ms": library_ms}
-            extra = "" if not product else (
-                f" | FMA bound {times['f32']:.4f} ms | cuBLAS "
-                f"f32 {library_ms:.4f} ms ({loops} calls of "
-                f"({grid}x{op.out_shape[0]}, 128) @ (128, 128)) | {mma[key]} "
-                f"HGMMA | bitwise across grids 1/{grid} and launches")
+                          "library_ms": library_ms, "library": what}
+            extra = ""
+            if product:
+                extra = (f" | FMA bound {times['f32']:.4f} ms | "
+                         f"{mma[key]} HGMMA")
+            if key in MICRO_ROWS and not product:
+                # what holds the launch: its wavefronts' floor, the launch
+                # with no loop (loads and store) and the marginal loop
+                waves = mo.block_loop_wavefronts(key, inputs)
+                floor = mo.wavefront_floor_ms(key, inputs, loops, sms)
+                zero_ms = device_ms(
+                    lambda: mo.micro_op(key, tensors, 0, grid))[0]
+                deep_ms = device_ms(
+                    lambda: mo.micro_op(key, tensors, 4 * loops, grid))[0]
+                loop_ms = (deep_ms - ms) / (3 * loops)
+                stats[key].update(wavefront_floor_ms=floor,
+                                  zero_loop_ms=zero_ms, loop_ms=loop_ms)
+                extra = (f" | shared-memory wavefronts a block-loop "
+                         + " + ".join(f"{k} {n}" for k, n in waves.items()
+                                      if k != "bound")
+                         + f" (the bound counts {waves['bound']}): floor "
+                         f"{floor:.4f} ms on {sms} SMs at "
+                         f"{mo.SMEM_CLOCK_GHZ} GHz, {floor / ms:.1%} of the "
+                         f"device time | 0 loops {zero_ms:.4f} ms, a loop "
+                         f"{loop_ms:.6f} ms (from {loops} to {4 * loops}; "
+                         f"the floor's {floor / loops:.6f}, "
+                         f"{floor / loops / loop_ms:.1%} of it)")
+            if key in MICRO_ROWS:
+                extra += f" | bitwise across grids 1/{grid} and launches"
             gate = ("bitwise" if mo.rel_tolerance(key, loops) == 0.0
                     else f"rel {rel:.2e}")
-            log(f"[micro_ops] {smi} | {key}: {gate} | kernel {ms:.4f} ms, "
-                f"bound {bound:.5f} ms by {by} ({bound / ms:.1%}), plain "
-                f"{plain_ms:.4f} ms (one block){extra}")
+            lib = what if library_ms is None else \
+                f"{library_ms:.4f} ms ({what}, x{loops})"
+            log(f"[micro_ops] {smi} | {key}: {gate} at loops "
+                f"{'/'.join(map(str, checks))} | device {ms:.4f} ms "
+                f"(events {events_ms:.4f}), bound {bound:.5f} ms by {by} "
+                f"({bound / ms:.1%} of device), plain {plain_ms:.4f} ms "
+                f"(one block) | library {lib}{extra}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
 
@@ -2090,41 +2187,61 @@ def phase_micro_ops(dev, smi: str) -> dict:
         log(f"[micro_ops] {line}")
     for key in stats:
         stats[key]["launches"] = per_op[key]
+    gaps = sorted(((st["launches"] * (st["ms"] - st["bound_ms"]), key)
+                   for key, st in stats.items()), reverse=True)
+    log("[micro_ops] launches in the tool's run x (device ms - bound ms), "
+        "largest first: " + ", ".join(
+            f"{key} {stats[key]['launches']} x {stats[key]['ms']:.4f} - "
+            f"{stats[key]['bound_ms']:.4f} = {gap:.3f}" for gap, key in gaps))
     return stats
 
 
 def _micro_rows(micro: dict) -> list:
-    """The ``kernels`` rows of ``[micro_ops]``: one a product, then the 12
-    other primitives summed."""
+    """The ``kernels`` rows of ``[micro_ops]``: one for each of
+    ``MICRO_ROWS``, then the 10 other primitives summed. ``ms`` is the
+    device time (``events_ms`` the event time beside it)."""
+    keys = ("launches", "max_abs_err", "ms", "events_ms", "plain_ms",
+            "bound_ms", "library_ms")
     rows = []
-    for key, line in (("matmul64", 119), ("matmul8", 132)):
+    for key, line in MICRO_ROWS.items():
         st = micro[key]
+        product = key in mo.PRODUCTS
+        how = ("three TF32 passes on the tensor cores; error relative to "
+               "max|plain| at 8 steps" if product else
+               "bound by shared-memory bytes at 33.5 TB/s; error relative "
+               "to max|plain|")
+        grid = mo.OPS[key].grid or mo.GRID
         rows.append({
-            "name": f"micro_ops {key} ({mo.OPS[key].label}: three TF32 "
-                    "passes on the tensor cores, grid 2048, reps 64; error "
-                    "relative to max|plain| at 8 steps; library: cuBLAS f32)",
+            "name": f"micro_ops {key} ({mo.OPS[key].label}: {how}, grid "
+                    f"{grid}, reps 64; ms without the wrapper's host time; "
+                    f"library: {st['library']})",
             "route": "cuda", "source": "gs360x_torch/csrc/micro_ops.cu",
             "replaces": f"micro_ops.py:{line}",
-            **{k: st[k] for k in ("launches", "max_abs_err", "ms",
-                                  "plain_ms", "bound_ms", "library_ms")},
-            "bound_by": "operations"})
-    rest = [st for key, st in micro.items() if key not in mo.PRODUCTS]
-    by_smem = sum(st["bound_ms"] for st in rest
+            **{k: st[k] for k in keys},
+            "bound_by": "operations" if product else "bytes",
+            **({} if product else
+               {k: st[k] for k in ("zero_loop_ms", "loop_ms")})})
+    rest = {key: st for key, st in micro.items() if key not in MICRO_ROWS}
+    by_smem = sum(st["bound_ms"] for st in rest.values()
                   if st["bound_by"] == "shared memory")
-    bound = sum(st["bound_ms"] for st in rest)
+    bound = sum(st["bound_ms"] for st in rest.values())
     rows.append({
-        "name": "micro_ops (bench: the 12 other primitives, grid 2048, reps "
-                "64, summed; bounds by f32 issue or shared memory, so "
-                "bound_by 'bytes' means shared-memory bytes at 33.5 TB/s; "
-                "error relative to max|plain|)",
+        "name": f"micro_ops (bench: the {len(rest)} other primitives, grid "
+                "2048, reps 64, summed; ms without the wrapper's host "
+                "time; bounds by f32 issue or shared memory, so bound_by "
+                "'bytes' means shared-memory bytes at 33.5 TB/s; error "
+                "relative to max|plain|; library: one torch call an "
+                "application of each, summed)",
         "route": "cuda", "source": "gs360x_torch/csrc/micro_ops.cu",
         "replaces": "micro_ops.py:22",
-        "launches": sum(st["launches"] for st in rest),
-        "max_abs_err": max(st["max_abs_err"] for st in rest),
-        "ms": sum(st["ms"] for st in rest),
-        "plain_ms": sum(st["plain_ms"] for st in rest), "bound_ms": bound,
+        "launches": sum(st["launches"] for st in rest.values()),
+        "max_abs_err": max(st["max_abs_err"] for st in rest.values()),
+        "ms": sum(st["ms"] for st in rest.values()),
+        "events_ms": sum(st["events_ms"] for st in rest.values()),
+        "plain_ms": sum(st["plain_ms"] for st in rest.values()),
+        "bound_ms": bound,
         "bound_by": "bytes" if by_smem >= bound / 2 else "operations",
-        "library_ms": None})
+        "library_ms": sum(st["library_ms"] for st in rest.values())})
     return rows
 
 

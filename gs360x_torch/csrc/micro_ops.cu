@@ -17,7 +17,8 @@
 // horizontal + 4 vertical taps). The TPU bodies work on (8,128) vector
 // registers and VMEM blocks; none of that layout carries over. Here a tile
 // element lives in a register of the thread that owns it (element e =
-// thread + j * 256), and whatever crosses threads goes through shared
+// thread + j * 256; the (64,128) gather and the composite assign theirs as
+// their notes say), and whatever crosses threads goes through shared
 // memory: a gather along axis 1 or 0 is a shared-memory gather, the roll
 // and the row slice read shared memory at an offset taken from the index
 // block at run time, and the predicated update is a read-modify-write of
@@ -121,14 +122,26 @@ __global__ void mul_kernel(const float* __restrict__ a,
   for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = x[j];
 }
 
-// x[r, c] = x[r, idx[r, c]] + 0.5, `reps` times: the tile in shared
-// memory, gathered within its row, written back between two barriers.
-template <int ROWS>
-__global__ void gather_lane_kernel(const float* __restrict__ a,
-                                   const int* __restrict__ idx,
-                                   float* __restrict__ out, int reps) {
-  constexpr int kPer = ROWS * kLanes / kThreads;
-  __shared__ float xs[ROWS * kLanes];
+// Keeps the compiler from hoisting what is decoded from `v` out of a loop:
+// a packed index word is unpacked again in every application, not held
+// unpacked in registers across the loop.
+__device__ __forceinline__ void hold_u32(uint32_t& v) {
+  asm volatile("" : "+r"(v));
+}
+
+// Byte k of `w`, zero-extended (one PRMT).
+__device__ __forceinline__ uint32_t byte_of(uint32_t w, int k) {
+  return __byte_perm(w, 0u, 0x4440u + static_cast<uint32_t>(k));
+}
+
+// x[r, c] = x[r, idx[r, c]] + 0.5, `reps` times, over an (8,128) tile: the
+// tile in shared memory, gathered within its row, written back between two
+// barriers.
+__global__ void gather_lane8_kernel(const float* __restrict__ a,
+                                    const int* __restrict__ idx,
+                                    float* __restrict__ out, int reps) {
+  constexpr int kPer = kTile8 / kThreads;
+  __shared__ float xs[kTile8];
   int src[kPer];
   float v[kPer];
 #pragma unroll
@@ -150,6 +163,63 @@ __global__ void gather_lane_kernel(const float* __restrict__ a,
   for (int j = 0; j < kPer; ++j) {
     const int e = threadIdx.x + j * kThreads;
     out[e] = xs[e];
+  }
+}
+
+// x[r, c] = x[r, idx[r, c]] + 0.5, `reps` times, over a (64,128) tile.
+// A gather never leaves its row, so each warp owns whole rows: warp w rows
+// 8w .. 8w+7, lane l their columns l, l+32, l+64, l+96. Only a warp's own
+// lanes meet over a row, and a __syncwarp orders them. The tile lives in
+// two shared-memory buffers: an application reads one and writes the
+// other, so one __syncwarp a loop is the only barrier (the block-wide pair
+// of the (8,128) kernel is gone). 64 KB a block: three blocks an SM. A
+// loop's 32 reads of a thread are issued before its 32 stores: with each
+// store right after its read, the same kernel ran slower than the
+// block-synchronised one it replaces.
+//
+// What bounds it is shared memory's wavefronts. A warp-load of 32 lanes
+// gathers 32 run-time indices of one 128-word row; lanes whose words share
+// a bank take one wavefront each. For the seeded idx64 that is 710
+// wavefronts a block-loop against the 256 of a conflict-free read, plus the
+// 256 of the (conflict-free) store: 966 against the bound's 256
+// (micro_ops_cuda.smem_wavefronts). Nothing is scheduled from idx: its
+// indices stay unknown until run time, every loop.
+constexpr int kRowsPerWarp64 = 64 / (kThreads / 32);
+constexpr int kPerGather64 = kRowsPerWarp64 * kLanes / 32;
+constexpr int kGather64Smem = 2 * kTile64 * 4;
+
+__global__ void __launch_bounds__(kThreads, 3)
+    gather_lane64_kernel(const float* __restrict__ a,
+                         const int* __restrict__ idx,
+                         float* __restrict__ out, int reps) {
+  extern __shared__ __align__(16) float xs2[];   // [buffer][kTile64]
+  const int lane = threadIdx.x & 31;
+  const int base = (threadIdx.x >> 5) * kRowsPerWarp64 * kLanes + lane;
+  int src[kPerGather64];   // element i: row i / 4, column lane + 32 (i % 4)
+#pragma unroll
+  for (int i = 0; i < kPerGather64; ++i) {
+    const int e = base + (i >> 2) * kLanes + (i & 3) * 32;
+    xs2[e] = a[e];
+    src[i] = (e & ~(kLanes - 1)) + (idx[e] & (kLanes - 1));
+  }
+  __syncwarp();
+  for (int r = 0; r < reps; ++r) {
+    const float* from = xs2 + (r & 1) * kTile64;
+    float* to = xs2 + ((r & 1) ^ 1) * kTile64;
+    float v[kPerGather64];
+#pragma unroll
+    for (int i = 0; i < kPerGather64; ++i)
+      v[i] = __fadd_rn(from[src[i]], 0.5f);
+#pragma unroll
+    for (int i = 0; i < kPerGather64; ++i)
+      to[base + (i >> 2) * kLanes + (i & 3) * 32] = v[i];
+    __syncwarp();
+  }
+  const float* last = xs2 + (reps & 1) * kTile64;
+#pragma unroll
+  for (int i = 0; i < kPerGather64; ++i) {
+    const int e = base + (i >> 2) * kLanes + (i & 3) * 32;
+    out[e] = last[e];
   }
 }
 
@@ -643,61 +713,112 @@ __global__ void dyn_slice_kernel(const float* __restrict__ a,
 // along axis 0 within the group, of which row 0 is kept, times 4 weights
 // (the vertical taps); the 8 result rows are added to acc(8,128).
 // win (3,8,128); relb, wfb (4,64,128); ry, wv (4,8,8,128).
-__global__ void chunk_kernel(const float* __restrict__ win,
-                             const int* __restrict__ relb,
-                             const float* __restrict__ wfb,
-                             const int* __restrict__ ry,
-                             const float* __restrict__ wv,
-                             float* __restrict__ out, int reps) {
-  constexpr int kPerIh = kTile64 / kThreads;
-  constexpr int kPer = kTile8 / kThreads;
-  __shared__ float ws[3 * kTile8];
-  __shared__ float ih[kTile64];
-  for (int e = threadIdx.x; e < 3 * kTile8; e += kThreads) ws[e] = win[e];
-  float acc[kPer];
+//
+// The tap tables are the same in every loop and channel, and on the TPU
+// they sit in VMEM for the whole body. Here they are read from device
+// memory once a block and held in registers for the whole launch: thread
+// t owns ih elements e = t + 512 j (j < 16), with their four 7-bit relb
+// indices one a byte of one word and their four wfb weights; and acc
+// elements t and t + 512, with the four 3-bit ry rows that the kept row
+// reads (one a byte of one word) and their four wv weights: 90 registers
+// of tables a thread at 512 threads a block (256 threads would need 180;
+// 1024 would leave 19 of the 64 a thread may then have for the rest). The
+// whole ih is computed every channel-loop, the work the composite prices.
+// ih has two buffers, so one barrier a channel-loop orders its store
+// before the vertical reads: the next channel-loop writes the other
+// buffer. Window 12 KB + ih 2 x 32 KB: one block an SM.
+//
+// What bounds it then is shared memory's wavefronts: the horizontal
+// gathers read 32 run-time indices of one 128-word window row a warp-load,
+// 2,831 wavefronts a channel-loop for the seeded relb where a
+// conflict-free read would take 1,024; the vertical gathers (128) and the
+// ih store (256) are conflict-free. 3,215 against the bound's 1,152
+// (micro_ops_cuda.smem_wavefronts). Rounding as the plain version:
+// products rounded on their own, taps summed k = 0..3.
+constexpr int kChunkThreads = 512;
+constexpr int kChunkPerIh = kTile64 / kChunkThreads;
+constexpr int kChunkPer = kTile8 / kChunkThreads;
+constexpr int kChunkSmem = (3 * kTile8 + 2 * kTile64) * 4;
+
+__global__ void __launch_bounds__(kChunkThreads, 1)
+    chunk_kernel(const float* __restrict__ win, const int* __restrict__ relb,
+                 const float* __restrict__ wfb, const int* __restrict__ ry,
+                 const float* __restrict__ wv, float* __restrict__ out,
+                 int reps) {
+  extern __shared__ __align__(16) float chunk_smem[];
+  float* ws = chunk_smem;                // the window, (3, 8, 128)
+  float* ihs = chunk_smem + 3 * kTile8;  // ih, [buffer][kTile64]
+  const int t = threadIdx.x;
+  for (int e = t; e < 3 * kTile8; e += kChunkThreads) ws[e] = win[e];
+  uint32_t hidx[kChunkPerIh];       // byte k: relb[k][e] & 127
+  float hw[kChunkPerIh][4];         // wfb[k][e]
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < kChunkPerIh; ++j) {
+    const int e = t + j * kChunkThreads;
+    uint32_t packed = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      packed |= static_cast<uint32_t>(relb[k * kTile64 + e] & (kLanes - 1))
+                << (8 * k);
+      hw[j][k] = wfb[k * kTile64 + e];
+    }
+    hidx[j] = packed;
+  }
+  uint32_t vidx[kChunkPer];         // byte m: ry[m][group][0][col] & 7
+  float vw[kChunkPer][4];           // wv[m][group][0][col]
+  float acc[kChunkPer];
+#pragma unroll
+  for (int j = 0; j < kChunkPer; ++j) {
+    const int e = t + j * kChunkThreads;
+    uint32_t packed = 0;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int off = (m * 8 + e / kLanes) * kTile8 + e % kLanes;
+      packed |= static_cast<uint32_t>(ry[off] & 7) << (8 * m);
+      vw[j][m] = wv[off];
+    }
+    vidx[j] = packed;
+    acc[j] = 0.0f;
+  }
   __syncthreads();
+  int buf = 0;
   for (int r = 0; r < reps; ++r) {
     for (int ch = 0; ch < 3; ++ch) {
       const float* blk = ws + ch * kTile8;
-#pragma unroll 4
-      for (int j = 0; j < kPerIh; ++j) {
-        const int e = threadIdx.x + j * kThreads;
+      float* ih = ihs + buf * kTile64;
+#pragma unroll
+      for (int j = 0; j < kChunkPerIh; ++j) {
+        const int e = t + j * kChunkThreads;
         const float* row = blk + ((e / kLanes) & 7) * kLanes;
+        hold_u32(hidx[j]);
         float sum = 0.0f;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          const float term = __fmul_rn(
-              row[__ldg(relb + k * kTile64 + e) & (kLanes - 1)],
-              __ldg(wfb + k * kTile64 + e));
+          const float term = __fmul_rn(row[byte_of(hidx[j], k)], hw[j][k]);
           sum = (k == 0) ? term : __fadd_rn(sum, term);
         }
         ih[e] = sum;
       }
       __syncthreads();
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int e = threadIdx.x + j * kThreads;
-        const int group = e / kLanes;
-        const int col = e % kLanes;
+      for (int j = 0; j < kChunkPer; ++j) {
+        const int e = t + j * kChunkThreads;
+        const float* col = ih + (e / kLanes) * 8 * kLanes + e % kLanes;
+        hold_u32(vidx[j]);
         float add = 0.0f;
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
-          // ry, wv [m][group][row 0][col]
-          const int off = (m * 8 + group) * kTile8 + col;
-          const float term = __fmul_rn(
-              ih[(group * 8 + (__ldg(ry + off) & 7)) * kLanes + col],
-              __ldg(wv + off));
+          const float term =
+              __fmul_rn(col[byte_of(vidx[j], m) * kLanes], vw[j][m]);
           add = (m == 0) ? term : __fadd_rn(add, term);
         }
         acc[j] = __fadd_rn(acc[j], add);
       }
-      __syncthreads();
+      buf ^= 1;
     }
   }
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = acc[j];
+  for (int j = 0; j < kChunkPer; ++j) out[t + j * kChunkThreads] = acc[j];
 }
 
 cudaError_t launch_matmul64(const float* a, const float* b, float* out,
@@ -709,6 +830,28 @@ cudaError_t launch_matmul64(const float* a, const float* b, float* out,
   tc_matmul64_kernel<<<(grid + kChains64 - 1) / kChains64,
                        kChains64 * kWarpgroup, kProduct64Smem, stream>>>(
       a, b, out, reps, grid);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_gather_lane64(const float* a, const int* idx, float* out,
+                                 int reps, int grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gather_lane64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGather64Smem);
+  if (err != cudaSuccess) return err;
+  gather_lane64_kernel<<<grid, kThreads, kGather64Smem, stream>>>(a, idx, out,
+                                                                   reps);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_chunk(const float* win, const int* relb, const float* wfb,
+                         const int* ry, const float* wv, float* out, int reps,
+                         int grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kChunkSmem);
+  if (err != cudaSuccess) return err;
+  chunk_kernel<<<grid, kChunkThreads, kChunkSmem, stream>>>(
+      win, relb, wfb, ry, wv, out, reps);
   return cudaGetLastError();
 }
 
@@ -725,8 +868,9 @@ cudaError_t launch_matmul8(const float* a, const float* b, float* out,
 
 }  // namespace
 
-// One primitive, `grid` blocks of 256 threads (the products: `grid` chains,
-// kChains64 or kChains8 a block), `reps` applications each.
+// One primitive, `grid` blocks of 256 threads (the composite: 512; the
+// products: `grid` chains, kChains64 or kChains8 a block), `reps`
+// applications each.
 // op: 0 mul (8,128) | 1 mul (64,128) | 2 gather axis 1 (8,128) | 3 gather
 // axis 1 (64,128) | 4 gather axis 0 (8,128) | 5 where | 6 concat | 7
 // product (64,128)@(128,128) | 8 product (8,128)@(128,128) | 9 dynamic
@@ -760,11 +904,10 @@ extern "C" int gs360x_micro_op(int op, const void* in0, const void* in1,
       mul_kernel<64><<<grid, kThreads, 0, s>>>(f0, o, reps);
       break;
     case kGatherLane8:
-      gather_lane_kernel<8><<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
+      gather_lane8_kernel<<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
       break;
     case kGatherLane64:
-      gather_lane_kernel<64><<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
-      break;
+      return static_cast<int>(launch_gather_lane64(f0, i1, o, reps, grid, s));
     case kGatherSub8:
       gather_sub_kernel<<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
       break;
@@ -793,11 +936,10 @@ extern "C" int gs360x_micro_op(int op, const void* in0, const void* in1,
     default:  // kChunk
       if (in2 == nullptr || in3 == nullptr || in4 == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
-      chunk_kernel<<<grid, kThreads, 0, s>>>(
+      return static_cast<int>(launch_chunk(
           f0, i1, static_cast<const float*>(in2),
           static_cast<const int*>(in3), static_cast<const float*>(in4), o,
-          reps);
-      break;
+          reps, grid, s));
   }
   return static_cast<int>(cudaGetLastError());
 }

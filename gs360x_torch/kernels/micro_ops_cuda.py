@@ -18,7 +18,10 @@ launches the kernel (or raises); a CPU tensor runs the plain torch version
 hold the kernels against. ``OP_LAUNCHES`` counts the launches of each
 primitive; ``LAUNCHES`` (their sum) and ``PLAIN_CALLS`` count as in
 :mod:`gs360x_torch.kernels.warp_cuda`. :func:`bound_ms` is the least time
-the card could take for a launch.
+the card could take for a launch; :func:`smem_wavefronts` counts the
+shared-memory wavefronts of a gather's warp-loads, and
+:func:`block_loop_wavefronts` and :func:`wavefront_floor_ms` apply it to
+the (64,128) gather and the composite.
 
 Indices are int32 and must lie inside the tile (the kernels mask them to
 it, the plain versions raise on an index outside it).
@@ -48,6 +51,8 @@ OP_REPS = 64     # nominal applications per block
 FP32_TFLOPS = 67.0
 TF32_TFLOPS = 495.0
 SMEM_TBS = 33.5
+SMEM_CLOCK_GHZ = 1.98   # that clock
+SMEM_BANKS = 32         # 4-byte banks; a wavefront serves each bank once
 TF32_PASSES = 3  # hi.lo + lo.hi + hi.hi: the products' f32 accuracy
 
 
@@ -294,6 +299,65 @@ def bound_ms(op: MicroOp, loops: int, grid: Optional[int] = None
     return times[by], by, times
 
 
+def smem_wavefronts(words) -> int:
+    """Shared-memory wavefronts of warp-loads of 4-byte words. ``words``
+    holds word addresses, 32 a warp-load (the last axis, or consecutive
+    runs of 32). Lanes that read one word share it; distinct words in one
+    bank take a wavefront each, so a warp-load takes as many as its
+    fullest bank holds distinct words (1 when conflict-free)."""
+    w = np.sort(np.asarray(words, np.int64).reshape(-1, 32), axis=1)
+    distinct = np.ones(w.shape, bool)
+    distinct[:, 1:] = w[:, 1:] != w[:, :-1]
+    per_bank = np.zeros((w.shape[0], SMEM_BANKS), np.int64)
+    loads = np.broadcast_to(np.arange(w.shape[0])[:, None], w.shape)
+    np.add.at(per_bank, (loads, w % SMEM_BANKS), distinct)
+    return int(per_bank.max(axis=1).sum())
+
+
+def block_loop_wavefronts(key: str, inputs: Mapping[str, torch.Tensor]
+                          ) -> Dict[str, int]:
+    """The shared-memory wavefronts one loop of one block of ``key``'s
+    kernel takes on ``inputs``, by access, and ``"bound"``: those the bound
+    counts (``smem_bytes_per_loop`` at 128 bytes a wavefront). A warp-load
+    of either kernel is 32 consecutive elements of one row.
+
+    ``gather_lane64``: the row gathers of the tile by ``idx64`` and the
+    store of the new tile. ``chunk`` (3 channels): the horizontal gathers
+    of each channel's window row by ``relb``, the ih store, and the
+    vertical gathers of the kept rows by ``ry``."""
+    rows = np.arange(64)[:, None]
+    if key == "gather_lane64":
+        idx = inputs["idx64"].cpu().numpy() & 127
+        got = {"gather": smem_wavefronts(rows * 128 + idx),
+               "store": 64 * 128 // 32}
+    elif key == "chunk":
+        relb = inputs["relb"].cpu().numpy() & 127
+        ry = inputs["ry"].cpu().numpy()[:, :, 0] & 7     # (4, 8, 128)
+        groups = np.arange(8)[:, None]
+        cols = np.arange(128)[None, :]
+        # ih row r reads window row r % 8 (the window replicated to 64 rows)
+        got = {"gather": 3 * smem_wavefronts((rows % 8) * 128 + relb),
+               "store": 3 * 64 * 128 // 32,
+               "vertical": 3 * smem_wavefronts(
+                   (groups * 8 + ry) * 128 + cols)}
+    else:
+        raise ValueError(f"block_loop_wavefronts: no model for {key}")
+    got["bound"] = OPS[key].smem_bytes_per_loop // 128
+    return got
+
+
+def wavefront_floor_ms(key: str, inputs: Mapping[str, torch.Tensor],
+                       loops: int, sms: int, grid: Optional[int] = None
+                       ) -> float:
+    """The least time in ms ``key``'s kernel could take when every
+    wavefront of :func:`block_loop_wavefronts` (but not ``"bound"``) costs
+    a clock of ``sms`` multiprocessors at ``SMEM_CLOCK_GHZ``."""
+    counts = block_loop_wavefronts(key, inputs)
+    per_loop = sum(n for name, n in counts.items() if name != "bound")
+    blocks = grid or OPS[key].grid or GRID
+    return per_loop * blocks * loops / sms / (SMEM_CLOCK_GHZ * 1e6)
+
+
 def make_inputs(device: Optional[torch.device] = None
                 ) -> Dict[str, torch.Tensor]:
     """The seeded inputs of ``micro_ops.py`` (``default_rng(0)``, drawn in
@@ -369,12 +433,16 @@ def micro_op(key: str, tensors: Sequence[torch.Tensor], reps: int,
 # predicated update and the composite: 1e-6 relative (a plain version may
 # contract a multiply-add). The products: 1e-5 relative a step against the
 # f32 product (three TF32 passes keep ~21 bits of each operand and sum in
-# another order); they are compared at no more than ``MATMUL_CHECK_LOOPS``
-# steps, since 64 steps of uniform [0, 1) rows overflow f32.
+# another order); they are compared at no more than 8 steps, since 64 steps
+# of uniform [0, 1) rows overflow f32.
 PRODUCTS = ("matmul64", "matmul8")
 BITWISE = frozenset({"gather_lane8", "gather_lane64", "gather_sub8", "where",
                      "concat", "dyn_roll", "dyn_slice"})
-MATMUL_CHECK_LOOPS = 8
+# the loops at which the products and the two redesigned kernels are held to
+# their plain versions on the card (the others at their nominal loops); the
+# deepest is also the depth of the check across grids and launches
+CHECK_LOOPS = {"matmul64": (1, 8), "matmul8": (1, 8),
+               "gather_lane64": (1, 8, 64), "chunk": (1, 4, 8)}
 
 
 def rel_tolerance(key: str, loops: int) -> float:

@@ -1,17 +1,19 @@
 """Per-stage timers for the streaming pipelines (the port's copy of
 :class:`StageTimers`): accumulated per-stage wall clock (decode / warp /
-fetch / encode) surfaced on the execution report; and :func:`cuda_ms`, the
-device time of a call taken with CUDA events.
+fetch / encode) surfaced on the execution report; :func:`cuda_ms`, the
+device time of a call taken with CUDA events; and :func:`device_ms`, the
+device time of a call without the host's, from a CUDA graph's replay.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 import time
 from collections import defaultdict
 import statistics
 from contextlib import contextmanager
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, Tuple
 
 import torch
 
@@ -81,4 +83,72 @@ def cuda_ms(fn: Callable[[], object], reps: int = 10, batches: int = 5,
     return statistics.median(times)
 
 
-__all__ = ["StageTimers", "cuda_ms"]
+# device_ms: calls captured in one graph, warm-up calls before the
+# capture, and timed replays (the median is kept)
+DEVICE_REPS, DEVICE_WARMUP, DEVICE_BATCHES = 10, 2, 5
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def kernel_nodes(raw_graph: int) -> int:
+    """Kernel nodes of a captured ``cudaGraph_t`` (the driver's
+    ``cuGraphGetNodes`` and ``cuGraphNodeGetType``)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(raw_graph)
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(graph, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == _CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+def device_ms(fn: Callable[[], object]) -> Tuple[float, int]:
+    """Device time of one ``fn`` in ms without the host's time, and the
+    kernels a call launches. ``DEVICE_REPS`` calls of ``fn`` are captured in
+    one CUDA graph; its kernel nodes give the kernels a call launches, and
+    CUDA events around one replay, issued behind another replay so that the
+    device is busy when it reaches the first event, give the device time of
+    the calls back to back, with no host time between them; the median over
+    ``DEVICE_BATCHES`` replays, divided by the calls. Where a call's host
+    work (a wrapper's tens of µs) is longer than its kernel, :func:`cuda_ms`
+    times the host; this does not. Every launch runs and is timed whole.
+    Raises when there is no CUDA device, when ``fn`` does what a capture
+    forbids, or when its kernels are not the same in every call."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms: no CUDA device")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(DEVICE_WARMUP):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(DEVICE_REPS):
+            fn()
+    kernels = kernel_nodes(graph.raw_cuda_graph())
+    if not kernels or kernels % DEVICE_REPS:
+        raise RuntimeError(f"device_ms: {kernels} kernels in "
+                           f"{DEVICE_REPS} calls")
+    graph.instantiate()
+    times = []
+    for _ in range(DEVICE_BATCHES):
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / DEVICE_REPS)
+    return statistics.median(times), kernels // DEVICE_REPS
+
+
+__all__ = ["StageTimers", "cuda_ms", "device_ms"]

@@ -34,13 +34,20 @@ warp and remap kernels are printed for trees that have
 ``_build.ptxas_report``. Results go to standard output, and with
 ``--out FILE`` every run's numbers to that file as JSON.
 
-With ``--micro-ops`` it times the two ``micro_ops`` products instead
-(``matmul64``: (64,128)@(128,128), ``matmul8``: (8,128)@(128,128), each
-``x <- x @ b`` 64 times in each of 2048 blocks), in the same turns: the
-kernel's ms a launch, its error against the plain f32 product at 1 and 8
-steps relative to max|plain| (a tree fails above the gate, 1e-5 a step),
-and one cuBLAS f32 product of the 2048 blocks stacked, times 64, with TF32
-off.
+With ``--micro-ops`` it times ``micro_ops`` kernels instead, the
+primitives ``--keys`` names (by default the two products, ``matmul64``:
+(64,128)@(128,128) and ``matmul8``: (8,128)@(128,128), ``x <- x @ b`` 64
+times in each of 2048 blocks; the composite ``chunk``, 4 loops in each of
+256 blocks; and ``gather_lane64``, the (64,128) axis-1 gather 64 times in
+each of 2048 blocks), in the same turns: the kernel's device time a launch
+without the wrapper's host time (events around a CUDA graph's replay of 10
+launches, by this checkout's ``profiling.device_ms`` for every tree)
+and its event time; its error against the plain version relative to
+max|plain| at the depths of this checkout's ``micro_ops_cuda.CHECK_LOOPS``
+(nominal loops for a key it does not name; a tree fails above the gate)
+and the hash of its output there (it fails unless every tree's outputs are
+bitwise this checkout's); for the products one cuBLAS f32 product of the
+2048 blocks stacked, times 64, with TF32 off.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import sys
 import tempfile
 
 PRODUCTS = ("matmul64", "matmul8")
+MICRO_KEYS = PRODUCTS + ("chunk", "gather_lane64")   # --micro-ops default
 SHAPES = ("yaw ring 8x1920x1080", "default 8x1600²", "full360coverage 12x1600²",
           "fisheyeXY 2x3600²", "pole 1x1600²", "equisolid 1x2048²",
           "SFM10 10x1750²", "undistort 3840²",
@@ -202,9 +210,26 @@ def measure() -> dict:
                       "spilling": [f"{r[0]}: {r[3]}" for r in report if r[2]]}}
 
 
-def measure_products() -> dict:
-    """Runs inside one tree: the two products' times, errors and cuBLAS
-    times, and the card."""
+def _this_checkouts_device_ms():
+    """:func:`device_ms` of this checkout's ``gs360x_torch`` (an older tree
+    may lack it), loaded from its file: every tree is timed alike."""
+    import importlib.util
+    path = (pathlib.Path(__file__).resolve().parent / "gs360x_torch"
+            / "runtime" / "profiling.py")
+    spec = importlib.util.spec_from_file_location("_ab_profiling", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.device_ms
+
+
+def measure_micro_ops(keys, check_loops) -> dict:
+    """Runs inside one tree: for each of ``keys`` at grid 2048 (composite
+    256), reps 64, the kernel's device time without the wrapper's host time
+    (a CUDA graph of 10 launches replayed between events) and its event time;
+    its error against the plain version at the check depths (a tree fails
+    above the gate); the output's hash at each depth; for the products one
+    cuBLAS f32 product of the grid's blocks stacked, times 64 (TF32 off);
+    and the card."""
     sys.path[0] = os.getcwd()
     import torch
     if not torch.cuda.is_available():
@@ -212,54 +237,79 @@ def measure_products() -> dict:
     from gs360x_torch.kernels import _build
     from gs360x_torch.kernels import micro_ops_cuda as mo
     from gs360x_torch.runtime.profiling import cuda_ms
+    device_ms = _this_checkouts_device_ms()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     _build.load()
     inputs = mo.make_inputs(dev)
     out = {}
-    for key in PRODUCTS:
+    for key in keys:
         op = mo.OPS[key]
-        x, b = (inputs[name] for name in op.inputs)
-        errs = []
-        for steps in (1, 8):
-            got = mo.micro_op(key, [x, b], steps, mo.GRID)
-            ref = op.plain(x, b, steps)
+        tensors = [inputs[name] for name in op.inputs]
+        grid = op.grid or mo.GRID
+        loops = mo.bench_loops(op)
+        errs, shas = [], []
+        for depth in check_loops.get(key, (loops,)):
+            got = mo.micro_op(key, tensors, depth, grid)
+            ref = op.plain(*tensors, depth)
             errs.append(float((got - ref).abs().max() / ref.abs().max()))
-            if errs[-1] > 1e-5 * steps:
-                raise SystemExit(f"{key}: rel {errs[-1]:.3e} at {steps} "
-                                 "steps, gate 1e-5 a step")
-        blocks = x.expand(mo.GRID, *x.shape).contiguous()
-        out[key] = {
-            "ms": cuda_ms(lambda: mo.micro_op(key, [x, b], mo.OP_REPS,
-                                              mo.GRID)),
-            "cublas_ms": cuda_ms(lambda: torch.matmul(blocks, b))
-            * mo.OP_REPS,
-            "rel_err_1_8": errs}
+            shas.append(_sha(got))
+            tol = mo.rel_tolerance(key, depth)
+            if errs[-1] > tol or (tol == 0.0 and not torch.equal(got, ref)):
+                raise SystemExit(f"{key}: rel {errs[-1]:.3e} at {depth} "
+                                 f"loops, gate {tol:g}")
+
+        def launch():
+            return mo.micro_op(key, tensors, loops, grid)
+
+        cell = {"device_ms": device_ms(launch)[0],
+                "events_ms": cuda_ms(launch), "rel_err": errs, "sha": shas}
+        if key in PRODUCTS:
+            x, b = tensors
+            blocks = x.expand(grid, *x.shape).contiguous()
+            cell["cublas_ms"] = device_ms(
+                lambda: torch.matmul(blocks, b))[0] * loops
+        out[key] = cell
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    names = {"gather_lane64": "gather_lane"}   # a template in older trees
     ptxas = [f"{r[0]}: {r[3]}" for r in _build.ptxas_report()
-             if "matmul" in r[0]]
-    return {"card": smi, "build_s": _build.build_seconds, "products": out,
+             if any(names.get(k, k) in r[0] for k in keys)]
+    return {"card": smi, "build_s": _build.build_seconds, "micro_ops": out,
             "ptxas": ptxas}
 
 
-def _report_products(trees, runs) -> None:
+def _report_micro_ops(trees, runs, keys, check_loops) -> dict:
+    """Prints each tree's cells in turn order; returns, for each tree,
+    whether every output hash equals this checkout's."""
+    ref = runs["change"][0]["micro_ops"]
+    same = {name: all(r["micro_ops"][k]["sha"] == ref[k]["sha"]
+                      for r in runs[name] for k in keys)
+            for name, _d in trees}
     for name, _d in trees:
-        print(f"== {name}: {runs[name][0]['card']}")
+        print(f"== {name}: {runs[name][0]['card']} | outputs bitwise equal "
+              f"to this checkout's: {same[name]}")
         for line in runs[name][0]["ptxas"]:
             print(f"   [ptxas] {line}")
-        for key in PRODUCTS:
-            cells = [r["products"][key] for r in runs[name]]
-            print(f"   {key}: kernel "
-                  + "/".join(f"{c['ms']:.4f}" for c in cells)
-                  + " ms | cuBLAS f32 "
-                  + "/".join(f"{c['cublas_ms']:.4f}" for c in cells)
-                  + " ms | rel err at 1 and 8 steps "
-                  + "/".join(f"{c['rel_err_1_8'][0]:.2e},"
-                             f"{c['rel_err_1_8'][1]:.2e}" for c in cells))
+        for key in keys:
+            cells = [r["micro_ops"][key] for r in runs[name]]
+            print(f"   {key}: device "
+                  + "/".join(f"{c['device_ms']:.4f}" for c in cells)
+                  + " ms | events "
+                  + "/".join(f"{c['events_ms']:.4f}" for c in cells)
+                  + " ms" + ("" if "cublas_ms" not in cells[0] else
+                             " | cuBLAS f32 " + "/".join(
+                                 f"{c['cublas_ms']:.4f}" for c in cells)
+                             + " ms")
+                  + " | rel err at " + ",".join(
+                      map(str, check_loops.get(key, ("nominal",))))
+                  + " loops " + "/".join(
+                      ",".join(f"{e:.2e}" for e in c["rel_err"])
+                      for c in cells))
+    return same
 
 
 def main() -> int:
@@ -269,14 +319,20 @@ def main() -> int:
     ap.add_argument("--out", metavar="FILE",
                     help="also write every run's numbers there as JSON")
     ap.add_argument("--micro-ops", action="store_true",
-                    help="time the two micro_ops products instead")
+                    help="time micro_ops kernels instead")
+    ap.add_argument("--keys", default=",".join(MICRO_KEYS),
+                    help="with --micro-ops: the primitives to time, comma "
+                         "separated (default: %(default)s)")
     ap.add_argument("--one", action="store_true",
                     help="measure the tree in the current directory and "
                          "print one JSON line (what each subprocess runs)")
+    ap.add_argument("--check-loops", default="{}", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    keys = args.keys.split(",")
     if args.one:
-        measure_one = measure_products if args.micro_ops else measure
-        print(json.dumps(measure_one()), flush=True)
+        result = (measure_micro_ops(keys, json.loads(args.check_loops))
+                  if args.micro_ops else measure())
+        print(json.dumps(result), flush=True)
         return 0
 
     here = pathlib.Path(__file__).resolve()
@@ -284,7 +340,12 @@ def main() -> int:
         + [("change", str(here.parent))]
     order = trees + trees[::-1] if len(trees) > 1 else trees
     runs = {name: [] for name, _d in trees}
-    flags = ["--one"] + (["--micro-ops"] if args.micro_ops else [])
+    flags = ["--one"]
+    if args.micro_ops:
+        # every tree is checked and hashed at this checkout's depths
+        from gs360x_torch.kernels.micro_ops_cuda import CHECK_LOOPS
+        flags += ["--micro-ops", "--keys", args.keys,
+                  "--check-loops", json.dumps(CHECK_LOOPS)]
     for name, directory in order:
         proc = subprocess.run([sys.executable, str(here), *flags],
                               cwd=directory, capture_output=True, text=True)
@@ -295,10 +356,13 @@ def main() -> int:
         print(f"[{name}] measured ({runs[name][-1]['card']}, build "
               f"{runs[name][-1]['build_s']:.1f}s)", flush=True)
     if args.micro_ops:
-        _report_products(trees, runs)
+        same = _report_micro_ops(trees, runs, keys, CHECK_LOOPS)
         if args.out:
-            pathlib.Path(args.out).write_text(json.dumps(runs, indent=1))
-        print(json.dumps(runs))
+            pathlib.Path(args.out).write_text(json.dumps(
+                {"runs": runs, "bitwise_equal_to_change": same}, indent=1))
+        print(json.dumps({"runs": runs, "bitwise_equal_to_change": same}))
+        if not all(same.values()):
+            raise SystemExit("resample_ab: outputs differ between trees")
         return 0
 
     keys = ("source", "f32", "quantize", "u8", "path")

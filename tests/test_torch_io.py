@@ -311,7 +311,7 @@ def test_calibration_template_matches_jax_package(tmp_path, monkeypatch):
 
 def test_stage_timers_match_jax_package():
     assert not hasattr(tprof, "maybe_trace")
-    assert tprof.__all__ == ["StageTimers", "cuda_ms"]
+    assert tprof.__all__ == ["StageTimers", "cuda_ms", "device_ms"]
     for cls in (jprof.StageTimers, tprof.StageTimers):
         timers = cls()
         assert timers.report() == "no stages recorded"

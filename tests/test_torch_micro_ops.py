@@ -38,6 +38,8 @@ import torch
 from jax.experimental import pallas as pl
 
 from gs360x_torch.kernels import micro_ops_cuda as mo
+from gs360x_torch.runtime import profiling
+from gs360x_torch.runtime.profiling import device_ms
 from gs360x_torch.tools import micro_ops as mo_tool
 
 torch.set_num_threads(1)
@@ -263,6 +265,272 @@ def test_fragment_layout_gives_the_plain_product(key):
     for xc, yc in zip(xs, out):
         np.testing.assert_allclose(yc, xc @ b @ b * (1 + 2 * eps) ** 2,
                                    rtol=1e-12)
+
+
+# ---- the redesigned (64,128) gather and composite, emulated -----------------
+
+GATHER64_THREADS = 256   # micro_ops.cu: a block of the (64,128) gather
+CHUNK_THREADS = 512      # kChunkThreads: a block of the composite
+
+
+def gather_lane64_layout(threads=GATHER64_THREADS):
+    """(thread, i) -> the element thread holds as its i-th: warp w owns rows
+    rows_per_warp * w ..., lane l their columns l, l + 32, l + 64, l + 96."""
+    rows_per_warp = 64 // (threads // 32)
+    warp = np.arange(threads)[:, None] // 32
+    lane = np.arange(threads)[:, None] % 32
+    i = np.arange(rows_per_warp * 4)[None, :]
+    return (warp * rows_per_warp + i // 4) * 128 + (i % 4) * 32 + lane
+
+
+def emulate_gather_lane64(a, idx, reps):
+    """The kernel's loop: each thread's gather sources (in its own row) held
+    in registers, two buffers, every application reading one and writing
+    the other."""
+    elems = gather_lane64_layout()
+    src = (elems & ~127) + (idx.reshape(-1)[elems] & 127)
+    xs = np.zeros((2, 64 * 128), np.float32)
+    xs[0][elems] = a.reshape(-1)[elems]
+    for r in range(reps):
+        xs[(r & 1) ^ 1][elems] = xs[r & 1][src] + np.float32(0.5)
+    return xs[reps & 1].reshape(64, 128)
+
+
+def chunk_layout(threads=CHUNK_THREADS):
+    """Thread t's ih elements t + threads * j and acc elements likewise."""
+    t = np.arange(threads)[:, None]
+    return (t + threads * np.arange(64 * 128 // threads)[None, :],
+            t + threads * np.arange(8 * 128 // threads)[None, :])
+
+
+def emulate_chunk(win, relb, wfb, ry, wv, loops):
+    """The composite as the kernel computes it: the tap tables packed into
+    the registers of the thread that owns each element once (four 7-bit
+    relb indices a word, one a byte; four 3-bit ry rows of the kept row a
+    word; the weights beside them), unpacked in every channel-loop; ih in
+    two buffers, one a channel-loop; products rounded on their own, taps
+    summed in order."""
+    ih_e, acc_e = chunk_layout()
+    hidx = np.zeros(ih_e.shape, np.uint32)
+    for k in range(4):
+        hidx |= (relb[k].reshape(-1)[ih_e] & 127).astype(np.uint32) << 8 * k
+    hw = [wfb[k].reshape(-1)[ih_e] for k in range(4)]
+    group, col = acc_e // 128, acc_e % 128
+    vidx = np.zeros(acc_e.shape, np.uint32)
+    for m in range(4):
+        vidx |= (ry[m, group, 0, col] & 7).astype(np.uint32) << 8 * m
+    vw = [wv[m, group, 0, col] for m in range(4)]
+    row = (ih_e // 128 % 8) * 128          # ih row r reads window row r % 8
+    ihs = np.zeros((2, 64 * 128), np.float32)
+    acc = np.zeros(acc_e.shape, np.float32)
+    buf = 0
+    for _ in range(loops):
+        for ch in range(3):
+            window = win[ch].reshape(-1)
+            ih = None
+            for k in range(4):
+                term = window[row + (hidx >> 8 * k & 0xFF)] * hw[k]
+                ih = term if ih is None else ih + term
+            ihs[buf][ih_e] = ih
+            add = None
+            for m in range(4):
+                kept = (group * 8 + (vidx >> 8 * m & 0xFF)) * 128 + col
+                term = ihs[buf][kept] * vw[m]
+                add = term if add is None else add + term
+            acc = acc + add
+            buf ^= 1
+    out = np.zeros(8 * 128, np.float32)
+    out[acc_e] = acc
+    return out.reshape(8, 128)
+
+
+def test_layouts_cover_each_element_once():
+    """Every element has one owner; a (64,128) gather's sources stay in
+    rows of the warp that reads them (so a __syncwarp orders the loop);
+    each warp-load of either kernel is 32 consecutive elements of a row,
+    the grouping ``block_loop_wavefronts`` counts."""
+    idx = mo.make_inputs()["idx64"].numpy()
+    elems = gather_lane64_layout()
+    np.testing.assert_array_equal(np.sort(elems.ravel()), np.arange(8192))
+    src = (elems & ~127) + (idx.reshape(-1)[elems] & 127)
+    warp = np.arange(GATHER64_THREADS)[:, None] // 32
+    assert (src // 128 // 8 == warp).all()
+    ih_e, acc_e = chunk_layout()
+    np.testing.assert_array_equal(np.sort(ih_e.ravel()), np.arange(8192))
+    np.testing.assert_array_equal(np.sort(acc_e.ravel()), np.arange(1024))
+    for layout in (elems, ih_e, acc_e):
+        loads = layout.reshape(-1, 32, layout.shape[1]).transpose(0, 2, 1)
+        assert (np.diff(loads, axis=2) == 1).all()
+        assert (loads[..., 0] % 32 == 0).all()
+
+
+def test_gather_lane64_emulation(recorded):
+    """The warp-owned, double-buffered (64,128) gather at REPS
+    applications: bitwise the plain version and the Pallas body."""
+    op = mo.OPS["gather_lane64"]
+    body, out_shape, arrays = recorded[op.label]
+    a, idx = (np.array(arr) for arr in arrays)
+    got = emulate_gather_lane64(a, idx, REPS)
+    plain = mo.micro_op("gather_lane64", [torch.from_numpy(a),
+                                          torch.from_numpy(idx)], REPS)
+    np.testing.assert_array_equal(got, plain.numpy())
+    np.testing.assert_array_equal(got, run_pallas(body, out_shape, arrays))
+    np.testing.assert_array_equal(emulate_gather_lane64(a, idx, 0), a)
+
+
+@pytest.mark.parametrize("loops", [1, 8])
+def test_chunk_emulation(recorded, loops):
+    """The composite with its tables held on chip, at 1 and 8 loops:
+    bitwise the plain version, and within 1e-6 of the Pallas body (at
+    ``OP_REPS = 16 * loops``: the body runs OP_REPS // 16 loops, none at
+    the module's REPS)."""
+    op = mo.OPS["chunk"]
+    body, out_shape, arrays = recorded[op.label]
+    arrs = [np.array(arr) for arr in arrays]
+    got = emulate_chunk(*arrs, loops)
+    plain = mo.micro_op("chunk", [torch.from_numpy(x) for x in arrs], loops)
+    np.testing.assert_array_equal(got, plain.numpy())
+    scope = body.__globals__
+    saved = scope["OP_REPS"]
+    scope["OP_REPS"] = 16 * loops
+    try:
+        ref = run_pallas(body, out_shape, arrays)
+    finally:
+        scope["OP_REPS"] = saved
+    assert np.isfinite(ref).all() and float(np.abs(ref).max()) > 1.0
+    np.testing.assert_allclose(got, ref, rtol=1e-6,
+                               atol=1e-6 * float(np.abs(ref).max()))
+
+
+def brute_force_wavefronts(words):
+    """One warp-load at a time: the distinct words each bank holds."""
+    total = 0
+    for load in np.asarray(words).reshape(-1, 32).tolist():
+        banks = {}
+        for word in load:
+            banks.setdefault(word % 32, set()).add(word)
+        total += max(len(held) for held in banks.values())
+    return total
+
+
+@pytest.mark.parametrize("name,want", [("idx64", 710), ("relb", 2831)])
+def test_smem_wavefronts_of_the_seeded_gathers(name, want):
+    """The (64,128) gather's row reads by ``idx64`` a block-loop, and one
+    channel's horizontal taps of the composite by ``relb`` (ih row r reads
+    window row r % 8): the helper against a count made one warp-load at a
+    time."""
+    idx = mo.make_inputs()[name].numpy() & 127
+    rows = np.arange(64)[:, None]
+    words = rows * 128 + idx if name == "idx64" else (rows % 8) * 128 + idx
+    assert mo.smem_wavefronts(words) == brute_force_wavefronts(words) == want
+
+
+def test_smem_wavefronts_edge_cases():
+    lanes = np.arange(32)
+    assert mo.smem_wavefronts(lanes) == 1                  # one a bank
+    assert mo.smem_wavefronts(np.full(32, 7)) == 1         # a broadcast
+    assert mo.smem_wavefronts(lanes * 32) == 32            # all in bank 0
+    assert mo.smem_wavefronts(lanes % 4 * 32) == 4         # 4 words, bank 0
+    assert mo.smem_wavefronts(np.stack([lanes, lanes * 32])) == 33
+
+
+def test_block_loop_wavefronts_and_floors():
+    """The seeded inputs' counts behind the two kernels' floors, and the
+    floors at grid 2048 (composite 256), reps 64, on 132 SMs."""
+    inputs = mo.make_inputs()
+    assert mo.block_loop_wavefronts("gather_lane64", inputs) == {
+        "gather": 710, "store": 256, "bound": 256}
+    assert mo.block_loop_wavefronts("chunk", inputs) == {
+        "gather": 3 * 2831, "store": 3 * 256, "vertical": 3 * 128,
+        "bound": 3 * 1152}
+    floors = {key: mo.wavefront_floor_ms(key, inputs,
+                                         mo.bench_loops(mo.OPS[key]), 132)
+              for key in ("gather_lane64", "chunk")}
+    assert floors["gather_lane64"] == pytest.approx(0.48445, rel=1e-4)
+    assert floors["chunk"] == pytest.approx(0.0378, rel=1e-3)
+    bound = mo.bound_ms(mo.OPS["chunk"], 4)[0]
+    assert bound / floors["chunk"] == pytest.approx(0.358, rel=1e-2)
+    with pytest.raises(ValueError):
+        mo.block_loop_wavefronts("mul8", inputs)
+
+
+def test_device_ms_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError):
+        device_ms(lambda: None)
+
+
+class _Graph:
+    """A stand-in for ``torch.cuda.CUDAGraph`` that counts its replays."""
+
+    replays = 0
+
+    def __init__(self, keep_graph):
+        assert keep_graph
+
+    def raw_cuda_graph(self):
+        return 0
+
+    def instantiate(self):
+        pass
+
+    def replay(self):
+        _Graph.replays += 1
+
+
+class _Event:
+    """A stand-in for ``torch.cuda.Event`` whose spans are given in turn."""
+
+    spans = iter(())
+
+    def __init__(self, enable_timing):
+        assert enable_timing
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, _stop):
+        return next(_Event.spans)
+
+
+@pytest.mark.parametrize("nodes, kernels", [
+    (10, 1), (20, 2),    # one or two kernels a call
+    (0, None),           # nothing captured: raises
+    (15, None),          # not the same kernels in every call: raises
+])
+def test_device_ms_times_a_graph_replay(monkeypatch, nodes, kernels):
+    """``device_ms`` takes a call's kernels from the captured graph's kernel
+    nodes and its time from the median of the timed replays over the calls,
+    each timed replay behind an untimed one."""
+    import contextlib
+    stream = type("Stream", (), {"wait_stream": lambda self, other: None})()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda: stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: stream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda _s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda _g: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(profiling, "kernel_nodes", lambda _raw: nodes)
+    spans = [5.0, 1.0, 3.0, 2.0, 4.0][:profiling.DEVICE_BATCHES]
+    _Event.spans, _Graph.replays = iter(spans), 0
+    calls = []
+    if kernels is None:
+        with pytest.raises(RuntimeError, match="kernels in"):
+            profiling.device_ms(lambda: calls.append(1))
+        return
+    ms, got = profiling.device_ms(lambda: calls.append(1))
+    assert got == kernels
+    assert ms == pytest.approx(sorted(spans)[len(spans) // 2]
+                               / profiling.DEVICE_REPS)
+    assert len(calls) == profiling.DEVICE_WARMUP + profiling.DEVICE_REPS
+    assert _Graph.replays == 2 * profiling.DEVICE_BATCHES
 
 
 @pytest.mark.parametrize("key", list(mo.OPS))
