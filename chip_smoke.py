@@ -60,12 +60,15 @@ it went through the kernels only and that its pixels are right:
 * ``python -m gs360x_torch.tools.micro_ops``: the 14 primitive kernels of
   ``micro_ops.cu``, each first held to its plain version on the card, then
   timed on the device without the wrapper's host time (events around a
-  CUDA graph's replay of 10 launches) beside its event time, its bound and, where one torch
-  call computes an application, that call over the grid's blocks; the two
+  CUDA graph's replay of 10 launches) beside its event time, its time with
+  no loop and a loop's marginal time, its bound and, where one torch call
+  computes an application, that call over the grid's blocks; the two
   products (three TF32 passes on the tensor cores, their HGMMA
   instructions counted in the built library) beside one cuBLAS f32 call a
-  step; the composite and the (64,128) gather beside the floor of their
-  shared-memory wavefronts.
+  step; concat and the counted loop with their FADD instructions counted
+  likewise; the two axis-1 gathers and the composite beside the floor of
+  their shared-memory wavefronts; then the primitives ranked by launches
+  × (device − the larger of bound and floor).
 
 Phases print one line each; any failure raises and the exit code is not
 0. Without CUDA, or without the rest of the checkout (it then says what it
@@ -171,16 +174,20 @@ PLANARIZE_PAIRS = [("u8->u8", torch.uint8, 1.0, torch.uint8),
                    ("u16->f32", torch.uint16, 1.0 / 65535.0, torch.float32),
                    ("f32->f32", torch.float32, 1.0, torch.float32)]
 HBM_TBS = 3.35   # published H100 SXM device-memory bandwidth, TB/s
-FP32_TFLOPS = 67.0   # published H100 SXM f32 rate outside the tensor cores
-# f32 operations per output pixel of the resampling kernels, for the
-# operations side of a bound: 3 channels x 16 taps x (mul + add) and the two
-# 4-tap weight sets (~40) of a cubic pixel, 3 x 4 x 2 and two weights (~10)
-# of a bilinear one, the scale alone of a nearest one; the warp adds the
-# ray, its rotation and the lon/lat or lens trigonometry (~80), which the
-# remap, whose coordinates come from maps, does not have
-TAP_FLOPS_PER_PX = {"bicubic": 3 * 16 * 2 + 40, "catmull-rom": 3 * 16 * 2 + 40,
-                    "bilinear": 3 * 4 * 2 + 10, "nearest": 3}
-WARP_RAY_FLOPS_PER_PX = 80
+# f32 instructions an output pixel of the resampling kernels must issue,
+# for the operations side of a bound: a mul + add that the kernel contracts
+# into an FMA is one, a lone op one. A cubic pixel: 3 channels x (16 tap
+# FMAs along the rows + 4 FMAs down the column) and two 4-tap weight sets
+# (t², t³ and four cubics in Horner form, ~12 a set); a bilinear one: 3
+# channels x 3 lerps (a multiply and an FMA each) and 1 - fx, 1 - fy; a
+# nearest one: the scale. The warp adds the ray (~54: the pixel centre 4,
+# the normalised perspective ray 7, its rotation 9, atan2 ~16 and asin ~12
+# as polynomials, u and v 2, floor and fraction 4), which the remap, whose
+# coordinates come from maps, does not have
+TAP_INSNS_PER_PX = {"bicubic": 3 * (16 + 4) + 24,
+                    "catmull-rom": 3 * (16 + 4) + 24,
+                    "bilinear": 3 * 3 * 2 + 2, "nearest": 3}
+WARP_RAY_INSNS_PER_PX = 54
 # the plain versions take 5-55 ms a call: fewer repeats than the kernels
 PLAIN_TIMING = dict(reps=3, batches=3, warmup=1)
 # ms360xml --persp-cut writes JPEG (q98, 4:4:4: the cut's default, which
@@ -531,14 +538,14 @@ def _compare_warp(rows: torch.Tensor, geom: dict, interp: str, smooth: bool,
     return err
 
 
-def _resample_bound(bytes_moved: int, op_pixels: int, flops_per_px: int
+def _resample_bound(bytes_moved: int, op_pixels: int, insns_per_px: int
                     ) -> dict:
     """The least time the card could take for a resampling launch: the
     bytes it must move (each input read once, the output written once)
-    over the memory rate, or its f32 operations (``op_pixels`` sampled
-    output pixels of ``flops_per_px`` each) over the f32 rate."""
+    over the memory rate, or its f32 instructions (``op_pixels`` sampled
+    output pixels of ``insns_per_px`` each) over the issue rate."""
     by_bytes = bytes_moved / (HBM_TBS * 1e9)
-    by_ops = op_pixels * flops_per_px / (FP32_TFLOPS * 1e9)
+    by_ops = op_pixels * insns_per_px / (mo.FP32_ISSUE_T * 1e9)
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None}
@@ -576,11 +583,11 @@ def _sampled_pixels(u: torch.Tensor, valid) -> int:
 
 
 def _store_bounds(bytes_in: int, out_values: int, op_pixels: int,
-                  flops_per_px: int) -> dict:
+                  insns_per_px: int) -> dict:
     """The bound of a resampling launch with the u8 store (what the
     image-mode main path launches), and beside it that of the f32 store."""
-    bound = _resample_bound(bytes_in + out_values, op_pixels, flops_per_px)
-    f32 = _resample_bound(bytes_in + out_values * 4, op_pixels, flops_per_px)
+    bound = _resample_bound(bytes_in + out_values, op_pixels, insns_per_px)
+    f32 = _resample_bound(bytes_in + out_values * 4, op_pixels, insns_per_px)
     bound["bound_ms_f32_out"] = f32["bound_ms"]
     bound["bound_by_f32_out"] = f32["bound_by"]
     return bound
@@ -595,7 +602,7 @@ def _warp_bound(u: torch.Tensor, v: torch.Tensor, valid,
     texels = _touched_texels(u, v, valid, SRC_H, SRC_W, interp, True)
     bound = _store_bounds(texels * 3, u.numel() * 3,
                           _sampled_pixels(u, valid),
-                          TAP_FLOPS_PER_PX[interp] + WARP_RAY_FLOPS_PER_PX)
+                          TAP_INSNS_PER_PX[interp] + WARP_RAY_INSNS_PER_PX)
     bound["source_share"] = texels / (SRC_H * SRC_W)
     return bound
 
@@ -771,7 +778,7 @@ def phase_warp_tilted(dev) -> dict:
 
 
 def _remap_check(launch, plain_call, label: str, exact: bool,
-                 bytes_in: int, op_pixels: int, flops_per_px: int,
+                 bytes_in: int, op_pixels: int, insns_per_px: int,
                  routes=None) -> dict:
     """``launch(out_dtype)`` against the plain version (f32 store, at the
     gates) and against the plain quantize of its own f32 store (u8 and u16
@@ -795,7 +802,7 @@ def _remap_check(launch, plain_call, label: str, exact: bool,
     ms_u8 = cuda_ms(lambda: launch(u8))
     quant_ms = cuda_ms(lambda: warp_cuda.quantize_plain(got, u8))
     plain_ms = cuda_ms(plain_call, **PLAIN_TIMING)
-    bound = _store_bounds(bytes_in, got.numel(), op_pixels, flops_per_px)
+    bound = _store_bounds(bytes_in, got.numel(), op_pixels, insns_per_px)
     times = {"ms": ms_u8, "ms_f32_out": ms_f32, "quantize_ms": quant_ms}
     route = ""
     if routes is not None:
@@ -817,7 +824,7 @@ def _remap_check(launch, plain_call, label: str, exact: bool,
 def _remap_bytes_in(prep, channels: int, element_size: int,
                     interp: str) -> tuple:
     """(bytes a remap launch must read, output pixels it samples, f32
-    operations a sampled pixel): the touched texels of the source (``channels`` values of ``element_size``
+    instructions a sampled pixel): the touched texels of the source (``channels`` values of ``element_size``
     bytes each, whatever the layout), the valid plane, and the two map
     entries of each valid pixel."""
     texels = _touched_texels(prep.map_x, prep.map_y, prep.valid, prep.src_h,
@@ -827,7 +834,7 @@ def _remap_bytes_in(prep, channels: int, element_size: int,
     if prep.valid is not None:
         maps += prep.valid.numel() * prep.valid.element_size()
     return (texels * channels * element_size + maps, sampled,
-            TAP_FLOPS_PER_PX[interp] * channels // 3)
+            TAP_INSNS_PER_PX[interp] * channels // 3)
 
 
 def _bilinear_vs_grid_sample(und, planes_f32: torch.Tensor) -> dict:
@@ -2010,17 +2017,27 @@ def _micro_check(key, op, tensors, loops, grid) -> float:
     return rel
 
 
-def _product_kernels() -> dict:
-    """HGMMA / HMMA instructions of each product kernel in the built
-    library (``cuobjdump -sass``); fails where a product has none."""
-    counts = _build.sass_counts()
-    found = {key: sum(n for name, n in counts.items()
-                      if f"tc_{key}_kernel" in name) for key in mo.PRODUCTS}
-    log("[micro_ops] tensor-core instructions (HGMMA/HMMA in cuobjdump "
-        "-sass): " + ", ".join(f"{k} {n}" for k, n in found.items()))
-    if not all(found.values()):
-        raise AssertionError(f"micro_ops: a product kernel has no "
-                             f"tensor-core instruction: {found}")
+def _sass_kernels() -> dict:
+    """Each kernel of ``mo.SASS_CHECKS``'s instructions of its opcodes in
+    the built library, read once from ``cuobjdump -sass``; fails where a
+    count is not the one the table asks for (or none where it asks for
+    at least one)."""
+    counts = _build.sass_counts(tuple(dict.fromkeys(
+        op for ops, _ in mo.SASS_CHECKS.values() for op in ops)))
+    found, wrong = {}, []
+    for key, (ops, want) in mo.SASS_CHECKS.items():
+        found[key] = sum(held.get(op, 0) for name, held in counts.items()
+                         if f"{key}_kernel" in name for op in ops)
+        if (found[key] == 0) if want is None else (found[key] != want):
+            wrong.append(key)
+    log("[micro_ops] instructions in cuobjdump -sass (the products' "
+        "HGMMA/HMMA; one FADD for each accumulator element a thread holds): "
+        + ", ".join(f"{key} {n} {'/'.join(mo.SASS_CHECKS[key][0])}"
+                    f" (wants {mo.SASS_CHECKS[key][1] or 'some'})"
+                    for key, n in found.items()))
+    if wrong:
+        raise AssertionError(f"micro_ops: SASS counts {found} of "
+                             f"{wrong} are not {mo.SASS_CHECKS}")
     return found
 
 
@@ -2028,7 +2045,7 @@ def _product_kernels() -> dict:
 # body each replaces (root micro_ops.py); they are also held bitwise across
 # grids 1 / GRID and two launches
 MICRO_ROWS = {"matmul64": 119, "matmul8": 132, "gather_lane64": 77,
-              "chunk": 196}
+              "chunk": 196, "concat": 109, "loop": 159}
 
 
 def _micro_library(key: str, tensors: list, grid: int):
@@ -2078,20 +2095,23 @@ def _micro_library(key: str, tensors: list, grid: int):
 
 def phase_micro_ops(dev, smi: str) -> dict:
     """Each of the 14 micro_ops kernels against its plain version on the
-    card (movers bitwise, arithmetic at 1e-6, the products at 1e-5 a step
-    at 1 and 8 steps; the composite at 1, 4 and 8 loops, the (64,128)
-    gather at 1, 8 and 64; the products, the composite and the (64,128)
-    gather bitwise across grids and launches), each timed at grid 2048
-    (composite 256), reps 64 beside its bound, its plain version and, where
-    one PyTorch call computes one application, that call over the whole
-    grid's blocks times the loops (``library_ms``; TF32 off). A kernel's
-    ``ms`` is its device time without the wrapper's host time
-    (``device_ms``, events around a CUDA graph of 10 launches), its
-    share of the bound is taken of that, and ``cuda_ms``'s event time of
-    the same launches stands beside it. The composite and the (64,128)
-    gather also beside their shared-memory wavefront floor. Then the tool
-    itself, whose lines are printed and whose launches are the path's."""
-    mma = _product_kernels()
+    card (movers and the counted loop bitwise, arithmetic at 1e-6, the
+    products at 1e-5 a step; the redesigned ones, ``MICRO_ROWS``, at the
+    depths of ``mo.CHECK_LOOPS`` and bitwise across grids and launches),
+    each timed at grid 2048 (composite 256), reps 64 beside its bound, its
+    plain version and, where one PyTorch call computes one application,
+    that call over the whole grid's blocks times the loops
+    (``library_ms``; TF32 off). A kernel's ``ms`` is its device time
+    without the wrapper's host time (``device_ms``, events around a CUDA
+    graph of 10 launches), its share of the bound is taken of that, and
+    ``cuda_ms``'s event time of the same launches stands beside it, as do
+    its time with no loop and a loop's marginal time (from the nominal
+    loops to four times as many). The kernels of ``mo.WAVEFRONT_MODELS``
+    also beside their shared-memory wavefront floor. Then the tool itself,
+    whose lines are printed and whose launches are the path's, and the
+    ranking of the primitives by launches × (device − the larger of bound
+    and floor)."""
+    sass = _sass_kernels()
     inputs = mo.make_inputs(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stats = {}
@@ -2133,29 +2153,33 @@ def phase_micro_ops(dev, smi: str) -> dict:
             extra = ""
             if product:
                 extra = (f" | FMA bound {times['f32']:.4f} ms | "
-                         f"{mma[key]} HGMMA")
-            if key in MICRO_ROWS and not product:
-                # what holds the launch: its wavefronts' floor, the launch
-                # with no loop (loads and store) and the marginal loop
+                         f"{sass[key]} HGMMA")
+            elif key in sass:
+                extra = f" | {sass[key]} FADD in the kernel"
+            if key in mo.WAVEFRONT_MODELS:
                 waves = mo.block_loop_wavefronts(key, inputs)
                 floor = mo.wavefront_floor_ms(key, inputs, loops, sms)
-                zero_ms = device_ms(
-                    lambda: mo.micro_op(key, tensors, 0, grid))[0]
-                deep_ms = device_ms(
-                    lambda: mo.micro_op(key, tensors, 4 * loops, grid))[0]
-                loop_ms = (deep_ms - ms) / (3 * loops)
-                stats[key].update(wavefront_floor_ms=floor,
-                                  zero_loop_ms=zero_ms, loop_ms=loop_ms)
-                extra = (f" | shared-memory wavefronts a block-loop "
-                         + " + ".join(f"{k} {n}" for k, n in waves.items()
-                                      if k != "bound")
-                         + f" (the bound counts {waves['bound']}): floor "
-                         f"{floor:.4f} ms on {sms} SMs at "
-                         f"{mo.SMEM_CLOCK_GHZ} GHz, {floor / ms:.1%} of the "
-                         f"device time | 0 loops {zero_ms:.4f} ms, a loop "
-                         f"{loop_ms:.6f} ms (from {loops} to {4 * loops}; "
-                         f"the floor's {floor / loops:.6f}, "
-                         f"{floor / loops / loop_ms:.1%} of it)")
+                stats[key]["wavefront_floor_ms"] = floor
+                extra += (f" | shared-memory wavefronts a block-loop "
+                          + " + ".join(f"{k} {n}" for k, n in waves.items()
+                                       if k != "bound")
+                          + f" (the bound counts {waves['bound']}): floor "
+                          f"{floor:.4f} ms on {sms} SMs at "
+                          f"{mo.SMEM_CLOCK_GHZ} GHz, {floor / ms:.1%} of "
+                          "the device time")
+            # what holds the launch: the launch with no loop (loads and
+            # store) and the marginal loop
+            zero_ms = device_ms(lambda: mo.micro_op(key, tensors, 0, grid))[0]
+            deep_ms = device_ms(
+                lambda: mo.micro_op(key, tensors, 4 * loops, grid))[0]
+            loop_ms = (deep_ms - ms) / (3 * loops)
+            stats[key].update(zero_loop_ms=zero_ms, loop_ms=loop_ms)
+            floor = stats[key].get("wavefront_floor_ms")
+            extra += (f" | 0 loops {zero_ms:.4f} ms, a loop {loop_ms:.6f} ms "
+                      f"(from {loops} to {4 * loops}; the bound's "
+                      f"{bound / loops:.6f}"
+                      + ("" if floor is None else
+                         f", the floor's {floor / loops:.6f}") + ")")
             if key in MICRO_ROWS:
                 extra += f" | bitwise across grids 1/{grid} and launches"
             gate = ("bitwise" if mo.rel_tolerance(key, loops) == 0.0
@@ -2185,31 +2209,45 @@ def phase_micro_ops(dev, smi: str) -> dict:
                              f"{plain}")
     for line in lines:
         log(f"[micro_ops] {line}")
-    for key in stats:
-        stats[key]["launches"] = per_op[key]
-    gaps = sorted(((st["launches"] * (st["ms"] - st["bound_ms"]), key)
-                   for key, st in stats.items()), reverse=True)
-    log("[micro_ops] launches in the tool's run x (device ms - bound ms), "
-        "largest first: " + ", ".join(
-            f"{key} {stats[key]['launches']} x {stats[key]['ms']:.4f} - "
-            f"{stats[key]['bound_ms']:.4f} = {gap:.3f}" for gap, key in gaps))
+    for key, st in stats.items():
+        st["launches"] = per_op[key]
+        st["least_ms"] = max(st["bound_ms"],
+                             st.get("wavefront_floor_ms", 0.0))
+        st["gap"] = st["launches"] * (st["ms"] - st["least_ms"])
+
+    def ranked(keys) -> str:
+        return ", ".join(
+            f"{k} {stats[k]['launches']} x ({stats[k]['ms']:.4f} - "
+            f"{stats[k]['least_ms']:.4f}) = {stats[k]['gap']:.3f}"
+            for k in sorted(keys, key=lambda k: -stats[k]["gap"]))
+    log("[micro_ops] ranking by launches in the tool's run x (device ms - "
+        "the larger of the bound and the wavefront floor), largest first; "
+        "the primitives never redesigned: "
+        + ranked(k for k in stats if k not in MICRO_ROWS)
+        + " | the redesigned ones: " + ranked(MICRO_ROWS))
     return stats
+
+
+# what bounds a primitive (micro_ops_cuda.bound_ms), as the kernels line
+# names it
+BOUND_BY = {"f32": "operations", "tensor cores": "operations",
+            "shared memory": "bytes", "device memory": "bytes"}
 
 
 def _micro_rows(micro: dict) -> list:
     """The ``kernels`` rows of ``[micro_ops]``: one for each of
-    ``MICRO_ROWS``, then the 10 other primitives summed. ``ms`` is the
-    device time (``events_ms`` the event time beside it)."""
+    ``MICRO_ROWS``, then the other primitives summed. ``ms`` is the device
+    time (``events_ms`` the event time beside it)."""
     keys = ("launches", "max_abs_err", "ms", "events_ms", "plain_ms",
-            "bound_ms", "library_ms")
+            "bound_ms", "library_ms", "zero_loop_ms", "loop_ms")
     rows = []
     for key, line in MICRO_ROWS.items():
         st = micro[key]
-        product = key in mo.PRODUCTS
-        how = ("three TF32 passes on the tensor cores; error relative to "
-               "max|plain| at 8 steps" if product else
-               "bound by shared-memory bytes at 33.5 TB/s; error relative "
-               "to max|plain|")
+        how = {"tensor cores": "three TF32 passes on the tensor cores",
+               "f32": "bound by f32 instruction issue at 33.5 T a second",
+               "shared memory": "bound by shared-memory bytes at 33.5 TB/s"
+               }[st["bound_by"]] + "; error relative to max|plain|" + (
+                   " at 8 steps" if key in mo.PRODUCTS else "")
         grid = mo.OPS[key].grid or mo.GRID
         rows.append({
             "name": f"micro_ops {key} ({mo.OPS[key].label}: {how}, grid "
@@ -2218,9 +2256,7 @@ def _micro_rows(micro: dict) -> list:
             "route": "cuda", "source": "gs360x_torch/csrc/micro_ops.cu",
             "replaces": f"micro_ops.py:{line}",
             **{k: st[k] for k in keys},
-            "bound_by": "operations" if product else "bytes",
-            **({} if product else
-               {k: st[k] for k in ("zero_loop_ms", "loop_ms")})})
+            "bound_by": BOUND_BY[st["bound_by"]]})
     rest = {key: st for key, st in micro.items() if key not in MICRO_ROWS}
     by_smem = sum(st["bound_ms"] for st in rest.values()
                   if st["bound_by"] == "shared memory")
@@ -2228,20 +2264,18 @@ def _micro_rows(micro: dict) -> list:
     rows.append({
         "name": f"micro_ops (bench: the {len(rest)} other primitives, grid "
                 "2048, reps 64, summed; ms without the wrapper's host "
-                "time; bounds by f32 issue or shared memory, so bound_by "
-                "'bytes' means shared-memory bytes at 33.5 TB/s; error "
-                "relative to max|plain|; library: one torch call an "
-                "application of each, summed)",
+                "time; bounds by f32 instruction issue or shared memory, "
+                "bound_by names the larger share; error relative to "
+                "max|plain|; library: one torch call an application of "
+                "each, summed)",
         "route": "cuda", "source": "gs360x_torch/csrc/micro_ops.cu",
         "replaces": "micro_ops.py:22",
-        "launches": sum(st["launches"] for st in rest.values()),
+        **{k: sum(st[k] for st in rest.values())
+           for k in ("launches", "ms", "events_ms", "plain_ms",
+                     "library_ms", "zero_loop_ms")},
         "max_abs_err": max(st["max_abs_err"] for st in rest.values()),
-        "ms": sum(st["ms"] for st in rest.values()),
-        "events_ms": sum(st["events_ms"] for st in rest.values()),
-        "plain_ms": sum(st["plain_ms"] for st in rest.values()),
         "bound_ms": bound,
-        "bound_by": "bytes" if by_smem >= bound / 2 else "operations",
-        "library_ms": sum(st["library_ms"] for st in rest.values())})
+        "bound_by": "bytes" if by_smem >= bound / 2 else "operations"})
     return rows
 
 

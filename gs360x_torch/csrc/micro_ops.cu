@@ -2,11 +2,12 @@
 // made of, as this card executes them. One __global__ function per
 // primitive; each loads its block once, applies the primitive `reps` times
 // with every application depending on the one before, and stores the
-// result block. Every block of the grid (for a product, every chain, two
-// or four of them a CUDA block) does the same work on the same inputs and
-// stores the same values to the same output (a benign race), so time /
-// (grid * reps) is the cost of one application with the launch and the
-// loads amortised.
+// result block. Every block of the grid (for a product, concat and the
+// counted loop, every chain, two to eight of them a CUDA block) does the
+// same work on the same inputs and stores the same values to the same
+// output (a benign race; concat and the loop store once a CUDA block), so
+// time / (grid * reps) is the cost of one application with the launch and
+// the loads amortised.
 //
 // Replaces micro_ops.py `bench` (the Pallas call) and the 14 kernel bodies
 // of its `main`: mul on an (8,128) and a (64,128) tile; gather along axis
@@ -26,11 +27,12 @@
 //
 // Bound of the 12 that are not products: none moves device memory worth
 // naming (a few KB to 0.4 MB per block, resident in L1/L2 after the first
-// block); each is bound by FP32 issue (mul, where, loop: 67 TFLOP/s) or by
-// shared memory (gathers, roll, slice, update, replication, composite:
-// 128 B a clock an SM, 33.5 TB/s), whichever its count of f32 operations
-// and of elements it must gather, roll, slice, update or replicate makes
-// larger (micro_ops_cuda.MicroOp).
+// block); each is bound by f32 instruction issue (mul, where, concat, loop:
+// 33.5 T instructions a second, a lone add or multiply one, where's compare
+// and predicated multiply two) or by shared memory (gathers, roll, slice,
+// update, composite: 128 B a clock an SM, 33.5 TB/s, a store and each read
+// of every value that crosses threads), whichever is larger
+// (micro_ops_cuda.MicroOp).
 //
 // The products run on the tensor cores, as the TPU bodies run on the MXU:
 // `wgmma` with TF32 operands, the only route to Hopper's tensor-core rate.
@@ -96,6 +98,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarpgroup = 128;
 constexpr int kLanes = 128;            // tile width
 constexpr int kTile8 = 8 * kLanes;     // elements of an (8,128) tile
 constexpr int kTile64 = 64 * kLanes;   // elements of a (64,128) tile
@@ -127,6 +130,14 @@ __global__ void mul_kernel(const float* __restrict__ a,
 // unpacked in registers across the loop.
 __device__ __forceinline__ void hold_u32(uint32_t& v) {
   asm volatile("" : "+r"(v));
+}
+
+// Hands `v` to an empty `asm volatile` and back: the compiler must compute
+// it (nothing else may use it), cannot know what comes back (each call's 0
+// is a 0 of its own), and moves no memory access across it (no read of a
+// wgmma accumulator above the wait for the wgmma that writes it).
+__device__ __forceinline__ void hold(float& v) {
+  asm volatile("" : "+f"(v)::"memory");
 }
 
 // Byte k of `w`, zero-extended (one PRMT).
@@ -269,30 +280,71 @@ __global__ void where_kernel(const float* __restrict__ a,
   for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = x[j];
 }
 
-// acc(64,128) += concat of 8 copies of x(8,128) along axis 0, `reps` times:
-// the 8-row tile in shared memory, replicated into the 64-row accumulator.
-__global__ void concat_kernel(const float* __restrict__ a,
-                              float* __restrict__ out, int reps) {
-  constexpr int kPer = kTile64 / kThreads;
-  __shared__ float xs[kTile8];
-  float acc[kPer];
-  for (int e = threadIdx.x; e < kTile8; e += kThreads) xs[e] = a[e];
+// acc(64,128) += concat of 8 copies of x(8,128) along axis 0, `reps` times.
+// Accumulator element e adds x[e mod 1024], so a thread that holds the x of
+// its own elements needs no other thread and no shared memory: thread t of
+// a warpgroup (4 warps) owns elements e = t + 128 j (j < 64), whose sources
+// are x[t + 128 (j mod 8)], 8 values loaded once a block. An application is
+// one FADD an accumulator element, in the plain order (acc + x).
+//
+// What bounds it then is f32 issue: 8192 FADD a chain-application. A block
+// is two warpgroups, and each runs kConcatTurns of the grid's chains (grid
+// blocks) in turn, so 2048 chains are 256 blocks of 8 warps: one wave of at
+// most two blocks an SM (16 chains on the busiest SM against a mean of
+// 15.5), x loaded 256 times, and one store of the (64,128) result a block,
+// by the block's first chain (the function's output is that one block):
+// 8 MB of stores where a store a chain wrote 64 MB to the same addresses.
+// The other chains' final values go through `hold`, so no chain is dead
+// code.
+//
+// Elements j and j + 8 of a thread add the same x from the same 0, and
+// every turn repeats the last: the compiler could merge such chains or
+// hoist a turn. Each accumulator's 0 therefore comes out of its own `hold`
+// at the start of each turn, a value the compiler cannot know. The loops stay rolled (`#pragma unroll 1`), so the kernel holds
+// exactly one FADD for each of a thread's 64 accumulator elements: a
+// merged or dropped chain shows in `cuobjdump -sass` (chip_smoke.py).
+constexpr int kConcatThreads = 2 * kWarpgroup;
+constexpr int kConcatPer = kTile64 / kWarpgroup;     // 64 elements a thread
+constexpr int kConcatSources = kTile8 / kWarpgroup;  // 8 x values a thread
+constexpr int kConcatTurns = 4;
+constexpr int kConcatChains = 2 * kConcatTurns;      // chains a block
+
+__global__ void __launch_bounds__(kConcatThreads, 2)
+    concat_kernel(const float* __restrict__ a, float* __restrict__ out,
+                  int reps, int grid) {
+  const int wg = threadIdx.x / kWarpgroup;
+  const int t = threadIdx.x % kWarpgroup;
+  float x[kConcatSources];
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) acc[j] = 0.0f;
-  __syncthreads();
-  const volatile float* xv = xs;
-  for (int r = 0; r < reps; ++r) {
+  for (int i = 0; i < kConcatSources; ++i) x[i] = a[t + kWarpgroup * i];
+  float acc[kConcatPer];
+  const int first = static_cast<int>(blockIdx.x) * kConcatChains + wg;
+#pragma unroll 1
+  for (int turn = 0; turn < kConcatTurns; ++turn) {
+    if (first + 2 * turn >= grid) return;   // no barrier follows
 #pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      acc[j] = __fadd_rn(acc[j], xv[(threadIdx.x + j * kThreads) % kTile8]);
+    for (int j = 0; j < kConcatPer; ++j) {
+      acc[j] = 0.0f;
+      hold(acc[j]);
+    }
+#pragma unroll 1
+    for (int r = 0; r < reps; ++r) {
+#pragma unroll
+      for (int j = 0; j < kConcatPer; ++j)
+        acc[j] = __fadd_rn(acc[j], x[j % kConcatSources]);
+    }
+    if (wg == 0 && turn == 0) {
+#pragma unroll
+      for (int j = 0; j < kConcatPer; ++j) out[t + kWarpgroup * j] = acc[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < kConcatPer; ++j) hold(acc[j]);
+    }
   }
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = acc[j];
 }
 
 // ---- the products on the tensor cores (see the note at the top) ----------
 
-constexpr int kWarpgroup = 128;
 constexpr int kKSteps = kLanes / 8;                    // k-steps of 8 a pass
 constexpr uint32_t kCoreBytes = 128;                   // leading byte offset
 constexpr uint32_t kGroupBytes = kLanes * 8 * 4;       // stride byte offset
@@ -350,11 +402,6 @@ __device__ __forceinline__ void wgmma_wait_all() {
 // Generic-proxy stores to shared memory, made visible to wgmma's reads.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Keeps the compiler from moving a read of an accumulator register above
-// the wait for the wgmma that writes it.
-__device__ __forceinline__ void hold(float& v) {
-  asm volatile("" : "+f"(v)::"memory");
 }
 
 // d(64x128) = (accumulate ? d : 0) + A(64x8, TF32 registers) @ B(8x128,
@@ -635,20 +682,42 @@ __global__ void dyn_roll_kernel(const float* __restrict__ a,
 }
 
 // acc = x; acc += 1.0, `reps` times: the cost of one counted-loop
-// iteration around a trivial body.
-__global__ void loop_kernel(const float* __restrict__ a,
-                            float* __restrict__ out, int reps) {
-  constexpr int kPer = kTile8 / kThreads;
-  float acc[kPer];
+// iteration around a trivial body. The primitive is the iteration, so the
+// loop stays rolled (`#pragma unroll 1`): one real iteration an
+// application. One warp is a chain (a grid block): lane l owns elements
+// l + 32 j (j < 32), 32 FADD a thread an iteration, and the iteration's
+// counter, compare and branch are paid once a chain-application (with a
+// chain in 8 warps, 8 times). What bounds it is f32 issue: 1024 FADD and 3
+// loop instructions a chain-application. 2048 chains are 256 blocks of 8
+// warps, one wave of at most two blocks an SM (16 chains on the busiest SM
+// against a mean of 15.5); one store of the (8,128) result a block, by its
+// first warp, the others' final values kept alive by `hold`. The kernel
+// holds one FADD for each of a thread's 32 elements.
+constexpr int kLoopThreads = 256;
+constexpr int kLoopChains = kLoopThreads / 32;   // a chain a warp
+constexpr int kLoopPer = kTile8 / 32;            // 32 elements a thread
+
+__global__ void __launch_bounds__(kLoopThreads, 2)
+    loop_kernel(const float* __restrict__ a, float* __restrict__ out,
+                int reps, int grid) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (static_cast<int>(blockIdx.x) * kLoopChains + warp >= grid) return;
+  float acc[kLoopPer];
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) acc[j] = a[threadIdx.x + j * kThreads];
+  for (int j = 0; j < kLoopPer; ++j) acc[j] = a[lane + 32 * j];
 #pragma unroll 1
   for (int r = 0; r < reps; ++r) {
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) acc[j] = __fadd_rn(acc[j], 1.0f);
+    for (int j = 0; j < kLoopPer; ++j) acc[j] = __fadd_rn(acc[j], 1.0f);
   }
+  if (warp == 0) {
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = acc[j];
+    for (int j = 0; j < kLoopPer; ++j) out[lane + 32 * j] = acc[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kLoopPer; ++j) hold(acc[j]);
+  }
 }
 
 // o = a; then `reps` times: if (block >= first_block) o += 1.0, as a
@@ -869,8 +938,9 @@ cudaError_t launch_matmul8(const float* a, const float* b, float* out,
 }  // namespace
 
 // One primitive, `grid` blocks of 256 threads (the composite: 512; the
-// products: `grid` chains, kChains64 or kChains8 a block), `reps`
-// applications each.
+// products, concat and the counted loop: `grid` chains, kChains64,
+// kChains8, kConcatChains or kLoopChains a block), `reps` applications
+// each.
 // op: 0 mul (8,128) | 1 mul (64,128) | 2 gather axis 1 (8,128) | 3 gather
 // axis 1 (64,128) | 4 gather axis 0 (8,128) | 5 where | 6 concat | 7
 // product (64,128)@(128,128) | 8 product (8,128)@(128,128) | 9 dynamic
@@ -915,7 +985,8 @@ extern "C" int gs360x_micro_op(int op, const void* in0, const void* in1,
       where_kernel<<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
       break;
     case kConcat:
-      concat_kernel<<<grid, kThreads, 0, s>>>(f0, o, reps);
+      concat_kernel<<<(grid + kConcatChains - 1) / kConcatChains,
+                      kConcatThreads, 0, s>>>(f0, o, reps, grid);
       break;
     case kMatmul64:
       return static_cast<int>(launch_matmul64(f0, f1, o, reps, grid, s));
@@ -925,7 +996,8 @@ extern "C" int gs360x_micro_op(int op, const void* in0, const void* in1,
       dyn_roll_kernel<<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
       break;
     case kLoop:
-      loop_kernel<<<grid, kThreads, 0, s>>>(f0, o, reps);
+      loop_kernel<<<(grid + kLoopChains - 1) / kLoopChains, kLoopThreads, 0,
+                    s>>>(f0, o, reps, grid);
       break;
     case kWhenRmw:
       when_rmw_kernel<<<grid, kThreads, 0, s>>>(f0, o, reps, param);

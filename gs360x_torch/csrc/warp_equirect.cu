@@ -32,9 +32,10 @@
 // Bound on the H100. With the f32 store the bytes that must move bound it
 // (12 bytes written a pixel against the touched source texels read once).
 // With the u8 store a view set writes a quarter of that and the bound
-// becomes its operations: ~216 f32 operations a bicubic pixel (96 of taps,
-// the weights, the ray, libdevice atan2f / asinf; sinf / cosf for fisheye
-// rays). Built without fast math: the approximate atan2f / asinf move u by
+// becomes its operations: ~138 f32 instructions a bicubic pixel must issue
+// (60 tap FMAs, 24 for the weights, ~54 for the ray with atan2 and asin as
+// polynomials; chip_smoke.TAP_INSNS_PER_PX), at 33.5 T a second. Built
+// without fast math: the approximate atan2f / asinf move u by
 // more than 0.01 px at 8K. What it reaches is set by instruction issue, not
 // by memory: a bicubic pixel is ~680 instructions, ~470 of them the
 // coordinate chain (13 IEEE divisions, sqrt, atan2f, asinf, the weights),

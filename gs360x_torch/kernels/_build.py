@@ -169,23 +169,25 @@ def ptxas_report() -> list:
     return report
 
 
-def sass_counts(opcodes: Tuple[str, ...] = ("HGMMA", "HMMA")
-                ) -> Dict[str, int]:
-    """How many instructions with one of ``opcodes`` each kernel of the
-    loaded library holds, by mangled name, read from ``cuobjdump -sass``
-    (kernels with none are left out)."""
+def sass_counts(opcodes: Tuple[str, ...]) -> Dict[str, Dict[str, int]]:
+    """How many instructions of each of ``opcodes`` each kernel of the
+    loaded library holds, ``{mangled name: {opcode: count}}``, read from
+    ``cuobjdump -sass`` (kernels and opcodes with none are left out)."""
     load()
     proc = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
                            str(library_path)], capture_output=True,
                           text=True, check=True)
-    wanted = re.compile(r"\b(?:%s)\." % "|".join(opcodes))
-    counts: Dict[str, int] = {}
+    wanted = re.compile(r"\b(%s)[.\s]" % "|".join(opcodes))
+    counts: Dict[str, Dict[str, int]] = {}
     name = ""
     for line in proc.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-        elif name and wanted.search(line):
-            counts[name] = counts.get(name, 0) + 1
+        elif name:
+            found = wanted.search(line)
+            if found:
+                held = counts.setdefault(name, {})
+                held[found.group(1)] = held.get(found.group(1), 0) + 1
     return counts
 
 

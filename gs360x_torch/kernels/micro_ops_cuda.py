@@ -21,7 +21,7 @@ primitive; ``LAUNCHES`` (their sum) and ``PLAIN_CALLS`` count as in
 the card could take for a launch; :func:`smem_wavefronts` counts the
 shared-memory wavefronts of a gather's warp-loads, and
 :func:`block_loop_wavefronts` and :func:`wavefront_floor_ms` apply it to
-the (64,128) gather and the composite.
+the two axis-1 gathers and the composite (``WAVEFRONT_MODELS``).
 
 Indices are int32 and must lie inside the tile (the kernels mask them to
 it, the plain versions raise on an index outside it).
@@ -47,8 +47,12 @@ OP_REPS = 64     # nominal applications per block
 
 # Published H100 SXM rates (dense): f32 outside the tensor cores, TF32 on
 # them, and shared memory: 128 B a clock an SM x 132 SMs x 1.98 GHz, the
-# clock the 67 TFLOP/s is quoted at.
+# clock the 67 TFLOP/s is quoted at. The 67 counts an FMA as two flops: the
+# four schedulers of an SM issue one warp-instruction a clock each, whatever
+# the pipe, so a lone f32 multiply or add issues at half that, 33.5 T a
+# second (FP32_ISSUE_T), as does an FMA counted as one instruction.
 FP32_TFLOPS = 67.0
+FP32_ISSUE_T = FP32_TFLOPS / 2
 TF32_TFLOPS = 495.0
 SMEM_TBS = 33.5
 SMEM_CLOCK_GHZ = 1.98   # that clock
@@ -173,13 +177,27 @@ class MicroOp:
     ``per_loop`` applications a loop, on ``grid`` blocks (None: ``GRID``),
     as ``micro_ops.py`` does.
 
-    What one loop of one block must do, for its bound: ``flops_per_loop``
-    f32 operations (a product's 2·M·N·K, which the kernel runs on the
-    tensor cores: that count gives the FMA bound only);
-    ``smem_bytes_per_loop``, 4 bytes an element gathered, rolled, sliced,
-    updated or replicated across threads, nothing for the kernel's own
-    layout; ``tc_flops_per_loop``, a product's tensor-core operations,
-    ``TF32_PASSES`` · 2·M·N·K."""
+    What one loop of one block must do, for its bound:
+
+    - ``issue_per_loop``: the f32 instructions it must issue, for each
+      element at each application a lone multiply or add 1, a compare and
+      a predicated multiply 2, an FMA 1 (a product's M·N·K FMAs, which the
+      kernel runs on the tensor cores: that count gives the FMA bound
+      only);
+    - ``smem_bytes_per_loop``: 4 bytes for each store of a value that
+      crosses threads and 4 for each of its reads; a value that only the
+      thread that stored it reads back counts nothing, nor does what the
+      kernel's own layout puts in shared memory (``concat``'s body reads
+      its ref once, before its loop, and replicates a value: 0). Two
+      exceptions, each a memory access of the Pallas body that registers
+      cannot stand for: a row offset chosen at run time cannot index
+      registers, so a dynamic slice's reads count; and a body that writes
+      a ref every application (``when_rmw``'s ``o_ref[...] += 1.0``)
+      counts that read and that write, whichever thread reads them back,
+      since that round trip is the work it measures (in registers it
+      would be ``loop``'s adds under a branch);
+    - ``tc_flops_per_loop``: a product's tensor-core operations,
+      ``TF32_PASSES`` · 2·M·N·K."""
 
     key: str
     label: str
@@ -192,7 +210,7 @@ class MicroOp:
     loops_div: int = 1
     per_loop: int = 1
     grid: Optional[int] = None
-    flops_per_loop: int = 0
+    issue_per_loop: int = 0
     smem_bytes_per_loop: int = 0
     tc_flops_per_loop: int = 0
 
@@ -202,44 +220,50 @@ _TAPS, _ROWS = (4, 64, 128), (4, 8, 8, 128)
 
 OPS: Dict[str, MicroOp] = {op.key: op for op in (
     MicroOp("mul8", "mul (8,128)", 0, ("a8",), (_T8,), (False,), _T8,
-            _plain_mul, flops_per_loop=1024),
+            _plain_mul, issue_per_loop=1024),
     MicroOp("mul64", "mul (64,128)", 1, ("a64",), (_T64,), (False,), _T64,
-            _plain_mul, flops_per_loop=8192),
+            _plain_mul, issue_per_loop=8192),
+    # the new tile is stored every application for other lanes to read
     MicroOp("gather_lane8", "lane-gather axis1 (8,128)", 2, ("a8", "idx8"),
             (_T8, _T8), (False, True), _T8, _plain_gather_lane,
-            flops_per_loop=1024, smem_bytes_per_loop=4 * 1024),
+            issue_per_loop=1024, smem_bytes_per_loop=8 * 1024),
     MicroOp("gather_lane64", "lane-gather axis1 (64,128)", 3,
             ("a64", "idx64"), (_T64, _T64), (False, True), _T64,
-            _plain_gather_lane, flops_per_loop=8192,
-            smem_bytes_per_loop=4 * 8192),
+            _plain_gather_lane, issue_per_loop=8192,
+            smem_bytes_per_loop=8 * 8192),
     MicroOp("gather_sub8", "sublane-gather axis0 (8,128)<-8", 4,
             ("a8", "ridx8"), (_T8, _T8), (False, True), _T8,
-            _plain_gather_sub, flops_per_loop=1024,
+            _plain_gather_sub, issue_per_loop=1024,
             smem_bytes_per_loop=4 * 1024),
+    # compare idx == r, then a multiply predicated on it
     MicroOp("where", "where (8,128)", 5, ("a8", "ridx8"), (_T8, _T8),
-            (False, True), _T8, _plain_where, flops_per_loop=1024),
+            (False, True), _T8, _plain_where, issue_per_loop=2 * 1024),
+    # accumulator element e adds x[e mod 1024]: a thread can hold the x of
+    # its own elements, so nothing crosses threads
     MicroOp("concat", "concat 8x(8,128)->(64,128) [/8 reps]", 6, ("a8",),
             (_T8,), (False,), _T64, _plain_concat, loops_div=8, per_loop=8,
-            flops_per_loop=8192, smem_bytes_per_loop=4 * 8192),
+            issue_per_loop=8192),
     MicroOp("matmul64", "matmul (64,128)@(128,128) f32-default", 7,
             ("a64", "a128"), (_T64, _T128), (False, False), _T64,
-            _plain_matmul, flops_per_loop=2 * 64 * 128 * 128,
+            _plain_matmul, issue_per_loop=64 * 128 * 128,
             tc_flops_per_loop=TF32_PASSES * 2 * 64 * 128 * 128),
     MicroOp("matmul8", "matmul (8,128)@(128,128) f32-default", 8,
             ("a8", "a128"), (_T8, _T128), (False, False), _T8,
-            _plain_matmul, flops_per_loop=2 * 8 * 128 * 128,
+            _plain_matmul, issue_per_loop=8 * 128 * 128,
             tc_flops_per_loop=TF32_PASSES * 2 * 8 * 128 * 128),
     MicroOp("dyn_roll", "dynamic lane-roll (8,128)", 9, ("a8", "ridx8"),
             (_T8, _T8), (False, True), _T8, _plain_dyn_roll,
-            flops_per_loop=1024, smem_bytes_per_loop=4 * 1024),
+            issue_per_loop=1024, smem_bytes_per_loop=4 * 1024),
     MicroOp("loop", "fori_loop iteration (trivial body)", 10, ("a8",),
-            (_T8,), (False,), _T8, _plain_loop, flops_per_loop=1024),
+            (_T8,), (False,), _T8, _plain_loop, issue_per_loop=1024),
+    # the body's own read-modify-write of its output ref, an element read
+    # and written every application (the docstring's second exception)
     MicroOp("when_rmw", "pl.when + vmem rmw (8,128)", 11, ("a8",), (_T8,),
-            (False,), _T8, _plain_when_rmw, flops_per_loop=1024,
-            smem_bytes_per_loop=4 * 1024),
+            (False,), _T8, _plain_when_rmw, issue_per_loop=1024,
+            smem_bytes_per_loop=8 * 1024),
     MicroOp("dyn_slice", "dynamic-slice rows (8,128)<-(64,128)", 12,
             ("a64", "ridx8"), (_T64, _T8), (False, True), _T8,
-            _plain_dyn_slice, flops_per_loop=1024,
+            _plain_dyn_slice, issue_per_loop=1024,
             smem_bytes_per_loop=4 * 1024),
     MicroOp("chunk", "chunk_body composite (3ch)", 13,
             ("win", "relb", "wfb", "ry", "wv"),
@@ -247,10 +271,11 @@ OPS: Dict[str, MicroOp] = {op.key: op for op in (
             (False, True, False, True, False), _T8, _plain_chunk,
             loops_div=16, grid=256,
             # per channel: 4 mul + 3 add on (64,128), 4 mul + 4 add on
-            # (8,128); gathered: 4 taps of (64,128) along axis 1 from the
-            # replicated window, 4 of the kept row (8,128) along axis 0
-            flops_per_loop=3 * (7 * 8192 + 8 * 1024),
-            smem_bytes_per_loop=3 * 4 * (4 * 8192 + 4 * 1024)),
+            # (8,128), each rounded on its own; in shared memory: 4 taps of
+            # (64,128) along axis 1 from the replicated window, the ih
+            # store, 4 taps of the kept row (8,128) along axis 0
+            issue_per_loop=3 * (7 * 8192 + 8 * 1024),
+            smem_bytes_per_loop=3 * 4 * (4 * 8192 + 8192 + 4 * 1024)),
 )}
 
 
@@ -279,17 +304,17 @@ def bound_ms(op: MicroOp, loops: int, grid: Optional[int] = None
              ) -> Tuple[float, str, Dict[str, float]]:
     """The least time in ms the card could take for one launch of ``op`` at
     ``loops`` loops on ``grid`` blocks (None: the op's own grid), what
-    bounds it, and each resource's time: ``"f32"`` (``FP32_TFLOPS``),
-    ``"shared memory"`` (``SMEM_TBS``), ``"tensor cores"``
-    (``TF32_TFLOPS``) and ``"device memory"`` (inputs read once and the
-    block written once at 3.35 TB/s). A product's operations run on the
-    tensor cores, so its ``"f32"`` time, its bound on the FMA units, does
-    not enter its bound."""
+    bounds it, and each resource's time: ``"f32"`` (f32 instructions at
+    ``FP32_ISSUE_T``), ``"shared memory"`` (``SMEM_TBS``), ``"tensor
+    cores"`` (``TF32_TFLOPS``) and ``"device memory"`` (inputs read once
+    and the block written once at 3.35 TB/s). A product's operations run
+    on the tensor cores, so its ``"f32"`` time, its bound on the FMA
+    units, does not enter its bound."""
     n = (grid or op.grid or GRID) * loops
     elements = sum(math.prod(shape) for shape in op.shapes) \
         + math.prod(op.out_shape)
     times = {
-        "f32": n * op.flops_per_loop / (FP32_TFLOPS * 1e9),
+        "f32": n * op.issue_per_loop / (FP32_ISSUE_T * 1e9),
         "shared memory": n * op.smem_bytes_per_loop / (SMEM_TBS * 1e9),
         "tensor cores": n * op.tc_flops_per_loop / (TF32_TFLOPS * 1e9),
         "device memory": 4 * elements / (3.35 * 1e9),
@@ -317,19 +342,22 @@ def smem_wavefronts(words) -> int:
 def block_loop_wavefronts(key: str, inputs: Mapping[str, torch.Tensor]
                           ) -> Dict[str, int]:
     """The shared-memory wavefronts one loop of one block of ``key``'s
-    kernel takes on ``inputs``, by access, and ``"bound"``: those the bound
-    counts (``smem_bytes_per_loop`` at 128 bytes a wavefront). A warp-load
-    of either kernel is 32 consecutive elements of one row.
+    kernel (one of ``WAVEFRONT_MODELS``) takes on ``inputs``, by access,
+    and ``"bound"``: those the bound counts (``smem_bytes_per_loop`` at 128
+    bytes a wavefront). A warp-load of each kernel is 32 consecutive
+    elements of one row.
 
-    ``gather_lane64``: the row gathers of the tile by ``idx64`` and the
-    store of the new tile. ``chunk`` (3 channels): the horizontal gathers
-    of each channel's window row by ``relb``, the ih store, and the
-    vertical gathers of the kept rows by ``ry``."""
+    ``gather_lane8`` and ``gather_lane64``: the row gathers of the tile by
+    ``idx8`` or ``idx64`` and the store of the new tile. ``chunk`` (3
+    channels): the horizontal gathers of each channel's window row by
+    ``relb``, the ih store, and the vertical gathers of the kept rows by
+    ``ry``."""
     rows = np.arange(64)[:, None]
-    if key == "gather_lane64":
-        idx = inputs["idx64"].cpu().numpy() & 127
-        got = {"gather": smem_wavefronts(rows * 128 + idx),
-               "store": 64 * 128 // 32}
+    if key in ("gather_lane8", "gather_lane64"):
+        name, height = ("idx8", 8) if key == "gather_lane8" else ("idx64", 64)
+        idx = inputs[name].cpu().numpy() & 127
+        got = {"gather": smem_wavefronts(rows[:height] * 128 + idx),
+               "store": height * 128 // 32}
     elif key == "chunk":
         relb = inputs["relb"].cpu().numpy() & 127
         ry = inputs["ry"].cpu().numpy()[:, :, 0] & 7     # (4, 8, 128)
@@ -344,6 +372,9 @@ def block_loop_wavefronts(key: str, inputs: Mapping[str, torch.Tensor]
         raise ValueError(f"block_loop_wavefronts: no model for {key}")
     got["bound"] = OPS[key].smem_bytes_per_loop // 128
     return got
+
+
+WAVEFRONT_MODELS = ("gather_lane8", "gather_lane64", "chunk")
 
 
 def wavefront_floor_ms(key: str, inputs: Mapping[str, torch.Tensor],
@@ -428,8 +459,8 @@ def micro_op(key: str, tensors: Sequence[torch.Tensor], reps: int,
 
 
 # How a kernel is held to its plain version on the same device. Gathers,
-# where, concat, roll and slice only move or select values, and their
-# accumulations add in one order: bitwise. mul, the counted loop, the
+# where, concat, roll, the counted loop and slice only move or select
+# values, and their accumulations add in one order: bitwise. mul, the
 # predicated update and the composite: 1e-6 relative (a plain version may
 # contract a multiply-add). The products: 1e-5 relative a step against the
 # f32 product (three TF32 passes keep ~21 bits of each operand and sum in
@@ -437,12 +468,24 @@ def micro_op(key: str, tensors: Sequence[torch.Tensor], reps: int,
 # of uniform [0, 1) rows overflow f32.
 PRODUCTS = ("matmul64", "matmul8")
 BITWISE = frozenset({"gather_lane8", "gather_lane64", "gather_sub8", "where",
-                     "concat", "dyn_roll", "dyn_slice"})
-# the loops at which the products and the two redesigned kernels are held to
-# their plain versions on the card (the others at their nominal loops); the
-# deepest is also the depth of the check across grids and launches
+                     "concat", "dyn_roll", "loop", "dyn_slice"})
+# what ``cuobjdump -sass`` must show of a kernel: the opcodes counted and
+# how many it must hold (None: at least one). The products run on the
+# tensor cores. The adds of concat and loop sit in a loop that is not
+# unrolled: one FADD for each accumulator element a thread holds, so a
+# chain that nvcc merged with another or dropped shows as fewer
+SASS_CHECKS: Dict[str, Tuple[Tuple[str, ...], Optional[int]]] = {
+    "matmul64": (("HGMMA", "HMMA"), None),
+    "matmul8": (("HGMMA", "HMMA"), None),
+    "concat": (("FADD", "FADD32I"), 64),
+    "loop": (("FADD", "FADD32I"), 32),
+}
+# the loops at which the redesigned kernels are held to their plain
+# versions on the card (the others at their nominal loops); the deepest is
+# also the depth of the check across grids and launches
 CHECK_LOOPS = {"matmul64": (1, 8), "matmul8": (1, 8),
-               "gather_lane64": (1, 8, 64), "chunk": (1, 4, 8)}
+               "gather_lane64": (1, 8, 64), "chunk": (1, 4, 8),
+               "concat": (1, 8, 64), "loop": (1, 8, 64)}
 
 
 def rel_tolerance(key: str, loops: int) -> float:

@@ -35,11 +35,12 @@ warp and remap kernels are printed for trees that have
 ``--out FILE`` every run's numbers to that file as JSON.
 
 With ``--micro-ops`` it times ``micro_ops`` kernels instead, the
-primitives ``--keys`` names (by default the two products, ``matmul64``:
-(64,128)@(128,128) and ``matmul8``: (8,128)@(128,128), ``x <- x @ b`` 64
-times in each of 2048 blocks; the composite ``chunk``, 4 loops in each of
-256 blocks; and ``gather_lane64``, the (64,128) axis-1 gather 64 times in
-each of 2048 blocks), in the same turns: the kernel's device time a launch
+primitives ``--keys`` names (by default ``concat``, ``acc(64,128) +=``
+eight copies of an (8,128) tile, 8 loops in each of 2048 blocks, and
+``loop``, a counted loop of ``acc += 1`` over an (8,128) tile, 64
+iterations in each of 2048 blocks; any of the 14, for example the two
+products ``matmul64,matmul8``, the composite ``chunk`` or
+``gather_lane64``), in the same turns: the kernel's device time a launch
 without the wrapper's host time (events around a CUDA graph's replay of 10
 launches, by this checkout's ``profiling.device_ms`` for every tree)
 and its event time; its error against the plain version relative to
@@ -62,7 +63,7 @@ import sys
 import tempfile
 
 PRODUCTS = ("matmul64", "matmul8")
-MICRO_KEYS = PRODUCTS + ("chunk", "gather_lane64")   # --micro-ops default
+MICRO_KEYS = ("concat", "loop")   # --micro-ops default
 SHAPES = ("yaw ring 8x1920x1080", "default 8x1600²", "full360coverage 12x1600²",
           "fisheyeXY 2x3600²", "pole 1x1600²", "equisolid 1x2048²",
           "SFM10 10x1750²", "undistort 3840²",

@@ -14,8 +14,8 @@ the FrameSelector gray (bitwise) and ``score_frame`` for every metric, and
 both optical flows; the 14 ``micro_ops`` kernels against their plain
 versions (movers bitwise, arithmetic at 1e-6, the products, three TF32
 passes on the tensor cores, at 1e-5 a step and at most 8 steps), the
-grid-invariant and repeated blocks of the products, the composite and the
-(64,128) gather; and MaskSeg's device
+grid-invariant and repeated blocks of the products, the composite, the
+(64,128) gather, concat and the counted loop; and MaskSeg's device
 steps against the CPU: the U-Net's logits with TF32 off (1e-3), the
 morphology bitwise, the blur (1e-6), the inpaint (1e-5) and
 ``combined_mask``; the training step by
@@ -497,7 +497,7 @@ def test_micro_op_kernel_matches_plain(dev, key, loops):
 
 
 @pytest.mark.parametrize("key", ["chunk", "gather_lane64", "matmul64",
-                                 "matmul8"])
+                                 "matmul8", "concat", "loop"])
 def test_micro_op_grid_and_zero_reps(dev, key):
     """Every block stores the same block: the grid does not enter the
     result, and a second launch repeats it bit for bit; zero applications

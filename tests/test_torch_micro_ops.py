@@ -27,8 +27,11 @@ transposed product over four chains a block (8 rows) they give the plain
 product.
 """
 
+import ast
+import inspect
 import pathlib
 import sys
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -402,6 +405,154 @@ def test_chunk_emulation(recorded, loops):
                                atol=1e-6 * float(np.abs(ref).max()))
 
 
+# ---- concat and the counted loop, emulated -----------------------------------
+
+WARPGROUP = 128          # micro_ops.cu: a concat chain's threads
+CONCAT_TURNS = 4         # kConcatTurns: chains a warpgroup runs in turn
+CONCAT_CHAINS = 2 * CONCAT_TURNS   # kConcatChains: chains a CUDA block
+LOOP_CHAINS = 8          # kLoopChains: a chain a warp, 8 warps a block
+
+
+def concat_layout():
+    """Thread t of a warpgroup: its accumulator elements t + 128 j (j <
+    64) and the x element each adds, t + 128 (j mod 8)."""
+    t = np.arange(WARPGROUP)[:, None]
+    j = np.arange(64 * 128 // WARPGROUP)[None, :]
+    return t + WARPGROUP * j, t + WARPGROUP * (j % 8)
+
+
+def loop_layout():
+    """Lane l of a warp: its elements l + 32 j (j < 32)."""
+    return np.arange(32)[:, None] + 32 * np.arange(8 * 128 // 32)[None, :]
+
+
+def concat_chains(grid):
+    """(block, warpgroup, turn, chain) in the order the kernel runs them:
+    block b's warpgroup w takes chains 8b + w + 2 k in turn k and leaves
+    at the first past the grid."""
+    for block in range(-(-grid // CONCAT_CHAINS)):
+        for wg in range(2):
+            for turn in range(CONCAT_TURNS):
+                chain = block * CONCAT_CHAINS + wg + 2 * turn
+                if chain >= grid:
+                    break
+                yield block, wg, turn, chain
+
+
+def emulate_concat(a, loops, grid):
+    """Every chain of the grid as the kernel runs it: x of a thread's own
+    elements loaded once, each accumulator from 0, one add an element a
+    loop in the plain order; the result stored by each block's first chain
+    (warpgroup 0, turn 0), which must agree with every other chain."""
+    elems, src = concat_layout()
+    x = a.reshape(-1)[src]
+    out, stored, finals = np.full(64 * 128, np.nan, np.float32), 0, []
+    for _block, wg, turn, _chain in concat_chains(grid):
+        acc = np.zeros(elems.shape, np.float32)
+        for _ in range(loops):
+            acc = acc + x
+        finals.append(acc)
+        if wg == 0 and turn == 0:
+            out[elems] = acc
+            stored += 1
+    assert stored == -(-grid // CONCAT_CHAINS)
+    assert all(np.array_equal(f, finals[0]) for f in finals)
+    return out.reshape(64, 128)
+
+
+def emulate_loop(a, loops, grid):
+    """Every chain (warp) of the grid: its lanes' 32 elements each loaded,
+    one add of 1 an element an iteration; the result stored by each
+    block's warp 0."""
+    elems = loop_layout()
+    out, finals = np.full(8 * 128, np.nan, np.float32), []
+    for chain in range(grid):
+        acc = a.reshape(-1)[elems]
+        for _ in range(loops):
+            acc = acc + np.float32(1.0)
+        finals.append(acc)
+        if chain % LOOP_CHAINS == 0:
+            out[elems] = acc
+    assert all(np.array_equal(f, finals[0]) for f in finals)
+    return out.reshape(8, 128)
+
+
+@pytest.mark.parametrize("grid", [1, 11, 2048])
+def test_concat_and_loop_layouts(grid):
+    """Each accumulator element has one owner a chain and each of its adds
+    reads the x of its own thread (concat's sources are its own elements
+    mod 1024); every chain of the grid runs once, in a block of its own
+    share; a warp-load or -store is 32 consecutive elements."""
+    elems, src = concat_layout()
+    np.testing.assert_array_equal(np.sort(elems.ravel()), np.arange(8192))
+    np.testing.assert_array_equal(src, elems % 1024)
+    assert len(np.unique(src, axis=None)) == 1024
+    chains = [c for _b, _w, _t, c in concat_chains(grid)]
+    assert sorted(chains) == list(range(grid))
+    blocks = {b for b, _w, _t, _c in concat_chains(grid)}
+    assert len(blocks) == -(-grid // CONCAT_CHAINS)
+    lanes = loop_layout()
+    np.testing.assert_array_equal(np.sort(lanes.ravel()), np.arange(1024))
+    for layout in (elems, lanes):
+        loads = layout.reshape(-1, 32, layout.shape[1]).transpose(0, 2, 1)
+        assert (np.diff(loads, axis=2) == 1).all()
+        assert (loads[..., 0] % 32 == 0).all()
+
+
+@pytest.mark.parametrize("loops", [1, REPS])
+@pytest.mark.parametrize("key", ["concat", "loop"])
+def test_concat_and_loop_emulation(recorded, key, loops):
+    """The redesigned concat and counted loop at 1 and REPS loops over a
+    ragged grid of 11 chains: bitwise the plain version and the Pallas body
+    (run at ``OP_REPS`` = the loops' applications)."""
+    op = mo.OPS[key]
+    body, out_shape, arrays = recorded[op.label]
+    a = np.array(arrays[0])
+    emulate = emulate_concat if key == "concat" else emulate_loop
+    got = emulate(a, loops, 11)
+    plain = mo.micro_op(key, [torch.from_numpy(a)], loops)
+    np.testing.assert_array_equal(got, plain.numpy())
+    scope = body.__globals__
+    saved = scope["OP_REPS"]
+    scope["OP_REPS"] = op.loops_div * loops
+    try:
+        ref = run_pallas(body, out_shape, arrays)
+    finally:
+        scope["OP_REPS"] = saved
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        emulate(a, 0, 11), mo.micro_op(key, [torch.from_numpy(a)], 0).numpy())
+
+
+def test_sass_counts_reads_cuobjdump(monkeypatch):
+    """``_build.sass_counts`` counts an opcode with or without modifiers
+    by kernel, and no opcode that merely starts with the same letters."""
+    from gs360x_torch.kernels import _build
+    sass = "\n".join([
+        "  Function : _ZN12_GLOBAL__N_113concat_kernelEPKfPfii",
+        "  /*0100*/   FADD R4, R4, R12 ;   /* 0x0000000c04047221 */",
+        "  /*0110*/   FADD.FTZ R5, R5, R13 ;",
+        "  /*0120*/   FADD32I R6, R6, 0.5 ;",
+        "  /*0130*/   DFADD R8, R8, R10 ;",
+        "  /*0140*/   FFMA R7, R7, R7, R7 ;",
+        "  Function : _ZN12_GLOBAL__N_118tc_matmul64_kernelEPKfS1_Pfii",
+        "  /*0200*/   HGMMA.64x128x8.F32.TF32 R24, gdesc[UR4], R24 ;",
+        "  /*0210*/   FADD R1, R1, 1 ;",
+    ])
+    monkeypatch.setattr(_build, "load", lambda: None)
+    monkeypatch.setattr(_build, "_cuda_tool", lambda name: name)
+    monkeypatch.setattr(_build.subprocess, "run", lambda *a, **k: type(
+        "Done", (), {"stdout": sass})())
+    concat = "_ZN12_GLOBAL__N_113concat_kernelEPKfPfii"
+    matmul = "_ZN12_GLOBAL__N_118tc_matmul64_kernelEPKfS1_Pfii"
+    assert _build.sass_counts(("FADD", "FADD32I")) == {
+        concat: {"FADD": 2, "FADD32I": 1}, matmul: {"FADD": 1}}
+    assert _build.sass_counts(("HGMMA", "HMMA")) == {matmul: {"HGMMA": 1}}
+    assert _build.sass_counts(("HGMMA", "FADD32I", "FADD")) == {
+        concat: {"FADD": 2, "FADD32I": 1},
+        matmul: {"HGMMA": 1, "FADD": 1}}
+
+
 def brute_force_wavefronts(words):
     """One warp-load at a time: the distinct words each bank holds."""
     total = 0
@@ -413,15 +564,16 @@ def brute_force_wavefronts(words):
     return total
 
 
-@pytest.mark.parametrize("name,want", [("idx64", 710), ("relb", 2831)])
+@pytest.mark.parametrize("name,want", [("idx8", 90), ("idx64", 710),
+                                       ("relb", 2831)])
 def test_smem_wavefronts_of_the_seeded_gathers(name, want):
-    """The (64,128) gather's row reads by ``idx64`` a block-loop, and one
-    channel's horizontal taps of the composite by ``relb`` (ih row r reads
-    window row r % 8): the helper against a count made one warp-load at a
-    time."""
+    """The (8,128) and (64,128) gathers' row reads by ``idx8`` and
+    ``idx64`` a block-loop, and one channel's horizontal taps of the
+    composite by ``relb`` (ih row r reads window row r % 8): the helper
+    against a count made one warp-load at a time."""
     idx = mo.make_inputs()[name].numpy() & 127
-    rows = np.arange(64)[:, None]
-    words = rows * 128 + idx if name == "idx64" else (rows % 8) * 128 + idx
+    rows = np.arange(idx.shape[-2])[:, None]
+    words = (rows % 8) * 128 + idx if name == "relb" else rows * 128 + idx
     assert mo.smem_wavefronts(words) == brute_force_wavefronts(words) == want
 
 
@@ -435,23 +587,29 @@ def test_smem_wavefronts_edge_cases():
 
 
 def test_block_loop_wavefronts_and_floors():
-    """The seeded inputs' counts behind the two kernels' floors, and the
-    floors at grid 2048 (composite 256), reps 64, on 132 SMs."""
+    """The seeded inputs' counts behind the three kernels' floors, and the
+    floors at grid 2048 (composite 256), reps 64, on 132 SMs. The bound
+    counts a store and a read of each gathered element (the new tile is
+    stored for other lanes every application; the composite's ih too)."""
     inputs = mo.make_inputs()
+    assert mo.block_loop_wavefronts("gather_lane8", inputs) == {
+        "gather": 90, "store": 32, "bound": 64}
     assert mo.block_loop_wavefronts("gather_lane64", inputs) == {
-        "gather": 710, "store": 256, "bound": 256}
+        "gather": 710, "store": 256, "bound": 512}
     assert mo.block_loop_wavefronts("chunk", inputs) == {
         "gather": 3 * 2831, "store": 3 * 256, "vertical": 3 * 128,
-        "bound": 3 * 1152}
+        "bound": 3 * (1024 + 256 + 128)}
     floors = {key: mo.wavefront_floor_ms(key, inputs,
                                          mo.bench_loops(mo.OPS[key]), 132)
-              for key in ("gather_lane64", "chunk")}
+              for key in mo.WAVEFRONT_MODELS}
+    assert floors["gather_lane8"] == pytest.approx(0.061183, rel=1e-4)
     assert floors["gather_lane64"] == pytest.approx(0.48445, rel=1e-4)
     assert floors["chunk"] == pytest.approx(0.0378, rel=1e-3)
     bound = mo.bound_ms(mo.OPS["chunk"], 4)[0]
-    assert bound / floors["chunk"] == pytest.approx(0.358, rel=1e-2)
-    with pytest.raises(ValueError):
-        mo.block_loop_wavefronts("mul8", inputs)
+    assert bound / floors["chunk"] == pytest.approx(0.437, rel=1e-2)
+    for key in ("mul8", "concat", "loop"):
+        with pytest.raises(ValueError):
+            mo.block_loop_wavefronts(key, inputs)
 
 
 def test_device_ms_needs_a_card():
@@ -533,22 +691,57 @@ def test_device_ms_times_a_graph_replay(monkeypatch, nodes, kernels):
     assert _Graph.replays == 2 * profiling.DEVICE_BATCHES
 
 
+# f32 instructions and shared-memory bytes an output element a loop: a
+# lone add or multiply 1, where's compare + predicated multiply 2, a
+# product's K FMAs; 8 bytes where a value crossing threads is stored and
+# read every application (the gathers along axis 1) or where the body reads
+# and writes its own ref every application (when_rmw), 4 where it is only
+# read (axis-0 gather, roll, slice), none where no value crosses threads
+# (concat: a thread's accumulators add the x it holds)
+PER_ELEMENT = {"mul8": (1, 0), "mul64": (1, 0), "gather_lane8": (1, 8),
+               "gather_lane64": (1, 8), "gather_sub8": (1, 4),
+               "where": (2, 0), "concat": (1, 0), "matmul64": (128, 0),
+               "matmul8": (128, 0), "dyn_roll": (1, 4), "loop": (1, 0),
+               "when_rmw": (1, 8), "dyn_slice": (1, 4)}
+# the least time in ms at grid 2048 (composite 256), reps 64, and what
+# bounds it
+BOUNDS = {"mul8": (0.0040063, "f32"), "mul64": (0.032050, "f32"),
+          "gather_lane8": (0.032050, "shared memory"),
+          "gather_lane64": (0.25640, "shared memory"),
+          "gather_sub8": (0.016025, "shared memory"),
+          "where": (0.0080125, "f32"), "concat": (0.0040063, "f32"),
+          "matmul64": (1.6659, "tensor cores"),
+          "matmul8": (0.20824, "tensor cores"),
+          "dyn_roll": (0.016025, "shared memory"),
+          "loop": (0.0040063, "f32"),
+          "when_rmw": (0.032050, "shared memory"),
+          "dyn_slice": (0.016025, "shared memory"),
+          "chunk": (0.016528, "shared memory")}
+
+
 @pytest.mark.parametrize("key", list(mo.OPS))
 def test_every_primitive_has_a_bound(key):
     """Each primitive's least time at grid 2048, reps 64, by the quotient
     that bounds it: the products by three TF32 passes on the tensor cores
-    (their f32 time, the FMA bound, does not enter), movers by shared
-    memory, the rest by f32 issue."""
+    (their f32 time, the FMA bound, does not enter), the rest by f32
+    instructions at 33.5 T a second or by shared memory, whichever is
+    larger; each pinned."""
     op = mo.OPS[key]
     loops = mo.bench_loops(op)
     ms, by, times = mo.bound_ms(op, loops)
-    assert ms > 0.0 and ms == times[by]
+    assert (ms, by) == (pytest.approx(BOUNDS[key][0], rel=1e-4),
+                        BOUNDS[key][1])
+    assert ms == times[by]
     applications = (op.grid or mo.GRID) * loops
-    assert times["f32"] == pytest.approx(applications * op.flops_per_loop
-                                         / 67e9)
+    assert times["f32"] == pytest.approx(applications * op.issue_per_loop
+                                         / 33.5e9)
+    if key in PER_ELEMENT:
+        elements = op.out_shape[0] * op.out_shape[1]
+        assert (op.issue_per_loop, op.smem_bytes_per_loop) == tuple(
+            n * elements for n in PER_ELEMENT[key])
     if key in mo.PRODUCTS:
         assert by == "tensor cores"
-        assert ms == pytest.approx(applications * 3 * op.flops_per_loop
+        assert ms == pytest.approx(applications * 3 * 2 * op.issue_per_loop
                                    / 495e9)
         assert times["f32"] > ms
     elif op.smem_bytes_per_loop:
@@ -559,6 +752,52 @@ def test_every_primitive_has_a_bound(key):
         assert by == "f32"
     assert ms == max(t for k, t in times.items()
                      if not (k == "f32" and key in mo.PRODUCTS))
+
+
+def ref_accesses_in_loop(body):
+    """(the refs a Pallas body reads, the refs it writes) inside its loop:
+    subscripts of an argument named ``*_ref`` or of a local bound to one,
+    under a ``for`` (a nested ``pl.when`` body included)."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(body)))
+    refs = {a.arg for a in tree.body[0].args.args if a.arg.endswith("_ref")}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Name) \
+                and node.value.id in refs:
+            refs |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    loads, stores = set(), set()
+    for loop in (n for n in ast.walk(tree) if isinstance(n, ast.For)):
+        for node in ast.walk(loop):
+            if isinstance(node, ast.Subscript) \
+                    and isinstance(node.value, ast.Name) \
+                    and node.value.id in refs:
+                (loads if isinstance(node.ctx, ast.Load)
+                 else stores).add(node.value.id)
+        for node in ast.walk(loop):
+            if isinstance(node, ast.AugAssign) \
+                    and isinstance(node.target, ast.Subscript):
+                loads.add(node.target.value.id)
+    return loads, stores
+
+
+@pytest.mark.parametrize("key", list(mo.OPS))
+def test_shared_memory_exceptions_are_the_bodys_own_accesses(recorded, key):
+    """``MicroOp``'s shared-memory exceptions stand on the Pallas body:
+    only ``when_rmw``'s body writes a ref every application, and it counts
+    that read and that write (8 bytes an element); only ``dyn_slice``'s and
+    the composite's read one there; ``concat``'s touches none inside its
+    loop, so its replication of the x a thread holds counts nothing."""
+    op = mo.OPS[key]
+    loads, stores = ref_accesses_in_loop(recorded[op.label][0])
+    elements = op.out_shape[0] * op.out_shape[1]
+    assert bool(stores) == (key == "when_rmw")
+    assert bool(loads) == (key in ("when_rmw", "dyn_slice", "chunk"))
+    if key == "when_rmw":
+        assert loads == stores == {"o_ref"}
+        assert op.smem_bytes_per_loop == 8 * elements
+    if key == "dyn_slice":
+        assert op.smem_bytes_per_loop == 4 * elements
+    if key == "concat":
+        assert op.smem_bytes_per_loop == 0
 
 
 def test_product_bounds_at_the_benchmark_size():
