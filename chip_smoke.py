@@ -66,7 +66,9 @@ it went through the kernels only and that its pixels are right:
   products (three TF32 passes on the tensor cores, their HGMMA
   instructions counted in the built library) beside one cuBLAS f32 call a
   step; concat and the counted loop with their FADD instructions counted
-  likewise; the two axis-1 gathers and the composite beside the floor of
+  likewise, the (8,128) mul and where with their FMUL (and where with no
+  FSEL); where's and mul8's launch with no loop on one block beside the
+  grid's; the two axis-1 gathers and the composite beside the floor of
   their shared-memory wavefronts; then the primitives ranked by launches
   × (device − the larger of bound and floor).
 
@@ -2018,34 +2020,37 @@ def _micro_check(key, op, tensors, loops, grid) -> float:
 
 
 def _sass_kernels() -> dict:
-    """Each kernel of ``mo.SASS_CHECKS``'s instructions of its opcodes in
-    the built library, read once from ``cuobjdump -sass``; fails where a
-    count is not the one the table asks for (or none where it asks for
-    at least one)."""
-    counts = _build.sass_counts(tuple(dict.fromkeys(
-        op for ops, _ in mo.SASS_CHECKS.values() for op in ops)))
-    found, wrong = {}, []
-    for key, (ops, want) in mo.SASS_CHECKS.items():
-        found[key] = sum(held.get(op, 0) for name, held in counts.items()
-                         if f"{key}_kernel" in name for op in ops)
-        if (found[key] == 0) if want is None else (found[key] != want):
-            wrong.append(key)
+    """Each kernel of ``mo.SASS_CHECKS``: its instructions of each check's
+    opcodes in the built library, ``{key: "FMUL/FMUL32I 32, FSEL 0"}``,
+    read once from ``cuobjdump -sass``; fails where a count is not the one
+    the table asks for (or none where it asks for at least one)."""
+    rows = mo.sass_checks(_build.sass_counts(mo.SASS_OPCODES))
+    found = {}
+    for key, ops, n, _want, _ok in rows:
+        found.setdefault(key, []).append(f"{'/'.join(ops)} {n}")
     log("[micro_ops] instructions in cuobjdump -sass (the products' "
-        "HGMMA/HMMA; one FADD for each accumulator element a thread holds): "
-        + ", ".join(f"{key} {n} {'/'.join(mo.SASS_CHECKS[key][0])}"
-                    f" (wants {mo.SASS_CHECKS[key][1] or 'some'})"
-                    for key, n in found.items()))
+        "HGMMA/HMMA; one FADD or FMUL for each element a thread holds; "
+        "where's multiplies predicated, no FSEL): " + ", ".join(
+            f"{key} {'/'.join(ops)} {n} (wants "
+            f"{'some' if want is None else want})"
+            for key, ops, n, want, _ok in rows))
+    wrong = [row[:4] for row in rows if not row[4]]
     if wrong:
-        raise AssertionError(f"micro_ops: SASS counts {found} of "
-                             f"{wrong} are not {mo.SASS_CHECKS}")
-    return found
+        raise AssertionError(f"micro_ops: SASS counts (key, opcodes, "
+                             f"found, wanted) {wrong}")
+    return {key: ", ".join(got) for key, got in found.items()}
 
 
 # the primitives with rows of their own in the kernels line, and the Pallas
 # body each replaces (root micro_ops.py); they are also held bitwise across
-# grids 1 / GRID and two launches
+# grids 1 / 11 / GRID and two launches
 MICRO_ROWS = {"matmul64": 119, "matmul8": 132, "gather_lane64": 77,
-              "chunk": 196, "concat": 109, "loop": 159}
+              "chunk": 196, "concat": 109, "loop": 159, "where": 100,
+              "mul8": 59}
+# the fixed cost of a launch split from its blocks: no loop on one block
+# (grid 8: kChains) beside no loop on the grid's 256
+FIXED_COST_KEYS = ("where", "mul8")
+ONE_BLOCK_GRID = 8
 
 
 def _micro_library(key: str, tensors: list, grid: int):
@@ -2128,10 +2133,9 @@ def phase_micro_ops(dev, smi: str) -> dict:
                       for n in checks)
             if key in MICRO_ROWS:
                 n = max(checks)
-                one = mo.micro_op(key, tensors, n, 1)
-                runs = [mo.micro_op(key, tensors, n, grid) for _ in range(2)]
-                if not (torch.equal(one, runs[0])
-                        and torch.equal(runs[0], runs[1])):
+                runs = [mo.micro_op(key, tensors, n, g)
+                        for g in (1, 11, grid, grid)]
+                if not all(torch.equal(runs[0], r) for r in runs[1:]):
                     raise AssertionError(f"micro_ops {key}: the block "
                                          "differs across grids or launches")
             library, what = _micro_library(key, tensors, grid)
@@ -2152,10 +2156,9 @@ def phase_micro_ops(dev, smi: str) -> dict:
                           "library_ms": library_ms, "library": what}
             extra = ""
             if product:
-                extra = (f" | FMA bound {times['f32']:.4f} ms | "
-                         f"{sass[key]} HGMMA")
-            elif key in sass:
-                extra = f" | {sass[key]} FADD in the kernel"
+                extra = f" | FMA bound {times['f32']:.4f} ms"
+            if key in sass:
+                extra += f" | {sass[key]} in the kernel"
             if key in mo.WAVEFRONT_MODELS:
                 waves = mo.block_loop_wavefronts(key, inputs)
                 floor = mo.wavefront_floor_ms(key, inputs, loops, sms)
@@ -2174,6 +2177,9 @@ def phase_micro_ops(dev, smi: str) -> dict:
                 lambda: mo.micro_op(key, tensors, 4 * loops, grid))[0]
             loop_ms = (deep_ms - ms) / (3 * loops)
             stats[key].update(zero_loop_ms=zero_ms, loop_ms=loop_ms)
+            if key in FIXED_COST_KEYS:
+                stats[key]["one_block_zero_ms"] = device_ms(
+                    lambda: mo.micro_op(key, tensors, 0, ONE_BLOCK_GRID))[0]
             floor = stats[key].get("wavefront_floor_ms")
             extra += (f" | 0 loops {zero_ms:.4f} ms, a loop {loop_ms:.6f} ms "
                       f"(from {loops} to {4 * loops}; the bound's "
@@ -2181,7 +2187,7 @@ def phase_micro_ops(dev, smi: str) -> dict:
                       + ("" if floor is None else
                          f", the floor's {floor / loops:.6f}") + ")")
             if key in MICRO_ROWS:
-                extra += f" | bitwise across grids 1/{grid} and launches"
+                extra += f" | bitwise across grids 1/11/{grid} and launches"
             gate = ("bitwise" if mo.rel_tolerance(key, loops) == 0.0
                     else f"rel {rel:.2e}")
             lib = what if library_ms is None else \
@@ -2193,6 +2199,13 @@ def phase_micro_ops(dev, smi: str) -> dict:
                 f"(one block) | library {lib}{extra}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    for key in FIXED_COST_KEYS:
+        st = stats[key]
+        log(f"[micro_ops] {smi} | fixed cost {key}: 0 loops on one block "
+            f"(grid {ONE_BLOCK_GRID}) {st['one_block_zero_ms']:.4f} ms, on "
+            f"the grid's {-(-mo.GRID // ONE_BLOCK_GRID)} blocks (grid "
+            f"{mo.GRID}) {st['zero_loop_ms']:.4f} ms, "
+            f"{mo.bench_loops(mo.OPS[key])} loops there {st['ms']:.4f} ms")
 
     _reset_counters()
     buf = io.StringIO()

@@ -2,12 +2,12 @@
 // made of, as this card executes them. One __global__ function per
 // primitive; each loads its block once, applies the primitive `reps` times
 // with every application depending on the one before, and stores the
-// result block. Every block of the grid (for a product, concat and the
-// counted loop, every chain, two to eight of them a CUDA block) does the
-// same work on the same inputs and stores the same values to the same
-// output (a benign race; concat and the loop store once a CUDA block), so
-// time / (grid * reps) is the cost of one application with the launch and
-// the loads amortised.
+// result block. Every block of the grid (for a product, concat, the
+// counted loop, the (8,128) mul and where, every chain, two to eight of
+// them a CUDA block) does the same work on the same inputs and stores the
+// same values to the same output (a benign race; concat and the three
+// warp-a-chain kernels store once a CUDA block), so time / (grid * reps)
+// is the cost of one application with the launch and the loads amortised.
 //
 // Replaces micro_ops.py `bench` (the Pallas call) and the 14 kernel bodies
 // of its `main`: mul on an (8,128) and a (64,128) tile; gather along axis
@@ -18,12 +18,13 @@
 // horizontal + 4 vertical taps). The TPU bodies work on (8,128) vector
 // registers and VMEM blocks; none of that layout carries over. Here a tile
 // element lives in a register of the thread that owns it (element e =
-// thread + j * 256; the (64,128) gather and the composite assign theirs as
-// their notes say), and whatever crosses threads goes through shared
-// memory: a gather along axis 1 or 0 is a shared-memory gather, the roll
-// and the row slice read shared memory at an offset taken from the index
-// block at run time, and the predicated update is a read-modify-write of
-// shared memory under a run-time predicate.
+// thread + j * 256; the (64,128) gather, the composite, concat and the
+// warp-a-chain kernels assign theirs as their notes say), and whatever
+// crosses threads goes through shared memory: a gather along axis 1 or 0
+// is a shared-memory gather, the roll and the row slice read shared memory
+// at an offset taken from the index block at run time, and the predicated
+// update is a read-modify-write of shared memory under a run-time
+// predicate.
 //
 // Bound of the 12 that are not products: none moves device memory worth
 // naming (a few KB to 0.4 MB per block, resident in L1/L2 after the first
@@ -90,7 +91,8 @@
 // uses round-to-nearest intrinsics (no FMA contraction).
 //
 // Gather indices are masked to the tile (& 127, & 7), so an index out of
-// range cannot read outside shared memory.
+// range cannot read outside shared memory. where's indices address nothing:
+// each is compared with the application's count, whatever its value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,7 +111,8 @@ enum Op {
   kChunk, kNumOps
 };
 
-// x = x * 1.0001, `reps` times; ROWS * 128 elements, ROWS / 2 a thread.
+// x = x * 1.0001, `reps` times; ROWS * 128 elements, ROWS / 2 a thread
+// (the (64,128) tile; the (8,128) one is mul8_kernel).
 template <int ROWS>
 __global__ void mul_kernel(const float* __restrict__ a,
                            float* __restrict__ out, int reps) {
@@ -257,27 +260,6 @@ __global__ void gather_sub_kernel(const float* __restrict__ a,
   }
 #pragma unroll
   for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = acc[j];
-}
-
-// x = (idx == r) ? x : x * 1.0001 for r = 0 .. reps-1, an (8,128) tile.
-__global__ void where_kernel(const float* __restrict__ a,
-                             const int* __restrict__ idx,
-                             float* __restrict__ out, int reps) {
-  constexpr int kPer = kTile8 / kThreads;
-  float x[kPer];
-  int i[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    x[j] = a[threadIdx.x + j * kThreads];
-    i[j] = idx[threadIdx.x + j * kThreads];
-  }
-  for (int r = 0; r < reps; ++r) {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      x[j] = (i[j] == r) ? x[j] : __fmul_rn(x[j], 1.0001f);
-  }
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = x[j];
 }
 
 // acc(64,128) += concat of 8 copies of x(8,128) along axis 0, `reps` times.
@@ -681,43 +663,134 @@ __global__ void dyn_roll_kernel(const float* __restrict__ a,
   for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = acc[j];
 }
 
+// ---- a warp a chain: the counted loop, the (8,128) mul and where ---------
+//
+// One warp is a chain (one of the grid's blocks): lane l owns elements
+// l + 32 j (j < 32) of the (8,128) tile, so each warp-load and warp-store is
+// 32 consecutive elements. The loop over `reps` stays rolled (`#pragma
+// unroll 1`): an application is 32 instructions a lane for the add or the
+// multiply (where: 32 compares and 32 predicated multiplies), and the
+// loop's counter, compare and branch, 3 instructions, are paid once a
+// chain-application (with a chain in 8 warps they were paid 8 times). What
+// bounds all three is f32 issue: 1024 instructions a chain-application
+// (where 2048) at 33.5 T a second. 2048 chains are 256 blocks of 8 warps,
+// one wave of at most two blocks an SM (16 chains on the busiest SM against
+// a mean of 15.5); a ragged last block's spare warps leave before their
+// loop (no barrier follows). One store of the (8,128) result a block, by
+// its first warp; the other warps' final values go through `hold`, so no
+// chain is dead code. Each kernel holds one FADD or FMUL for each of a
+// thread's 32 elements: a merged or dropped chain shows in `cuobjdump
+// -sass` (chip_smoke.py).
+constexpr int kChainThreads = 256;
+constexpr int kChains = kChainThreads / 32;   // chains (warps) a block
+constexpr int kChainPer = kTile8 / 32;        // 32 elements a lane
+
+__device__ __forceinline__ int chain_of(int warp) {
+  return static_cast<int>(blockIdx.x) * kChains + warp;
+}
+
+// A lane's 32 elements of an (8,128) tile, one coalesced warp-load each.
+template <typename T>
+__device__ __forceinline__ void load_chain(T (&v)[kChainPer],
+                                           const T* __restrict__ src,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < kChainPer; ++j) v[j] = src[lane + 32 * j];
+}
+
+// The block's one store, by warp 0; any other warp's values go through
+// `hold`.
+__device__ __forceinline__ void store_chain(float (&v)[kChainPer],
+                                            float* __restrict__ out,
+                                            int warp, int lane) {
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < kChainPer; ++j) out[lane + 32 * j] = v[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kChainPer; ++j) hold(v[j]);
+  }
+}
+
 // acc = x; acc += 1.0, `reps` times: the cost of one counted-loop
 // iteration around a trivial body. The primitive is the iteration, so the
-// loop stays rolled (`#pragma unroll 1`): one real iteration an
-// application. One warp is a chain (a grid block): lane l owns elements
-// l + 32 j (j < 32), 32 FADD a thread an iteration, and the iteration's
-// counter, compare and branch are paid once a chain-application (with a
-// chain in 8 warps, 8 times). What bounds it is f32 issue: 1024 FADD and 3
-// loop instructions a chain-application. 2048 chains are 256 blocks of 8
-// warps, one wave of at most two blocks an SM (16 chains on the busiest SM
-// against a mean of 15.5); one store of the (8,128) result a block, by its
-// first warp, the others' final values kept alive by `hold`. The kernel
-// holds one FADD for each of a thread's 32 elements.
-constexpr int kLoopThreads = 256;
-constexpr int kLoopChains = kLoopThreads / 32;   // a chain a warp
-constexpr int kLoopPer = kTile8 / 32;            // 32 elements a thread
-
-__global__ void __launch_bounds__(kLoopThreads, 2)
+// loop stays rolled: one real iteration an application. 1024 FADD and 3
+// loop instructions a chain-application.
+__global__ void __launch_bounds__(kChainThreads, 2)
     loop_kernel(const float* __restrict__ a, float* __restrict__ out,
                 int reps, int grid) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (static_cast<int>(blockIdx.x) * kLoopChains + warp >= grid) return;
-  float acc[kLoopPer];
-#pragma unroll
-  for (int j = 0; j < kLoopPer; ++j) acc[j] = a[lane + 32 * j];
+  if (chain_of(warp) >= grid) return;
+  float acc[kChainPer];
+  load_chain(acc, a, lane);
 #pragma unroll 1
   for (int r = 0; r < reps; ++r) {
 #pragma unroll
-    for (int j = 0; j < kLoopPer; ++j) acc[j] = __fadd_rn(acc[j], 1.0f);
+    for (int j = 0; j < kChainPer; ++j) acc[j] = __fadd_rn(acc[j], 1.0f);
   }
-  if (warp == 0) {
+  store_chain(acc, out, warp, lane);
+}
+
+// x = x * 1.0001, `reps` times, over an (8,128) tile (micro_ops.py k_mul
+// at (8,128)): 1024 FMUL and 3 loop instructions a chain-application,
+// each multiply rounded once (`__fmul_rn`), as torch's f32 multiply is.
+__global__ void __launch_bounds__(kChainThreads, 2)
+    mul8_kernel(const float* __restrict__ a, float* __restrict__ out,
+                int reps, int grid) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (chain_of(warp) >= grid) return;
+  float x[kChainPer];
+  load_chain(x, a, lane);
+#pragma unroll 1
+  for (int r = 0; r < reps; ++r) {
 #pragma unroll
-    for (int j = 0; j < kLoopPer; ++j) out[lane + 32 * j] = acc[j];
-  } else {
-#pragma unroll
-    for (int j = 0; j < kLoopPer; ++j) hold(acc[j]);
+    for (int j = 0; j < kChainPer; ++j) x[j] = __fmul_rn(x[j], 1.0001f);
   }
+  store_chain(x, out, warp, lane);
+}
+
+// x = (i == r) ? x : x * 1.0001 as one compare and one multiply under its
+// predicate (ISETP, then @P FMUL; no select, FSEL), the compare made at
+// every application against the index as it is: nothing assumes the
+// indices lie in [0, 8). Written in C++ (the ternary or an `if`), nvcc
+// 12.8 predicates the multiply as well, but turns each compare with the
+// loop's count into a count-down of its own, i - r, kept a register an
+// element: 32 more integer adds a lane an application, 96 instructions
+// where 64 do. In PTX the compare stays a compare with r.
+__device__ __forceinline__ void mul_unless(float& x, int i, int r) {
+  asm("{\n"
+      ".reg .pred p;\n"
+      "setp.ne.s32 p, %1, %2;\n"
+      "@p mul.rn.f32 %0, %0, %3;\n"
+      "}\n"
+      : "+f"(x)
+      : "r"(i), "r"(r), "f"(1.0001f));
+}
+
+// x = where(idx == r, x, x * 1.0001) for r = 0 .. reps-1 over an (8,128)
+// tile (micro_ops.py k_where): a lane holds its 32 values and their 32
+// int32 indices in registers; 1024 ISETP, 1024 predicated FMUL and 3 loop
+// instructions a chain-application (r lives in a uniform register), against
+// a bound that counts the compare and the multiply of every element
+// (2048).
+__global__ void __launch_bounds__(kChainThreads, 2)
+    where_kernel(const float* __restrict__ a, const int* __restrict__ idx,
+                 float* __restrict__ out, int reps, int grid) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (chain_of(warp) >= grid) return;
+  float x[kChainPer];
+  int i[kChainPer];
+  load_chain(x, a, lane);
+  load_chain(i, idx, lane);
+#pragma unroll 1
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll
+    for (int j = 0; j < kChainPer; ++j) mul_unless(x[j], i[j], r);
+  }
+  store_chain(x, out, warp, lane);
 }
 
 // o = a; then `reps` times: if (block >= first_block) o += 1.0, as a
@@ -938,9 +1011,9 @@ cudaError_t launch_matmul8(const float* a, const float* b, float* out,
 }  // namespace
 
 // One primitive, `grid` blocks of 256 threads (the composite: 512; the
-// products, concat and the counted loop: `grid` chains, kChains64,
-// kChains8, kConcatChains or kLoopChains a block), `reps` applications
-// each.
+// products, concat, the counted loop, the (8,128) mul and where: `grid`
+// chains, kChains64, kChains8, kConcatChains or kChains a block), `reps`
+// applications each.
 // op: 0 mul (8,128) | 1 mul (64,128) | 2 gather axis 1 (8,128) | 3 gather
 // axis 1 (64,128) | 4 gather axis 0 (8,128) | 5 where | 6 concat | 7
 // product (64,128)@(128,128) | 8 product (8,128)@(128,128) | 9 dynamic
@@ -968,7 +1041,8 @@ extern "C" int gs360x_micro_op(int op, const void* in0, const void* in1,
     return static_cast<int>(cudaErrorInvalidValue);
   switch (op) {
     case kMul8:
-      mul_kernel<8><<<grid, kThreads, 0, s>>>(f0, o, reps);
+      mul8_kernel<<<(grid + kChains - 1) / kChains, kChainThreads, 0, s>>>(
+          f0, o, reps, grid);
       break;
     case kMul64:
       mul_kernel<64><<<grid, kThreads, 0, s>>>(f0, o, reps);
@@ -982,7 +1056,8 @@ extern "C" int gs360x_micro_op(int op, const void* in0, const void* in1,
       gather_sub_kernel<<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
       break;
     case kWhere:
-      where_kernel<<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
+      where_kernel<<<(grid + kChains - 1) / kChains, kChainThreads, 0, s>>>(
+          f0, i1, o, reps, grid);
       break;
     case kConcat:
       concat_kernel<<<(grid + kConcatChains - 1) / kConcatChains,
@@ -996,8 +1071,8 @@ extern "C" int gs360x_micro_op(int op, const void* in0, const void* in1,
       dyn_roll_kernel<<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
       break;
     case kLoop:
-      loop_kernel<<<(grid + kLoopChains - 1) / kLoopChains, kLoopThreads, 0,
-                    s>>>(f0, o, reps, grid);
+      loop_kernel<<<(grid + kChains - 1) / kChains, kChainThreads, 0, s>>>(
+          f0, o, reps, grid);
       break;
     case kWhenRmw:
       when_rmw_kernel<<<grid, kThreads, 0, s>>>(f0, o, reps, param);

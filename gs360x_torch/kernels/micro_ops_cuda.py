@@ -22,6 +22,9 @@ the card could take for a launch; :func:`smem_wavefronts` counts the
 shared-memory wavefronts of a gather's warp-loads, and
 :func:`block_loop_wavefronts` and :func:`wavefront_floor_ms` apply it to
 the two axis-1 gathers and the composite (``WAVEFRONT_MODELS``).
+``BITWISE``, ``rel_tolerance`` and ``CHECK_LOOPS`` say how and where a
+kernel is held to its plain version on the card; ``SASS_CHECKS`` (read by
+:func:`sass_checks`) what its ``cuobjdump -sass`` must hold.
 
 Indices are int32 and must lie inside the tile (the kernels mask them to
 it, the plain versions raise on an index outside it).
@@ -33,7 +36,8 @@ import ctypes
 import math
 from collections.abc import Mapping
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -460,32 +464,69 @@ def micro_op(key: str, tensors: Sequence[torch.Tensor], reps: int,
 
 # How a kernel is held to its plain version on the same device. Gathers,
 # where, concat, roll, the counted loop and slice only move or select
-# values, and their accumulations add in one order: bitwise. mul, the
-# predicated update and the composite: 1e-6 relative (a plain version may
-# contract a multiply-add). The products: 1e-5 relative a step against the
-# f32 product (three TF32 passes keep ~21 bits of each operand and sum in
-# another order); they are compared at no more than 8 steps, since 64 steps
-# of uniform [0, 1) rows overflow f32.
+# values, and their accumulations add in one order: bitwise. mul: bitwise
+# too, since a lone ``__fmul_rn`` and torch's f32 multiply by 1.0001 round
+# once each. The predicated update and the composite: 1e-6 relative (a
+# plain version may contract a multiply-add). The products: 1e-5 relative
+# a step against the f32 product (three TF32 passes keep ~21 bits of each
+# operand and sum in another order); they are compared at no more than 8
+# steps, since 64 steps of uniform [0, 1) rows overflow f32.
 PRODUCTS = ("matmul64", "matmul8")
-BITWISE = frozenset({"gather_lane8", "gather_lane64", "gather_sub8", "where",
-                     "concat", "dyn_roll", "loop", "dyn_slice"})
-# what ``cuobjdump -sass`` must show of a kernel: the opcodes counted and
-# how many it must hold (None: at least one). The products run on the
-# tensor cores. The adds of concat and loop sit in a loop that is not
-# unrolled: one FADD for each accumulator element a thread holds, so a
-# chain that nvcc merged with another or dropped shows as fewer
-SASS_CHECKS: Dict[str, Tuple[Tuple[str, ...], Optional[int]]] = {
-    "matmul64": (("HGMMA", "HMMA"), None),
-    "matmul8": (("HGMMA", "HMMA"), None),
-    "concat": (("FADD", "FADD32I"), 64),
-    "loop": (("FADD", "FADD32I"), 32),
+BITWISE = frozenset({"mul8", "mul64", "gather_lane8", "gather_lane64",
+                     "gather_sub8", "where", "concat", "dyn_roll", "loop",
+                     "dyn_slice"})
+# what ``cuobjdump -sass`` must show of a kernel: for each check, the
+# opcodes counted together and how many the kernel must hold (None: at
+# least one; 0: none). The products run on the tensor cores. The adds of
+# concat and loop and the multiplies of mul8 and where sit in a loop that
+# is not unrolled: one for each element a thread holds, so a chain that
+# nvcc merged with another or dropped shows as fewer. where multiplies
+# under the compare's predicate: a select (FSEL) would mean a multiply of
+# every element each application, kept or not
+SassCheck = Tuple[Tuple[str, ...], Optional[int]]
+SASS_CHECKS: Dict[str, Tuple[SassCheck, ...]] = {
+    "matmul64": ((("HGMMA", "HMMA"), None),),
+    "matmul8": ((("HGMMA", "HMMA"), None),),
+    "concat": ((("FADD", "FADD32I"), 64),),
+    "loop": ((("FADD", "FADD32I"), 32),),
+    "mul8": ((("FMUL", "FMUL32I"), 32),),
+    "where": ((("FMUL", "FMUL32I"), 32), (("FSEL",), 0)),
 }
+SASS_OPCODES = tuple(dict.fromkeys(
+    op for checks in SASS_CHECKS.values() for ops, _ in checks for op in ops))
+# the kernel a key's checks read, where it is not ``<key>_kernel``
+SASS_KERNELS = {"matmul64": "tc_matmul64_kernel",
+                "matmul8": "tc_matmul8_kernel"}
+
+
+def sass_checks(counts: Mapping[str, Mapping[str, int]]
+                ) -> List[Tuple[str, Tuple[str, ...], int, Optional[int],
+                                bool]]:
+    """Each check of ``SASS_CHECKS`` against ``counts``
+    (``_build.sass_counts(SASS_OPCODES)``: ``{mangled kernel name:
+    {opcode: count}}``): ``(key, opcodes, count, want, ok)``, the count
+    summed over the opcodes in the key's kernel, found by its
+    length-prefixed mangled identifier (``11mul8_kernel``, which
+    ``17tc_matmul8_kernel`` does not hold)."""
+    rows = []
+    for key, checks in SASS_CHECKS.items():
+        kernel = SASS_KERNELS.get(key, f"{key}_kernel")
+        mangled = f"{len(kernel)}{kernel}"
+        for ops, want in checks:
+            n = sum(held.get(op, 0) for name, held in counts.items()
+                    if mangled in name for op in ops)
+            rows.append((key, ops, n, want,
+                         n > 0 if want is None else n == want))
+    return rows
+
+
 # the loops at which the redesigned kernels are held to their plain
 # versions on the card (the others at their nominal loops); the deepest is
 # also the depth of the check across grids and launches
 CHECK_LOOPS = {"matmul64": (1, 8), "matmul8": (1, 8),
                "gather_lane64": (1, 8, 64), "chunk": (1, 4, 8),
-               "concat": (1, 8, 64), "loop": (1, 8, 64)}
+               "concat": (1, 8, 64), "loop": (1, 8, 64),
+               "mul8": (1, 8, 64), "where": (1, 8, 64)}
 
 
 def rel_tolerance(key: str, loops: int) -> float:

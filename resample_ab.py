@@ -35,12 +35,12 @@ warp and remap kernels are printed for trees that have
 ``--out FILE`` every run's numbers to that file as JSON.
 
 With ``--micro-ops`` it times ``micro_ops`` kernels instead, the
-primitives ``--keys`` names (by default ``concat``, ``acc(64,128) +=``
-eight copies of an (8,128) tile, 8 loops in each of 2048 blocks, and
-``loop``, a counted loop of ``acc += 1`` over an (8,128) tile, 64
-iterations in each of 2048 blocks; any of the 14, for example the two
-products ``matmul64,matmul8``, the composite ``chunk`` or
-``gather_lane64``), in the same turns: the kernel's device time a launch
+primitives ``--keys`` names (by default ``where``, ``x = where(idx ==
+r, x, x * 1.0001)`` over an (8,128) tile for r = 0 .. 63, and ``mul8``,
+``x = x * 1.0001`` 64 times over an (8,128) tile, each in 2048 chains;
+any of the 14, for example the two products ``matmul64,matmul8``, the
+composite ``chunk``, ``concat`` or ``loop``), in the same turns: the
+kernel's device time a launch
 without the wrapper's host time (events around a CUDA graph's replay of 10
 launches, by this checkout's ``profiling.device_ms`` for every tree)
 and its event time; its error against the plain version relative to
@@ -63,7 +63,7 @@ import sys
 import tempfile
 
 PRODUCTS = ("matmul64", "matmul8")
-MICRO_KEYS = ("concat", "loop")   # --micro-ops default
+MICRO_KEYS = ("where", "mul8")   # --micro-ops default
 SHAPES = ("yaw ring 8x1920x1080", "default 8x1600²", "full360coverage 12x1600²",
           "fisheyeXY 2x3600²", "pole 1x1600²", "equisolid 1x2048²",
           "SFM10 10x1750²", "undistort 3840²",
@@ -276,9 +276,11 @@ def measure_micro_ops(keys, check_loops) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    names = {"gather_lane64": "gather_lane"}   # a template in older trees
+    # kernels by another name in older trees: a template, or mul_kernel<8>
+    names = {"gather_lane64": ("gather_lane",),
+             "mul8": ("mul8_kernel", "mul_kernelILi8E")}
     ptxas = [f"{r[0]}: {r[3]}" for r in _build.ptxas_report()
-             if any(names.get(k, k) in r[0] for k in keys)]
+             if any(n in r[0] for k in keys for n in names.get(k, (k,)))]
     return {"card": smi, "build_s": _build.build_seconds, "micro_ops": out,
             "ptxas": ptxas}
 

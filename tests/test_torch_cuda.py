@@ -15,7 +15,9 @@ both optical flows; the 14 ``micro_ops`` kernels against their plain
 versions (movers bitwise, arithmetic at 1e-6, the products, three TF32
 passes on the tensor cores, at 1e-5 a step and at most 8 steps), the
 grid-invariant and repeated blocks of the products, the composite, the
-(64,128) gather, concat and the counted loop; and MaskSeg's device
+(64,128) gather, concat, the counted loop, the (8,128) mul and where
+(these two bitwise at their check depths over grids 1, 11 and 2048), the
+SASS instructions ``SASS_CHECKS`` asks for; and MaskSeg's device
 steps against the CPU: the U-Net's logits with TF32 off (1e-3), the
 morphology bitwise, the blur (1e-6), the inpaint (1e-5) and
 ``combined_mask``; the training step by
@@ -497,7 +499,8 @@ def test_micro_op_kernel_matches_plain(dev, key, loops):
 
 
 @pytest.mark.parametrize("key", ["chunk", "gather_lane64", "matmul64",
-                                 "matmul8", "concat", "loop"])
+                                 "matmul8", "concat", "loop", "where",
+                                 "mul8"])
 def test_micro_op_grid_and_zero_reps(dev, key):
     """Every block stores the same block: the grid does not enter the
     result, and a second launch repeats it bit for bit; zero applications
@@ -516,6 +519,30 @@ def test_micro_op_grid_and_zero_reps(dev, key):
     assert torch.equal(mo.micro_op("gather_sub8",
                                    [inputs["a8"], inputs["ridx8"]], 0),
                        torch.zeros_like(inputs["a8"]))
+
+
+@pytest.mark.parametrize("key", ["where", "mul8"])
+def test_micro_op_warp_chains_at_the_check_loops(dev, key):
+    """where and the (8,128) mul, a warp a chain: bitwise their plain
+    versions at every depth of ``CHECK_LOOPS``, on grids 1, 11 (a ragged
+    block) and 2048, and over two launches."""
+    op = mo.OPS[key]
+    inputs = mo.make_inputs(dev)
+    tensors = [inputs[n] for n in op.inputs]
+    for loops in mo.CHECK_LOOPS[key]:
+        ref = op.plain(*tensors, loops)
+        for grid in (1, 11, mo.GRID, mo.GRID):
+            assert torch.equal(mo.micro_op(key, tensors, loops, grid), ref)
+
+
+def test_micro_op_sass_counts(dev):
+    """The built library holds what ``SASS_CHECKS`` asks: the products'
+    HGMMA, one FADD (concat, loop) or FMUL (mul8, where) for each element
+    a thread holds, and no FSEL in where."""
+    from gs360x_torch.kernels import _build
+    rows = mo.sass_checks(_build.sass_counts(mo.SASS_OPCODES))
+    assert {row[0] for row in rows} == set(mo.SASS_CHECKS)
+    assert all(row[4] for row in rows), [row[:4] for row in rows]
 
 
 def test_micro_op_products_run_at_the_benchmark_depth(dev):

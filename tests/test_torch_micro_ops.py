@@ -12,9 +12,15 @@ f32. The CUDA kernels are held to the same plain versions on the card by
 Tolerances: gathers, ``where``, concat, roll, slice and the counted loop
 only move, select or add in one order, so they are bitwise; ``mul``, the
 composite and the predicated update at 1e-6 relative (XLA may fuse a
-multiply-add, and folds the update's eight ``+= 1`` into one add); the
+multiply-add, folds the update's eight ``+= 1`` into one add and mul's
+chain of multiplies by 1.0001 into one multiply by its power); the
 products at 1e-5 relative a step against the f32 product (the CPU
 interpreter computes them in f32).
+
+Numpy emulations of the kernels' layouts (the products' fragments, the
+(64,128) gather's warp-owned rows, the composite's tables in registers,
+concat's chains a warpgroup, and a chain a warp for the counted loop, mul
+(8,128) and where) are held bitwise to the plain versions.
 
 The kernels compute the products on the tensor cores in three TF32 passes
 (``csrc/micro_ops.cu``). A plain emulation of that arithmetic, kept here
@@ -85,6 +91,17 @@ def run_pallas(body, out_shape, inputs):
         body, out_shape=jax.ShapeDtypeStruct(out_shape, jnp.float32),
         grid=(1,), interpret=True)
     return np.asarray(call(*inputs))
+
+
+def pallas_at(body, out_shape, arrays, op_reps):
+    """The recorded Pallas body run at ``OP_REPS = op_reps``."""
+    scope = body.__globals__
+    saved = scope["OP_REPS"]
+    scope["OP_REPS"] = op_reps
+    try:
+        return run_pallas(body, out_shape, arrays)
+    finally:
+        scope["OP_REPS"] = saved
 
 
 def test_inputs_are_the_scripts(recorded):
@@ -393,24 +410,19 @@ def test_chunk_emulation(recorded, loops):
     got = emulate_chunk(*arrs, loops)
     plain = mo.micro_op("chunk", [torch.from_numpy(x) for x in arrs], loops)
     np.testing.assert_array_equal(got, plain.numpy())
-    scope = body.__globals__
-    saved = scope["OP_REPS"]
-    scope["OP_REPS"] = 16 * loops
-    try:
-        ref = run_pallas(body, out_shape, arrays)
-    finally:
-        scope["OP_REPS"] = saved
+    ref = pallas_at(body, out_shape, arrays, 16 * loops)
     assert np.isfinite(ref).all() and float(np.abs(ref).max()) > 1.0
     np.testing.assert_allclose(got, ref, rtol=1e-6,
                                atol=1e-6 * float(np.abs(ref).max()))
 
 
-# ---- concat and the counted loop, emulated -----------------------------------
+# ---- concat and the warp-a-chain kernels (loop, mul8, where), emulated -------
 
 WARPGROUP = 128          # micro_ops.cu: a concat chain's threads
 CONCAT_TURNS = 4         # kConcatTurns: chains a warpgroup runs in turn
 CONCAT_CHAINS = 2 * CONCAT_TURNS   # kConcatChains: chains a CUDA block
-LOOP_CHAINS = 8          # kLoopChains: a chain a warp, 8 warps a block
+CHAINS = 8               # kChains: a chain a warp, 8 warps a block
+SCALE = np.float32(1.0001)
 
 
 def concat_layout():
@@ -422,8 +434,18 @@ def concat_layout():
 
 
 def loop_layout():
-    """Lane l of a warp: its elements l + 32 j (j < 32)."""
+    """Lane l of a warp (the counted loop, mul8, where): its elements
+    l + 32 j (j < 32)."""
     return np.arange(32)[:, None] + 32 * np.arange(8 * 128 // 32)[None, :]
+
+
+def warp_chains(grid):
+    """(block, warp, chain) of the warp-a-chain kernels: block b's warp w
+    runs chain 8b + w; a warp past the grid leaves before its loop."""
+    for block in range(-(-grid // CHAINS)):
+        for warp in range(CHAINS):
+            if block * CHAINS + warp < grid:
+                yield block, warp, block * CHAINS + warp
 
 
 def concat_chains(grid):
@@ -460,19 +482,32 @@ def emulate_concat(a, loops, grid):
     return out.reshape(64, 128)
 
 
-def emulate_loop(a, loops, grid):
-    """Every chain (warp) of the grid: its lanes' 32 elements each loaded,
-    one add of 1 an element an iteration; the result stored by each
-    block's warp 0."""
+def emulate_warp_chains(key, arrays, loops, grid):
+    """Every chain (warp) of the grid as the ``loop``, ``mul8`` or
+    ``where`` kernel runs it: its lanes' 32 elements each loaded (where:
+    their 32 indices too), then an application a loop: an add of 1, a
+    multiply by 1.0001 rounded once, or that multiply under the predicate
+    ``index != r``, the index compared as it is at every application; the
+    result stored by each block's warp 0, which must agree with every
+    other chain."""
     elems = loop_layout()
-    out, finals = np.full(8 * 128, np.nan, np.float32), []
-    for chain in range(grid):
-        acc = a.reshape(-1)[elems]
-        for _ in range(loops):
-            acc = acc + np.float32(1.0)
-        finals.append(acc)
-        if chain % LOOP_CHAINS == 0:
-            out[elems] = acc
+    out, stored, finals = np.full(8 * 128, np.nan, np.float32), 0, []
+    for _block, warp, _chain in warp_chains(grid):
+        x = arrays[0].reshape(-1)[elems]
+        if key == "where":
+            i = arrays[1].reshape(-1)[elems]
+        for r in range(loops):
+            if key == "loop":
+                x = x + np.float32(1.0)
+            elif key == "mul8":
+                x = x * SCALE
+            else:
+                np.multiply(x, SCALE, out=x, where=i != r)
+        finals.append(x)
+        if warp == 0:
+            out[elems] = x
+            stored += 1
+    assert stored == -(-grid // CHAINS)
     assert all(np.array_equal(f, finals[0]) for f in finals)
     return out.reshape(8, 128)
 
@@ -482,7 +517,10 @@ def test_concat_and_loop_layouts(grid):
     """Each accumulator element has one owner a chain and each of its adds
     reads the x of its own thread (concat's sources are its own elements
     mod 1024); every chain of the grid runs once, in a block of its own
-    share; a warp-load or -store is 32 consecutive elements."""
+    share; a warp-load or -store is 32 consecutive elements. The counted
+    loop, mul8 and where share one layout: a lane's 32 elements, a chain a
+    warp, every chain once, one store a block (by warp 0, which every block
+    has)."""
     elems, src = concat_layout()
     np.testing.assert_array_equal(np.sort(elems.ravel()), np.arange(8192))
     np.testing.assert_array_equal(src, elems % 1024)
@@ -497,31 +535,58 @@ def test_concat_and_loop_layouts(grid):
         loads = layout.reshape(-1, 32, layout.shape[1]).transpose(0, 2, 1)
         assert (np.diff(loads, axis=2) == 1).all()
         assert (loads[..., 0] % 32 == 0).all()
+    warps = list(warp_chains(grid))
+    assert [c for _b, _w, c in warps] == list(range(grid))
+    stores = [b for b, w, _c in warps if w == 0]
+    assert stores == list(range(-(-grid // CHAINS)))
+    assert {b for b, _w, _c in warps} == set(stores)
 
 
-@pytest.mark.parametrize("loops", [1, REPS])
-@pytest.mark.parametrize("key", ["concat", "loop"])
+@pytest.mark.parametrize("loops", [0, 1, REPS, 64])
+@pytest.mark.parametrize("key", ["concat", "loop", "mul8", "where"])
 def test_concat_and_loop_emulation(recorded, key, loops):
-    """The redesigned concat and counted loop at 1 and REPS loops over a
-    ragged grid of 11 chains: bitwise the plain version and the Pallas body
-    (run at ``OP_REPS`` = the loops' applications)."""
+    """The redesigned concat, counted loop, (8,128) mul and where at 0, 1,
+    REPS and 64 loops over a ragged grid of 11 chains: bitwise the plain
+    version, and the Pallas body (run at ``OP_REPS`` = the loops'
+    applications) bitwise too, but for mul8: XLA folds the body's chain of
+    multiplies by the constant into one multiply by 1.0001**n (rounded
+    once), so there each of the chain's n roundings and the fold's own
+    (each ≤ 2**-24 of the value) part the two, ≤ (n + 1) * 2**-24."""
     op = mo.OPS[key]
     body, out_shape, arrays = recorded[op.label]
-    a = np.array(arrays[0])
-    emulate = emulate_concat if key == "concat" else emulate_loop
-    got = emulate(a, loops, 11)
-    plain = mo.micro_op(key, [torch.from_numpy(a)], loops)
+    arrs = [np.array(arr) for arr in arrays]
+    got = emulate_concat(arrs[0], loops, 11) if key == "concat" else \
+        emulate_warp_chains(key, arrs, loops, 11)
+    plain = mo.micro_op(key, [torch.from_numpy(x) for x in arrs], loops)
     np.testing.assert_array_equal(got, plain.numpy())
-    scope = body.__globals__
-    saved = scope["OP_REPS"]
-    scope["OP_REPS"] = op.loops_div * loops
-    try:
-        ref = run_pallas(body, out_shape, arrays)
-    finally:
-        scope["OP_REPS"] = saved
-    np.testing.assert_array_equal(got, ref)
+    ref = pallas_at(body, out_shape, arrays, op.loops_div * loops)
+    if key == "mul8":
+        np.testing.assert_allclose(got, ref, rtol=(loops + 1) * 2.0 ** -24,
+                                   atol=0)
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("span", ["past_8", "negative"])
+def test_where_reads_the_index_every_application(recorded, span):
+    """``where`` compares each element's index with the application's
+    count at every application, as it is: indices from 8 to 70 (some hit
+    within 64 applications, some never) or from -40 to 7 (the negative ones
+    never hit) give the plain version's result and the Pallas body's,
+    bitwise, and not what indices masked to [0, 8) would give."""
+    body, out_shape, arrays = recorded[mo.OPS["where"].label]
+    rng = np.random.default_rng(12)
+    lo, hi = (8, 71) if span == "past_8" else (-40, 8)
+    a = np.array(arrays[0])
+    idx = rng.integers(lo, hi, (8, 128)).astype(np.int32)
+    got = emulate_warp_chains("where", [a, idx], 64, 11)
+    plain = mo.micro_op("where", [torch.from_numpy(a),
+                                  torch.from_numpy(idx)], 64)
+    np.testing.assert_array_equal(got, plain.numpy())
     np.testing.assert_array_equal(
-        emulate(a, 0, 11), mo.micro_op(key, [torch.from_numpy(a)], 0).numpy())
+        got, pallas_at(body, out_shape, [arrays[0], idx], 64))
+    masked = emulate_warp_chains("where", [a, idx & 7], 64, 11)
+    assert not np.array_equal(got, masked)
 
 
 def test_sass_counts_reads_cuobjdump(monkeypatch):
@@ -551,6 +616,41 @@ def test_sass_counts_reads_cuobjdump(monkeypatch):
     assert _build.sass_counts(("HGMMA", "FADD32I", "FADD")) == {
         concat: {"FADD": 2, "FADD32I": 1},
         matmul: {"HGMMA": 1, "FADD": 1}}
+
+
+@pytest.mark.parametrize("fault,wrong", [
+    (None, []),
+    (("where", "FSEL", 1), [("where", ("FSEL",), 1, 0)]),     # a select
+    (("loop", "FADD", 31), [("loop", ("FADD", "FADD32I"), 31, 32)]),  # merged
+    (("mul8", "FMUL", 33), [("mul8", ("FMUL", "FMUL32I"), 33, 32)]),
+    (("matmul8", "HGMMA", 0), [("matmul8", ("HGMMA", "HMMA"), 0, None)]),
+])
+def test_sass_checks_flag_a_merged_chain_or_a_select(fault, wrong):
+    """``sass_checks`` on the counts the right build holds passes every
+    check; a chain merged or dropped (one FADD or FMUL too few or many), a
+    select in where, or a product off the tensor cores fails its check
+    alone. A kernel is found by its own mangled name (mul8's count leaves
+    out ``tc_matmul8_kernel``'s and ``mul_kernel<64>``'s); a key's count
+    sums its opcodes."""
+    counts = {
+        "_ZN12_GLOBAL__N_118tc_matmul64_kernelEPKfS1_Pfii": {"HGMMA": 48},
+        "_ZN12_GLOBAL__N_117tc_matmul8_kernelEPKfS1_Pfii": {"HGMMA": 32,
+                                                            "FMUL": 8},
+        "_ZN12_GLOBAL__N_113concat_kernelEPKfPfii": {"FADD": 64},
+        "_ZN12_GLOBAL__N_111loop_kernelEPKfPfii": {"FADD": 32},
+        "_ZN12_GLOBAL__N_111mul8_kernelEPKfPfii": {"FMUL": 30, "FMUL32I": 2},
+        "_ZN12_GLOBAL__N_112where_kernelEPKfPKiPfii": {"FMUL": 32},
+        "_ZN12_GLOBAL__N_110mul_kernelILi64EEvPKfPfi": {"FMUL": 32},
+    }
+    if fault:
+        key, op, n = fault
+        name = next(k for k in counts if f"{len(key) + 7}{key}_kernel" in k
+                    or f"tc_{key}_kernel" in k)
+        counts[name] = {op: n} if op != "FSEL" else {**counts[name], op: n}
+    rows = mo.sass_checks(counts)
+    assert [(k, ops) for k, ops, _n, _w, _ok in rows] == [
+        (k, ops) for k, checks in mo.SASS_CHECKS.items() for ops, _ in checks]
+    assert [row[:4] for row in rows if not row[4]] == wrong
 
 
 def brute_force_wavefronts(words):
