@@ -57,6 +57,16 @@ it went through the kernels only and that its pixels are right:
 * ``gs360x-torch-scene`` (``[scene]``) on each format ``[ms360xml]``
   exported, the cameras agreeing across them. None of the three launches
   a hand-written kernel;
+* ``gs360x-torch-warmup --all`` in this process (``[warmup]``): the
+  kernel library, one 8K frame through every preset's view sets and the
+  SFM10 remap at 1750², the launches held to what the view sets need;
+  then ``--preset default`` in a subprocess, which must not build again;
+* the GUI's headless modules (``[gui]``; ``gui/app.py`` needs a display
+  and is not imported): the PerspCut tab's argv through
+  ``ProcessRunner.run``, its files byte-equal to the direct run's; a
+  FrameSelector + MaskSeg ``run_queue`` watched by an ``OutputMonitor``;
+  the segmentation preview card vs CPU; the selection CSV in the score
+  review, and its apply through the runner;
 * ``python -m gs360x_torch.tools.micro_ops``: the 14 primitive kernels of
   ``micro_ops.cu``, each first held to its plain version on the card, then
   timed on the device without the wrapper's host time (events around a
@@ -67,7 +77,8 @@ it went through the kernels only and that its pixels are right:
   instructions counted in the built library) beside one cuBLAS f32 call a
   step; concat and the counted loop with their FADD instructions counted
   likewise, the (8,128) mul and where with their FMUL (and where with no
-  FSEL); where's and mul8's launch with no loop on one block beside the
+  FSEL), the (8,128) gather with its FADD and no BAR; where's, mul8's and
+  the (8,128) gather's launch with no loop on one block beside the
   grid's; the two axis-1 gathers and the composite beside the floor of
   their shared-memory wavefronts; then the primitives ranked by launches
   × (device − the larger of bound and floor).
@@ -130,6 +141,11 @@ try:
                                     video2frames)
     from gs360x_torch.tools import scene as scene_tool
     from gs360x_torch.tools import micro_ops as micro_ops_tool
+    from gs360x_torch.tools import warmup
+    from gs360x_torch.core import pose as posemath
+    from gs360x_torch.gui import forms, scorereview, segpreview
+    from gs360x_torch.gui import monitor as gui_monitor
+    from gs360x_torch.gui import runner as gui_runner
 except ModuleNotFoundError as exc:
     if not (exc.name or "").startswith("gs360x_torch"):
         raise
@@ -2030,7 +2046,8 @@ def _sass_kernels() -> dict:
         found.setdefault(key, []).append(f"{'/'.join(ops)} {n}")
     log("[micro_ops] instructions in cuobjdump -sass (the products' "
         "HGMMA/HMMA; one FADD or FMUL for each element a thread holds; "
-        "where's multiplies predicated, no FSEL): " + ", ".join(
+        "where's multiplies predicated, no FSEL; no block barrier, BAR, in "
+        "the (8,128) gather): " + ", ".join(
             f"{key} {'/'.join(ops)} {n} (wants "
             f"{'some' if want is None else want})"
             for key, ops, n, want, _ok in rows))
@@ -2046,10 +2063,10 @@ def _sass_kernels() -> dict:
 # grids 1 / 11 / GRID and two launches
 MICRO_ROWS = {"matmul64": 119, "matmul8": 132, "gather_lane64": 77,
               "chunk": 196, "concat": 109, "loop": 159, "where": 100,
-              "mul8": 59}
+              "mul8": 59, "gather_lane8": 68}
 # the fixed cost of a launch split from its blocks: no loop on one block
 # (grid 8: kChains) beside no loop on the grid's 256
-FIXED_COST_KEYS = ("where", "mul8")
+FIXED_COST_KEYS = ("where", "mul8", "gather_lane8")
 ONE_BLOCK_GRID = 8
 
 
@@ -2937,6 +2954,259 @@ def phase_scene(tmp) -> dict:
     return {}
 
 
+# --- [warmup] and [gui]: gs360x-torch-warmup, and the GUI's headless modules
+# driving the tools as the app does ------------------------------------------
+
+# the parity cases of [warp] / [warp-tilted] a view falls in, and the Pallas
+# kernels whose rows they hold (warp_equirect.cu computes every one)
+VIEW_CASES = {"yaw ring": "_warp_kernel_yaw2, _warp_kernel_yaw",
+              "pitched or rolled": "_warp_kernel",
+              "pole in view": "_warp_kernel_wide2",
+              "fisheye": "_warp_kernel_wide3",
+              "equisolid": "_warp_kernel_wide"}
+
+
+def _view_case(view) -> str:
+    """Which of ``VIEW_CASES`` a perspcut view falls in: its projection,
+    then whether either pole lies inside a perspective view's frustum, then
+    whether it is pitched or rolled."""
+    if view.projection != "perspective":
+        return "fisheye" if view.projection == "fisheye_v360" else \
+            "equisolid"
+    rot = posemath.view_rotation_cv(view.yaw_deg, view.pitch_deg,
+                                    view.roll_deg)
+    tx = math.tan(math.radians(view.hfov_deg) / 2.0)
+    ty = math.tan(math.radians(view.vfov_deg) / 2.0)
+    for pole in (1.0, -1.0):
+        x, y, z = rot.T @ np.array([0.0, pole, 0.0])
+        if z > 0 and abs(x / z) <= tx and abs(y / z) <= ty:
+            return "pole in view"
+    if view.pitch_deg % 360.0 or view.roll_deg % 360.0:
+        return "pitched or rolled"
+    return "yaw ring"
+
+
+def phase_warmup(dev) -> dict:
+    """``warmup.main(["--all"])`` in this process on the card, at the JAX
+    tool's sizes (8K source, every preset at its default size and at 1600,
+    the SFM10 remap at 1750² on a 3840² lens): one planarize and one warp
+    per (view group, view set), two texelize + remap launches for the
+    remap, no plain call; each view set's wall. Then ``python -m
+    gs360x_torch.tools.warmup --preset default`` in a subprocess, which
+    must find the library built."""
+    args = warmup.build_arg_parser().parse_args(["--all"])
+    sets = warmup.view_sets(args)
+    groups = sum(len(_view_groups(views)) for _p, _s, views in sets)
+    cases = {}
+    for preset, size, views in sets:
+        for view in views:
+            cases.setdefault(_view_case(view), set()).add(f"{preset}@{size}")
+    _reset_counters()
+    t0 = time.perf_counter()
+    rc, lines = _quiet(warmup.main, ["--all"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, plain = _counters()
+    if rc != 0 or lines[-1] != f"[OK] warmed {len(sets)} configuration(s)":
+        raise AssertionError(f"warmup --all exited {rc}: {lines[-3:]}")
+    want = _launches(planarize=groups + 2, warp=groups, remap=2)
+    if launches != want or any(plain.values()):
+        raise AssertionError(f"warmup --all: launches {launches} (expected "
+                             f"{want}), plain {plain}")
+    for line in lines:
+        log(f"[warmup] {line}")
+    log(f"[warmup] --all: {len(sets)} view sets, {groups} view groups, "
+        f"launches {launches} as the view sets need, plain {plain} | "
+        f"phase wall {wall_s:.2f}s | view cases reached (the Pallas kernels "
+        "their [warp] parity rows stand for): " + "; ".join(
+            f"{case} ({VIEW_CASES[case]}): {', '.join(sorted(where))}"
+            for case, where in cases.items()))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gs360x_torch.tools.warmup", "--preset",
+         "default"], capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    out = proc.stdout.splitlines()
+    if proc.returncode != 0 or not any(
+            ln.startswith("[INFO] kernels already built") for ln in out) \
+            or any(ln.startswith("[INFO] kernels built") for ln in out):
+        raise AssertionError(f"warmup --preset default exited "
+                             f"{proc.returncode}, expected no build: "
+                             f"{out[-4:]} {proc.stderr[-2000:]}")
+    log(f"[warmup] python -m gs360x_torch.tools.warmup --preset default in "
+        f"a subprocess: no build ({out[1]}); wall {sub_s:.2f}s")
+    return {"launches": launches, "wall_s": wall_s}
+
+
+def _gui_wait(done: list, what: str, timeout_s: float = 600.0) -> int:
+    t_end = time.perf_counter() + timeout_s
+    while not done:
+        if time.perf_counter() > t_end:
+            raise AssertionError(f"[gui] {what}: no end in {timeout_s:.0f}s")
+        time.sleep(0.05)
+    return done[0]
+
+
+def _gui_run(proc_runner, key: str, module: str, argv: list) -> tuple:
+    """One tool through ``ProcessRunner.run`` as a tab's Run button
+    launches it: (its lines, wall s); fails unless it exits 0."""
+    lines, done = [], []
+    t0 = time.perf_counter()
+    if not proc_runner.run(key, gui_runner.tool_argv(module, argv),
+                           lines.append, done.append):
+        raise AssertionError(f"[gui] {key} did not start")
+    rc = _gui_wait(done, key)
+    if rc != 0:
+        raise AssertionError(f"[gui] {module} exited {rc}: "
+                             f"{''.join(lines[-8:])}")
+    return lines, time.perf_counter() - t0
+
+
+def _preview_check(label: str, in_dir: pathlib.Path, dev, params) -> str:
+    """``segpreview.preview_first_image`` on the card and on the CPU: rows
+    equal, overlays equal wherever the CPU's probability of the target
+    lies outside MASK_BAND of the threshold; the card's device ms of the
+    preview's U-Net pass (resize in, U-Net, softmax, resize out)."""
+    t0 = time.perf_counter()
+    name, (card_overlay, card_rows) = segpreview.preview_first_image(
+        in_dir, device=dev, params=params)
+    card_s = time.perf_counter() - t0
+    _name, (cpu_overlay, cpu_rows) = segpreview.preview_first_image(
+        in_dir, device=torch.device("cpu"), params=params)
+    if card_rows != cpu_rows:
+        raise AssertionError(f"[gui] preview {label}: rows {card_rows} on "
+                             f"the card, {cpu_rows} on the CPU")
+    # the preview's own downscale of the first image
+    img = imagelib.read_image(in_dir / name)
+    h, w = img.shape[:2]
+    scale = max(h, w) / 640.0
+    if scale > 1.0:
+        nh, nw = int(round(h / scale)), int(round(w / scale))
+        img = img[(np.arange(nh) * (h / nh)).astype(int)][
+            :, (np.arange(nw) * (w / nw)).astype(int)]
+    img01 = img.astype(np.float32) / 255.0
+    cpu = seg.SegmentationPredictor(params, device=torch.device("cpu"))
+    prob = cpu.probabilities(
+        img01, [seg.CLASS_TO_INDEX["person"]])[0].numpy()
+    band = np.abs(prob - seg.MASK_THRESH) < MASK_BAND
+    differ = (card_overlay != cpu_overlay).any(axis=-1)
+    if (differ & ~band).any():
+        raise AssertionError(f"[gui] preview {label}: overlays differ on "
+                             f"{int((differ & ~band).sum())} pixels outside "
+                             "the threshold band")
+    card = seg.SegmentationPredictor(params, device=dev)
+    preview_ms = cuda_ms(lambda: card.probabilities(img01), reps=5,
+                         warmup=2)
+    return (f"preview {label} ({name}, {img.shape[1]}x{img.shape[0]}): "
+            f"{len(card_rows)} instance(s), rows equal card vs CPU, overlays "
+            f"equal outside the band ({int(band.sum())} band pixels, "
+            f"{int(differ.sum())} differing); upload + resize in + U-Net + "
+            f"softmax + resize out {preview_ms:.4f} ms device, preview wall "
+            f"{card_s:.2f}s")
+
+
+def phase_gui(dev, src_dir: pathlib.Path, tmp) -> dict:
+    """The GUI's headless modules driving the port's tools as the app does
+    (no display: ``gui/app.py`` is not imported): (a) the PerspCut tab's
+    argv from ``forms`` through ``ProcessRunner.run`` on the 2 8K frames,
+    its files byte-equal to ``[e2e]``'s ``default`` run; (b) a two-step
+    ``run_queue``, FrameSelector then MaskSeg on (a)'s views at the forms'
+    defaults, with an ``OutputMonitor`` counting MaskSeg's files to their
+    total; (c) ``segpreview.preview_first_image`` card vs CPU on (a)'s
+    views and on [maskseg]'s; (d) (b)'s CSV in ``scorereview``, its chart,
+    and ``apply_argv`` through the runner."""
+    proc_runner = gui_runner.ProcessRunner()
+    steps = {}
+
+    # (a)
+    views = tmp / "gui_perspcut"
+    values = {key: default for key, _l, _k, default in forms.PERSPCUT_FIELDS}
+    values.update(input_dir=str(src_dir), out_dir=str(views),
+                  preset="default", size=1600, ext="png")
+    argv = forms.build_perspcut_argv(values)
+    _lines, steps["a"] = _gui_run(proc_runner, "perspcut", "perspcut", argv)
+    direct = tmp / "out_default"
+    names = sorted(p.name for p in direct.iterdir())
+    if sorted(p.name for p in views.iterdir()) != names or any(
+            (views / n).read_bytes() != (direct / n).read_bytes()
+            for n in names):
+        raise AssertionError("[gui] (a): the runner's perspcut files are "
+                             f"not byte-equal to [e2e]'s {direct}")
+    log(f"[gui] (a) PerspCut tab argv {argv} through ProcessRunner.run: "
+        f"{len(names)} files byte-equal to [e2e]'s default run, wall "
+        f"{steps['a']:.2f}s")
+
+    # (b)
+    sel_csv, masks = tmp / "gui_selection.csv", tmp / "gui_masks"
+    masks.mkdir()
+    fs_values = {k: d for k, _l, _k, d in forms.FRAMESELECTOR_FIELDS}
+    fs_values.update(in_dir=str(views), csv=str(sel_csv))
+    ms_values = {k: d for k, _l, _k, d in forms.MASKSEG_FIELDS}
+    ms_values.update(input_dir=str(views), output_dir=str(masks))
+    queue = [gui_runner.tool_argv("frameselector",
+                                  forms.build_frameselector_argv(fs_values)),
+             gui_runner.tool_argv("maskseg",
+                                  forms.build_maskseg_argv(ms_values))]
+    reports, lines, done = [], [], []
+    mon = gui_monitor.OutputMonitor(masks, ["*.png"], len(names),
+                                    lambda *r: reports.append(r),
+                                    interval_sec=0.25)
+    if not mon.start():
+        raise AssertionError("[gui] (b): the output monitor did not start")
+    t0 = time.perf_counter()
+    proc_runner.run_queue("queue", queue, lines.append, done.append)
+    rc = _gui_wait(done, "the FrameSelector + MaskSeg queue")
+    steps["b"] = time.perf_counter() - t0
+    t_end = time.perf_counter() + 5.0
+    while (not reports or reports[-1][0] != 100) \
+            and time.perf_counter() < t_end:
+        time.sleep(0.05)
+    mon.stop()
+    queued = sum(ln.startswith("[queue ") for ln in lines)
+    if rc != 0 or queued != 2 or not sel_csv.exists():
+        raise AssertionError(f"[gui] (b): queue rc {rc}, {queued} steps, "
+                             f"csv {sel_csv.exists()}: {''.join(lines[-6:])}")
+    if not reports or reports[-1] != (100, len(names), len(names)):
+        raise AssertionError(f"[gui] (b): monitor reports {reports}, "
+                             f"expected the last (100, {len(names)}, "
+                             f"{len(names)})")
+    log(f"[gui] (b) run_queue FrameSelector {queue[0][3:]} then MaskSeg "
+        f"{queue[1][3:]}: rc 0, OutputMonitor reports "
+        f"{[r[:2] for r in reports]} of {len(names)} masks, wall "
+        f"{steps['b']:.2f}s")
+
+    # (c)
+    t0 = time.perf_counter()
+    params = synthseg.load_packaged_weights()
+    for label, in_dir in (("on (a) views", views),
+                          ("on [maskseg] scenes", tmp / "ms_in")):
+        log(f"[gui] (c) {_preview_check(label, in_dir, dev, params)}")
+    steps["c"] = time.perf_counter() - t0
+
+    # (d)
+    t0 = time.perf_counter()
+    session = scorereview.ReviewSession.load(sel_csv)
+    chart = scorereview.render_chart(session, 960, 240)
+    dropped = [e.filename for e in session.entries if not e.keep]
+    if len(session.entries) != len(names) or chart.shape != (240, 960, 3):
+        raise AssertionError(f"[gui] (d): {len(session.entries)} rows, "
+                             f"chart {chart.shape}")
+    _lines, _s = _gui_run(proc_runner, "apply", "frameselector",
+                          scorereview.apply_argv(sel_csv, views))
+    moved = sorted(p.name for p in (views / "blur").iterdir()) \
+        if (views / "blur").exists() else []
+    if moved != sorted(dropped):
+        raise AssertionError(f"[gui] (d): moved {moved}, dropped {dropped}")
+    steps["d"] = time.perf_counter() - t0
+    log(f"[gui] (d) ReviewSession of (b)'s CSV: {len(session.entries)} rows, "
+        f"{session.kept_count()} kept, {len(session.suspects())} suspects, "
+        f"chart {chart.shape}; apply_argv through the runner moved "
+        f"{len(moved)} dropped frames to blur/; wall {steps['d']:.2f}s")
+    log("[gui] walls " + ", ".join(f"({k}) {v:.2f}s" for k, v in
+                                   steps.items()))
+    return {"wall_s": sum(steps.values())}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     info = phase_device()
@@ -2984,12 +3254,16 @@ def main() -> int:
             t0 = time.perf_counter()
             phase()
             log(f"[{name}] phase wall {time.perf_counter() - t0:.1f}s")
+        warm = phase_warmup(dev)
+        gui = phase_gui(dev, src_dir, tmp)
+        log(f"[warmup] + [gui] phase wall "
+            f"{warm['wall_s'] + gui['wall_s']:.1f}s")
     micro = phase_micro_ops(dev, info["smi"])
 
     def total(kernel: str) -> int:
         return sum(r["launches"].get(kernel, 0)
                    for r in [*runs.values(), dfe, dfe_lut, *v2f.values(),
-                             *fsel.values(), ms_xml, dfe_xml, masks])
+                             *fsel.values(), ms_xml, dfe_xml, masks, warm])
 
     checks = remap["checks"]
 

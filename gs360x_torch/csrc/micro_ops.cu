@@ -3,10 +3,11 @@
 // primitive; each loads its block once, applies the primitive `reps` times
 // with every application depending on the one before, and stores the
 // result block. Every block of the grid (for a product, concat, the
-// counted loop, the (8,128) mul and where, every chain, two to eight of
-// them a CUDA block) does the same work on the same inputs and stores the
-// same values to the same output (a benign race; concat and the three
-// warp-a-chain kernels store once a CUDA block), so time / (grid * reps)
+// counted loop, the (8,128) mul, where and the (8,128) gather, every
+// chain, two to eight of them a CUDA block) does the same work on the same
+// inputs and stores the same values to the same output (a benign race;
+// concat and the four warp-a-chain kernels store once a CUDA block), so
+// time / (grid * reps)
 // is the cost of one application with the launch and the loads amortised.
 //
 // Replaces micro_ops.py `bench` (the Pallas call) and the 14 kernel bodies
@@ -148,45 +149,13 @@ __device__ __forceinline__ uint32_t byte_of(uint32_t w, int k) {
   return __byte_perm(w, 0u, 0x4440u + static_cast<uint32_t>(k));
 }
 
-// x[r, c] = x[r, idx[r, c]] + 0.5, `reps` times, over an (8,128) tile: the
-// tile in shared memory, gathered within its row, written back between two
-// barriers.
-__global__ void gather_lane8_kernel(const float* __restrict__ a,
-                                    const int* __restrict__ idx,
-                                    float* __restrict__ out, int reps) {
-  constexpr int kPer = kTile8 / kThreads;
-  __shared__ float xs[kTile8];
-  int src[kPer];
-  float v[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int e = threadIdx.x + j * kThreads;
-    xs[e] = a[e];
-    src[j] = (e / kLanes) * kLanes + (idx[e] & (kLanes - 1));
-  }
-  __syncthreads();
-  for (int r = 0; r < reps; ++r) {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) v[j] = __fadd_rn(xs[src[j]], 0.5f);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) xs[threadIdx.x + j * kThreads] = v[j];
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int e = threadIdx.x + j * kThreads;
-    out[e] = xs[e];
-  }
-}
-
 // x[r, c] = x[r, idx[r, c]] + 0.5, `reps` times, over a (64,128) tile.
 // A gather never leaves its row, so each warp owns whole rows: warp w rows
 // 8w .. 8w+7, lane l their columns l, l+32, l+64, l+96. Only a warp's own
 // lanes meet over a row, and a __syncwarp orders them. The tile lives in
 // two shared-memory buffers: an application reads one and writes the
-// other, so one __syncwarp a loop is the only barrier (the block-wide pair
-// of the (8,128) kernel is gone). 64 KB a block: three blocks an SM. A
+// other, so one __syncwarp a loop is the only barrier, as in
+// gather_lane8_kernel. 64 KB a block: three blocks an SM. A
 // loop's 32 reads of a thread are issued before its 32 stores: with each
 // store right after its read, the same kernel ran slower than the
 // block-synchronised one it replaces.
@@ -663,7 +632,7 @@ __global__ void dyn_roll_kernel(const float* __restrict__ a,
   for (int j = 0; j < kPer; ++j) out[threadIdx.x + j * kThreads] = acc[j];
 }
 
-// ---- a warp a chain: the counted loop, the (8,128) mul and where ---------
+// ---- a warp a chain: the counted loop, the (8,128) mul, where, gather ----
 //
 // One warp is a chain (one of the grid's blocks): lane l owns elements
 // l + 32 j (j < 32) of the (8,128) tile, so each warp-load and warp-store is
@@ -672,11 +641,12 @@ __global__ void dyn_roll_kernel(const float* __restrict__ a,
 // multiply (where: 32 compares and 32 predicated multiplies), and the
 // loop's counter, compare and branch, 3 instructions, are paid once a
 // chain-application (with a chain in 8 warps they were paid 8 times). What
-// bounds all three is f32 issue: 1024 instructions a chain-application
-// (where 2048) at 33.5 T a second. 2048 chains are 256 blocks of 8 warps,
+// bounds the first three is f32 issue: 1024 instructions a
+// chain-application (where 2048) at 33.5 T a second (the gather: shared
+// memory, its note says how). 2048 chains are 256 blocks of 8 warps,
 // one wave of at most two blocks an SM (16 chains on the busiest SM against
 // a mean of 15.5); a ragged last block's spare warps leave before their
-// loop (no barrier follows). One store of the (8,128) result a block, by
+// loop (no block barrier follows). One store of the (8,128) result a block, by
 // its first warp; the other warps' final values go through `hold`, so no
 // chain is dead code. Each kernel holds one FADD or FMUL for each of a
 // thread's 32 elements: a merged or dropped chain shows in `cuobjdump
@@ -791,6 +761,62 @@ __global__ void __launch_bounds__(kChainThreads, 2)
     for (int j = 0; j < kChainPer; ++j) mul_unless(x[j], i[j], r);
   }
   store_chain(x, out, warp, lane);
+}
+
+// x[r, c] = x[r, idx[r, c]] + 0.5, `reps` times, over an (8,128) tile
+// (micro_ops.py k_gather_lane8), a warp a chain: lane l owns columns l,
+// l+32, l+64, l+96 of each of the 8 rows (load_chain's elements), so a row
+// gather meets only the warp's own lanes, and the tile lives in two
+// shared-memory buffers of the warp's own: an application reads one and
+// writes the other, and one __syncwarp a loop is the only barrier (no
+// block barrier). A lane holds its 32 values and their 32
+// gather sources (in its own row, masked to it) in registers; a loop's 32
+// reads are issued before its 32 stores, as in gather_lane64_kernel.
+// Nothing is scheduled from idx: its indices stay unknown until run time.
+// 2048 chains are 256 blocks of 8 warps, 8 KB a warp, 64 KB a block; a
+// ragged last block's spare warps leave before their first __syncwarp.
+// One store of the result a block, by warp 0 (store_chain). The loop stays
+// rolled: 32 FADD a lane, one for each element (chip_smoke.py counts them
+// in `cuobjdump -sass`, and no BAR).
+//
+// What bounds it is shared memory's wavefronts, as for the (64,128)
+// gather: a warp-load gathers 32 run-time indices of one 128-word row, 90
+// wavefronts a chain-loop for the seeded idx8 against the 32 of a
+// conflict-free read, plus the 32 of the store: 122 against the bound's 64
+// (micro_ops_cuda.block_loop_wavefronts), a ceiling of 52.5% of the bound.
+constexpr int kGather8Smem = kChains * 2 * kTile8 * 4;
+
+__global__ void __launch_bounds__(kChainThreads, 2)
+    gather_lane8_kernel(const float* __restrict__ a,
+                        const int* __restrict__ idx,
+                        float* __restrict__ out, int reps, int grid) {
+  extern __shared__ __align__(16) float g8[];   // [warp][buffer][kTile8]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (chain_of(warp) >= grid) return;   // before any __syncwarp
+  float* xs = g8 + warp * 2 * kTile8;
+  float v[kChainPer];
+  int src[kChainPer];   // element j: row j / 4, column lane + 32 (j % 4)
+  load_chain(v, a, lane);
+  load_chain(src, idx, lane);
+#pragma unroll
+  for (int j = 0; j < kChainPer; ++j) {
+    const int e = lane + 32 * j;
+    xs[e] = v[j];
+    src[j] = (e & ~(kLanes - 1)) + (src[j] & (kLanes - 1));
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int r = 0; r < reps; ++r) {
+    const float* from = xs + (r & 1) * kTile8;
+    float* to = xs + ((r & 1) ^ 1) * kTile8;
+#pragma unroll
+    for (int j = 0; j < kChainPer; ++j) v[j] = __fadd_rn(from[src[j]], 0.5f);
+#pragma unroll
+    for (int j = 0; j < kChainPer; ++j) to[lane + 32 * j] = v[j];
+    __syncwarp();
+  }
+  store_chain(v, out, warp, lane);
 }
 
 // o = a; then `reps` times: if (block >= first_block) o += 1.0, as a
@@ -975,6 +1001,17 @@ cudaError_t launch_matmul64(const float* a, const float* b, float* out,
   return cudaGetLastError();
 }
 
+cudaError_t launch_gather_lane8(const float* a, const int* idx, float* out,
+                                int reps, int grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gather_lane8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGather8Smem);
+  if (err != cudaSuccess) return err;
+  gather_lane8_kernel<<<(grid + kChains - 1) / kChains, kChainThreads,
+                        kGather8Smem, stream>>>(a, idx, out, reps, grid);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_gather_lane64(const float* a, const int* idx, float* out,
                                  int reps, int grid, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -1011,8 +1048,8 @@ cudaError_t launch_matmul8(const float* a, const float* b, float* out,
 }  // namespace
 
 // One primitive, `grid` blocks of 256 threads (the composite: 512; the
-// products, concat, the counted loop, the (8,128) mul and where: `grid`
-// chains, kChains64, kChains8, kConcatChains or kChains a block), `reps`
+// products, concat, the counted loop, the (8,128) mul, where and the
+// (8,128) gather: `grid` chains, kChains64, kChains8, kConcatChains or kChains a block), `reps`
 // applications each.
 // op: 0 mul (8,128) | 1 mul (64,128) | 2 gather axis 1 (8,128) | 3 gather
 // axis 1 (64,128) | 4 gather axis 0 (8,128) | 5 where | 6 concat | 7
@@ -1048,8 +1085,7 @@ extern "C" int gs360x_micro_op(int op, const void* in0, const void* in1,
       mul_kernel<64><<<grid, kThreads, 0, s>>>(f0, o, reps);
       break;
     case kGatherLane8:
-      gather_lane8_kernel<<<grid, kThreads, 0, s>>>(f0, i1, o, reps);
-      break;
+      return static_cast<int>(launch_gather_lane8(f0, i1, o, reps, grid, s));
     case kGatherLane64:
       return static_cast<int>(launch_gather_lane64(f0, i1, o, reps, grid, s));
     case kGatherSub8:

@@ -478,11 +478,13 @@ BITWISE = frozenset({"mul8", "mul64", "gather_lane8", "gather_lane64",
 # what ``cuobjdump -sass`` must show of a kernel: for each check, the
 # opcodes counted together and how many the kernel must hold (None: at
 # least one; 0: none). The products run on the tensor cores. The adds of
-# concat and loop and the multiplies of mul8 and where sit in a loop that
-# is not unrolled: one for each element a thread holds, so a chain that
-# nvcc merged with another or dropped shows as fewer. where multiplies
-# under the compare's predicate: a select (FSEL) would mean a multiply of
-# every element each application, kept or not
+# concat, loop and gather_lane8 and the multiplies of mul8 and where sit
+# in a loop that is not unrolled: one for each element a thread holds, so
+# a chain that nvcc merged with another or dropped shows as fewer. where
+# multiplies under the compare's predicate: a select (FSEL) would mean a
+# multiply of every element each application, kept or not. gather_lane8's
+# warps meet only over their own rows: a block barrier (BAR) would mean the
+# block-synchronised layout
 SassCheck = Tuple[Tuple[str, ...], Optional[int]]
 SASS_CHECKS: Dict[str, Tuple[SassCheck, ...]] = {
     "matmul64": ((("HGMMA", "HMMA"), None),),
@@ -491,6 +493,7 @@ SASS_CHECKS: Dict[str, Tuple[SassCheck, ...]] = {
     "loop": ((("FADD", "FADD32I"), 32),),
     "mul8": ((("FMUL", "FMUL32I"), 32),),
     "where": ((("FMUL", "FMUL32I"), 32), (("FSEL",), 0)),
+    "gather_lane8": ((("FADD", "FADD32I"), 32), (("BAR",), 0)),
 }
 SASS_OPCODES = tuple(dict.fromkeys(
     op for checks in SASS_CHECKS.values() for ops, _ in checks for op in ops))
@@ -526,7 +529,8 @@ def sass_checks(counts: Mapping[str, Mapping[str, int]]
 CHECK_LOOPS = {"matmul64": (1, 8), "matmul8": (1, 8),
                "gather_lane64": (1, 8, 64), "chunk": (1, 4, 8),
                "concat": (1, 8, 64), "loop": (1, 8, 64),
-               "mul8": (1, 8, 64), "where": (1, 8, 64)}
+               "mul8": (1, 8, 64), "where": (1, 8, 64),
+               "gather_lane8": (1, 8, 64)}
 
 
 def rel_tolerance(key: str, loops: int) -> float:

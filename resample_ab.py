@@ -35,11 +35,11 @@ warp and remap kernels are printed for trees that have
 ``--out FILE`` every run's numbers to that file as JSON.
 
 With ``--micro-ops`` it times ``micro_ops`` kernels instead, the
-primitives ``--keys`` names (by default ``where``, ``x = where(idx ==
-r, x, x * 1.0001)`` over an (8,128) tile for r = 0 .. 63, and ``mul8``,
-``x = x * 1.0001`` 64 times over an (8,128) tile, each in 2048 chains;
+primitives ``--keys`` names (by default ``gather_lane8``, ``x[r, c] =
+x[r, idx[r, c]] + 0.5`` 64 times over an (8,128) tile, in 2048 chains;
 any of the 14, for example the two products ``matmul64,matmul8``, the
-composite ``chunk``, ``concat`` or ``loop``), in the same turns: the
+composite ``chunk``, ``concat``, ``loop``, ``where`` or ``mul8``), in the
+same turns: the
 kernel's device time a launch
 without the wrapper's host time (events around a CUDA graph's replay of 10
 launches, by this checkout's ``profiling.device_ms`` for every tree)
@@ -63,7 +63,7 @@ import sys
 import tempfile
 
 PRODUCTS = ("matmul64", "matmul8")
-MICRO_KEYS = ("where", "mul8")   # --micro-ops default
+MICRO_KEYS = ("gather_lane8",)   # --micro-ops default
 SHAPES = ("yaw ring 8x1920x1080", "default 8x1600²", "full360coverage 12x1600²",
           "fisheyeXY 2x3600²", "pole 1x1600²", "equisolid 1x2048²",
           "SFM10 10x1750²", "undistort 3840²",

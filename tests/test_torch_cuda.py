@@ -500,7 +500,7 @@ def test_micro_op_kernel_matches_plain(dev, key, loops):
 
 @pytest.mark.parametrize("key", ["chunk", "gather_lane64", "matmul64",
                                  "matmul8", "concat", "loop", "where",
-                                 "mul8"])
+                                 "mul8", "gather_lane8"])
 def test_micro_op_grid_and_zero_reps(dev, key):
     """Every block stores the same block: the grid does not enter the
     result, and a second launch repeats it bit for bit; zero applications
@@ -521,9 +521,10 @@ def test_micro_op_grid_and_zero_reps(dev, key):
                        torch.zeros_like(inputs["a8"]))
 
 
-@pytest.mark.parametrize("key", ["where", "mul8"])
+@pytest.mark.parametrize("key", ["where", "mul8", "gather_lane8"])
 def test_micro_op_warp_chains_at_the_check_loops(dev, key):
-    """where and the (8,128) mul, a warp a chain: bitwise their plain
+    """where, the (8,128) mul and the (8,128) gather, a warp a chain:
+    bitwise their plain
     versions at every depth of ``CHECK_LOOPS``, on grids 1, 11 (a ragged
     block) and 2048, and over two launches."""
     op = mo.OPS[key]
@@ -537,8 +538,9 @@ def test_micro_op_warp_chains_at_the_check_loops(dev, key):
 
 def test_micro_op_sass_counts(dev):
     """The built library holds what ``SASS_CHECKS`` asks: the products'
-    HGMMA, one FADD (concat, loop) or FMUL (mul8, where) for each element
-    a thread holds, and no FSEL in where."""
+    HGMMA, one FADD (concat, loop, gather_lane8) or FMUL (mul8, where) for
+    each element a thread holds, no FSEL in where and no BAR in
+    gather_lane8."""
     from gs360x_torch.kernels import _build
     rows = mo.sass_checks(_build.sass_counts(mo.SASS_OPCODES))
     assert {row[0] for row in rows} == set(mo.SASS_CHECKS)

@@ -483,24 +483,34 @@ def emulate_concat(a, loops, grid):
 
 
 def emulate_warp_chains(key, arrays, loops, grid):
-    """Every chain (warp) of the grid as the ``loop``, ``mul8`` or
-    ``where`` kernel runs it: its lanes' 32 elements each loaded (where:
-    their 32 indices too), then an application a loop: an add of 1, a
-    multiply by 1.0001 rounded once, or that multiply under the predicate
-    ``index != r``, the index compared as it is at every application; the
-    result stored by each block's warp 0, which must agree with every
-    other chain."""
+    """Every chain (warp) of the grid as the ``loop``, ``mul8``, ``where``
+    or ``gather_lane8`` kernel runs it: its lanes' 32 elements each loaded
+    (where and the gather: their 32 indices too), then an application a
+    loop: an add of 1, a multiply by 1.0001 rounded once, that multiply
+    under the predicate ``index != r``, the index compared as it is at
+    every application, or the gather: the warp's tile in two buffers of
+    its own, each lane's 32 values read from one at their sources in their
+    own rows (the index masked to the row) plus 0.5 and stored to the
+    other; the result stored by each block's warp 0, which must agree with
+    every other chain."""
     elems = loop_layout()
     out, stored, finals = np.full(8 * 128, np.nan, np.float32), 0, []
     for _block, warp, _chain in warp_chains(grid):
         x = arrays[0].reshape(-1)[elems]
-        if key == "where":
+        if key in ("where", "gather_lane8"):
             i = arrays[1].reshape(-1)[elems]
+        if key == "gather_lane8":
+            src = (elems & ~127) + (i & 127)
+            bufs = np.full((2, 8 * 128), np.nan, np.float32)
+            bufs[0][elems] = x
         for r in range(loops):
             if key == "loop":
                 x = x + np.float32(1.0)
             elif key == "mul8":
                 x = x * SCALE
+            elif key == "gather_lane8":
+                x = bufs[r & 1][src] + np.float32(0.5)
+                bufs[(r & 1) ^ 1][elems] = x
             else:
                 np.multiply(x, SCALE, out=x, where=i != r)
         finals.append(x)
@@ -543,10 +553,12 @@ def test_concat_and_loop_layouts(grid):
 
 
 @pytest.mark.parametrize("loops", [0, 1, REPS, 64])
-@pytest.mark.parametrize("key", ["concat", "loop", "mul8", "where"])
+@pytest.mark.parametrize("key", ["concat", "loop", "mul8", "where",
+                                 "gather_lane8"])
 def test_concat_and_loop_emulation(recorded, key, loops):
-    """The redesigned concat, counted loop, (8,128) mul and where at 0, 1,
-    REPS and 64 loops over a ragged grid of 11 chains: bitwise the plain
+    """The redesigned concat, counted loop, (8,128) mul, where and (8,128)
+    gather at 0, 1, REPS and 64 loops over a ragged grid of 11 chains:
+    bitwise the plain
     version, and the Pallas body (run at ``OP_REPS`` = the loops'
     applications) bitwise too, but for mul8: XLA folds the body's chain of
     multiplies by the constant into one multiply by 1.0001**n (rounded
@@ -624,14 +636,18 @@ def test_sass_counts_reads_cuobjdump(monkeypatch):
     (("loop", "FADD", 31), [("loop", ("FADD", "FADD32I"), 31, 32)]),  # merged
     (("mul8", "FMUL", 33), [("mul8", ("FMUL", "FMUL32I"), 33, 32)]),
     (("matmul8", "HGMMA", 0), [("matmul8", ("HGMMA", "HMMA"), 0, None)]),
+    (("gather_lane8", "BAR", 2), [("gather_lane8", ("BAR",), 2, 0)]),
+    (("gather_lane8", "FADD", 64), [("gather_lane8", ("FADD", "FADD32I"),
+                                     64, 32)]),                # unrolled
 ])
 def test_sass_checks_flag_a_merged_chain_or_a_select(fault, wrong):
     """``sass_checks`` on the counts the right build holds passes every
     check; a chain merged or dropped (one FADD or FMUL too few or many), a
-    select in where, or a product off the tensor cores fails its check
-    alone. A kernel is found by its own mangled name (mul8's count leaves
-    out ``tc_matmul8_kernel``'s and ``mul_kernel<64>``'s); a key's count
-    sums its opcodes."""
+    select in where, a block barrier in the (8,128) gather, or a product
+    off the tensor cores fails its check alone. A kernel is found by its
+    own mangled name (mul8's count leaves out ``tc_matmul8_kernel``'s and
+    ``mul_kernel<64>``'s, gather_lane8's ``gather_lane64_kernel``'s); a
+    key's count sums its opcodes."""
     counts = {
         "_ZN12_GLOBAL__N_118tc_matmul64_kernelEPKfS1_Pfii": {"HGMMA": 48},
         "_ZN12_GLOBAL__N_117tc_matmul8_kernelEPKfS1_Pfii": {"HGMMA": 32,
@@ -641,12 +657,18 @@ def test_sass_checks_flag_a_merged_chain_or_a_select(fault, wrong):
         "_ZN12_GLOBAL__N_111mul8_kernelEPKfPfii": {"FMUL": 30, "FMUL32I": 2},
         "_ZN12_GLOBAL__N_112where_kernelEPKfPKiPfii": {"FMUL": 32},
         "_ZN12_GLOBAL__N_110mul_kernelILi64EEvPKfPfi": {"FMUL": 32},
+        "_ZN12_GLOBAL__N_119gather_lane8_kernelEPKfPKiPfii": {"FADD": 32},
+        "_ZN12_GLOBAL__N_120gather_lane64_kernelEPKfPKiPfi": {"FADD": 32,
+                                                             "BAR": 0},
+        "_ZN12_GLOBAL__N_117gather_sub_kernelEPKfPKiPfi": {"FADD": 8,
+                                                          "BAR": 1},
     }
     if fault:
         key, op, n = fault
         name = next(k for k in counts if f"{len(key) + 7}{key}_kernel" in k
                     or f"tc_{key}_kernel" in k)
-        counts[name] = {op: n} if op != "FSEL" else {**counts[name], op: n}
+        counts[name] = {**counts[name], op: n} if op in ("FSEL", "BAR") \
+            else {op: n}
     rows = mo.sass_checks(counts)
     assert [(k, ops) for k, ops, _n, _w, _ok in rows] == [
         (k, ops) for k, checks in mo.SASS_CHECKS.items() for ops, _ in checks]

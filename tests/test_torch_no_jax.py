@@ -1,8 +1,8 @@
 """The port never imports JAX, and nothing of the JAX package: every
 ``gs360x_torch`` module (the remap path, the tools, the sharpness and flow
 modules, the host IO and camera-format copies, the segmentation model,
-MaskSeg, segtrain, the voxel path, PlyOptimizer and the scene loader named
-explicitly), and ``chip_smoke`` as a module, import in a
+MaskSeg, segtrain, the voxel path, PlyOptimizer, the scene loader, the
+warmup tool and the 12 GUI modules named explicitly), and ``chip_smoke`` as a module, import in a
 fresh interpreter with no ``jax``, no ``gs360x`` and no ``flax``,
 ``msgpack``, ``orbax`` or ``optax`` module in ``sys.modules`` afterwards. A
 subprocess, because this test process has already imported JAX. No source
@@ -22,6 +22,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 # the modules of gs360x the port may import: none
 ALLOWED_GS360X = set()
+GUI_MODULES = {f"gs360x_torch.gui.{name}" for name in (
+    "app", "forms", "maskedit", "monitor", "overlay", "plyview",
+    "pointedit", "runner", "scorereview", "segpreview", "settings")} \
+    | {"gs360x_torch.gui"}
 
 PROBE = """
 import importlib, json, pkgutil, sys
@@ -76,7 +80,8 @@ def test_port_imports_no_jax():
             "gs360x_torch.io.scene",
             "gs360x_torch.tools.segtrain",
             "gs360x_torch.tools.plyopt",
-            "gs360x_torch.tools.scene"} <= set(seen["names"])
+            "gs360x_torch.tools.scene",
+            "gs360x_torch.tools.warmup"} | GUI_MODULES <= set(seen["names"])
     assert seen["jax"] == [], seen["jax"]
     assert set(seen["gs360x"]) <= ALLOWED_GS360X, seen["gs360x"]
     assert seen["forbidden"] == [], seen["forbidden"]
@@ -114,8 +119,8 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
         assert not roots & FORBIDDEN_ROOTS, (script, sorted(roots))
 
 
-PACKAGES = ["core", "io", "kernels", "models", "native", "rig", "runtime",
-            "tools"]
+PACKAGES = ["core", "gui", "io", "kernels", "models", "native", "rig",
+            "runtime", "tools"]
 
 
 def test_every_port_source_is_in_a_checked_package():
@@ -136,17 +141,21 @@ def test_port_package_imports_nothing_of_the_jax_package(package):
         assert not roots & FORBIDDEN_ROOTS, (path, sorted(roots))
 
 
-PORT_SCRIPTS = ["perspcut", "dualfisheye", "video2frames", "frameselector",
-                "ms360xml", "camconvert", "maskseg", "segtrain", "plyopt",
-                "scene"]
+# script gs360x-torch-<name>: the port module whose main it runs
+PORT_SCRIPTS = {name: f"tools.{name}" for name in (
+    "perspcut", "dualfisheye", "video2frames", "frameselector", "ms360xml",
+    "camconvert", "maskseg", "segtrain", "plyopt", "scene", "warmup")}
+PORT_SCRIPTS["gui"] = "gui.app"
 
 
 @pytest.mark.parametrize("tool", PORT_SCRIPTS)
 def test_port_script_runs_a_port_module(tool):
     text = (ROOT / "pyproject.toml").read_text()
-    line = f'gs360x-torch-{tool} = "gs360x_torch.tools.{tool}:main"'
+    module = PORT_SCRIPTS[tool]
+    line = f'gs360x-torch-{tool} = "gs360x_torch.{module}:main"'
     assert line in text.splitlines()
-    roots = imported_roots(ROOT / "gs360x_torch" / "tools" / f"{tool}.py")
+    roots = imported_roots(ROOT / "gs360x_torch"
+                           / f"{module.replace('.', '/')}.py")
     assert not roots & FORBIDDEN_ROOTS, (tool, sorted(roots))
     assert sum(ln.startswith("gs360x-torch-")
                for ln in text.splitlines()) == len(PORT_SCRIPTS)
