@@ -25,6 +25,13 @@ it went through the kernels only and that its pixels are right:
   LUT decode with sRGB output;
 * ``gs360x-torch-video2frames`` on a 4-frame 8K 4:2:0 Y4M (PNG at 2 fps),
   then ``--fisheye-perspective`` on a 3840² lens Y4M;
+* the batched video path (``[mesh]``, ``runtime/mesh.py``): one
+  ``warp_equirect.cu`` launch for 4 8K frames × the yaw ring and the
+  ``default`` views, bitwise the per-frame launches, for u8 and u16
+  batches and the colour route; ``gs360x-torch-perspcut`` in video mode
+  on a 6-frame 8K Y4M at ``--preset default``, 4 frames a launch (one
+  full batch, a 2-frame tail) against 1, files byte-equal; the batch
+  statistics card vs CPU;
 * ``gs360x-torch-frameselector`` on 6 8K frames of graded sharpness with
   optical flow (Lucas–Kanade, then Farneback), and in pair mode on 4
   3840² ``_X``/``_Y`` pairs;
@@ -133,6 +140,9 @@ try:
     from gs360x_torch.models import synthseg
     from gs360x_torch.models import segmentation as seg
     from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
+    from gs360x_torch.io import video as videolib
+    from gs360x_torch.runtime import executor
+    from gs360x_torch.runtime import mesh as meshlib
     from gs360x_torch.runtime.executor import _view_groups
     from gs360x_torch.runtime.profiling import (StageTimers, cuda_ms,
                                                 device_ms)
@@ -215,6 +225,11 @@ PLAIN_TIMING = dict(reps=3, batches=3, warmup=1)
 # apart) and at JPEG_MAX_LSB at most
 JPEG_MAX_LSB = 8
 V2F_FRAMES, V2F_FPS, V2F_RATE = 4, 4.0, 2.0   # 1 s of video, -f 2: 2 frames
+# [mesh]: a batch of 4 8K frames (the JAX executor's frames a batch on an
+# accelerator); perspcut's video mode on 6 frames: one full batch of 4 and
+# a 2-frame tail, against 1 frame a launch
+MESH_BATCH = 4
+MESH_FRAMES = 6
 FS_FRAMES, FS_SEGMENT = 6, 3     # frameselector: 2 segments of 3 8K frames
 FS_SHARP = (1, 4)                # the one sharp frame of each segment
 FS_PAIRS, FS_PAIR_SHARP = 4, 1   # pair mode: 4 3840² pairs, pair 1 sharp
@@ -1287,6 +1302,292 @@ def phase_video2frames(dev, tmp) -> dict:
         f"planes) {move_ms:.4f} ms | fisheye -> perspective {FISH}² "
         f"bicubic: max|diff| f32 {err:.3e}, kernel {remap_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms | set-up (Y4M writes) {setup_s:.2f}s")
+    return out
+
+
+def _batch_vs_frames(label: str, batch_fn, frame_fn, n: int) -> tuple:
+    """``batch_fn()`` against ``frame_fn(f)`` for each of the ``n`` frames:
+    bitwise, with the launches of each side (batch, per-frame routes)."""
+    _reset_counters()
+    got = batch_fn()
+    torch.cuda.synchronize()
+    batch_launches = _counters()[0]
+    _reset_counters()
+    for f in range(n):
+        one = frame_fn(f)
+        torch.cuda.synchronize()
+        if not torch.equal(got[f], one):
+            raise AssertionError(f"[mesh] {label}: frame {f} of the batch is "
+                                 "not the per-frame route's")
+        del one
+    frame_launches = _counters()[0]
+    return got, batch_launches, frame_launches
+
+
+def _mesh_batched_u8(rows: torch.Tensor, src_f32: list, geom: dict,
+                     label: str) -> dict:
+    """(a): the 4-frame u8 batch through one source pass and one warp
+    launch (u8 store) against the 4 per-frame routes, frame 0's views
+    within the warp's gates of the plain version, the f32 store of every
+    frame against it, device ms, the bound and the plain version's ms."""
+    n = rows.shape[0]
+    zeros = [0.0] * len(RING)
+    ring = (RING, zeros, zeros)
+    kw = dict(interp="bicubic", planar=True, **geom)
+    u8 = torch.uint8
+    got, b_launch, f_launch = _batch_vs_frames(
+        f"{label} u8 store",
+        lambda: warp_cuda.warp_equirect_to_views_cuda(rows, *ring,
+                                                      out_dtype=u8, **kw),
+        lambda f: warp_cuda.warp_equirect_to_views_cuda(rows[f], *ring,
+                                                        out_dtype=u8, **kw),
+        n)
+    if b_launch != _launches(planarize=1, warp=1) \
+            or f_launch != _launches(planarize=n, warp=n):
+        raise AssertionError(f"[mesh] {label}: launches {b_launch} a batch, "
+                             f"{f_launch} per frame")
+    plain_kw = dict(interp="bicubic", **geom)
+    err, worst, share = 0.0, 0, 0.0
+    f32 = warp_cuda.warp_equirect_to_views_cuda(rows, *ring, **kw)
+    for f in range(n):
+        ref = twin.warp_equirect_to_views(src_f32[f], *ring,
+                                          **plain_kw).permute(0, 3, 1, 2)
+        err = max(err, float((f32[f] - ref).abs().max()))
+        if f == 0:
+            lsb = (got[0].to(torch.int32) - quantize(ref)).abs()
+            worst, share = int(lsb.max()), float((lsb > 0).float().mean())
+        del ref
+    del f32
+    if err > F32_TOL or worst > 1 or share > LSB_SHARE_TOL:
+        raise AssertionError(f"[mesh] {label}: f32 {err:.3e} from the plain "
+                             f"version, frame 0 u8 {worst} LSB on {share:.4%}")
+    texels = warp_cuda.texelize_rows(rows.reshape(-1, rows.shape[2])).view(
+        n, rows.shape[1], -1, 4)
+    singles = [warp_cuda.texelize_rows(r) for r in rows]
+    ms = cuda_ms(lambda: warp_cuda.warp_texels(texels, *ring, out_dtype=u8,
+                                               **plain_kw))
+    frames_ms = cuda_ms(lambda: [warp_cuda.warp_texels(
+        t, *ring, out_dtype=u8, **plain_kw) for t in singles])
+    route_ms = cuda_ms(lambda: warp_cuda.warp_equirect_to_views_cuda(
+        rows, *ring, out_dtype=u8, **kw))
+    frame_route_ms = cuda_ms(lambda: [warp_cuda.warp_equirect_to_views_cuda(
+        r, *ring, out_dtype=u8, **kw) for r in rows])
+    plain_ms = cuda_ms(lambda: [twin.warp_equirect_to_views(
+        s, *ring, **plain_kw) for s in src_f32], **PLAIN_TIMING)
+    one = _warp_bound(*_ring_uv(geom, rows.device))
+    bound = {"bound_ms": n * one["bound_ms"], "bound_by": one["bound_by"],
+             "library_ms": None}
+    del texels, singles
+    log(f"[mesh] (a) {label}, {n} 8K u8 frames, bicubic, u8 store: batch "
+        f"bitwise the {n} per-frame routes | launches {b_launch['planarize']}"
+        f" planarize + {b_launch['warp']} warp a batch, {f_launch['planarize']}"
+        f" + {f_launch['warp']} per frame | f32 store {err:.3e} from the "
+        f"plain version, frame 0 u8 {worst} LSB on {share:.5%} | device ms: "
+        f"batched warp {ms:.4f} against {n} launches {frames_ms:.4f}; "
+        f"source pass + warp {route_ms:.4f} against {frame_route_ms:.4f} | "
+        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, {n} x "
+        f"{one['bound_ms']:.4f}), {bound['bound_ms'] / ms:.1%} of it | plain "
+        f"{plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "frames_ms": frames_ms, "route_ms": route_ms,
+            "frame_route_ms": frame_route_ms, **bound}
+
+
+def _mesh_u16_and_colour(rows: torch.Tensor, mesh) -> None:
+    """(b): a u16 batch (f32 and u16 stores) and the video colour route
+    (f32 store, colour move, plain quantize) of u8 and u16 batches, each
+    bitwise its per-frame route."""
+    n = rows.shape[0]
+    zeros = [0.0] * len(RING)
+    ring = (RING, zeros, zeros)
+    kw = dict(interp="bicubic", planar=True, **HEADLINE)
+    # 10-bit-like content: the 8-bit frame in the high bits, a ramp below
+    ramp = torch.arange(rows.shape[2], device=rows.device) % 256
+    rows16 = (rows.to(torch.int32) * 256 + ramp).to(torch.uint16)
+    del ramp
+    for out_dtype in (None, torch.uint16):
+        got, b_launch, f_launch = _batch_vs_frames(
+            f"u16 batch, {out_dtype or torch.float32} store",
+            lambda: warp_cuda.warp_equirect_to_views_cuda(
+                rows16, *ring, out_dtype=out_dtype, **kw),
+            lambda f: warp_cuda.warp_equirect_to_views_cuda(
+                rows16[f], *ring, out_dtype=out_dtype, **kw), n)
+        if out_dtype is None:
+            src = rows16[0].reshape(SRC_H, SRC_W, 3).to(torch.float32) \
+                / 65535.0
+            ref = twin.warp_equirect_to_views(
+                src, *ring, interp="bicubic", **HEADLINE).permute(0, 3, 1, 2)
+            err = float((got[0] - ref).abs().max())
+            del src, ref
+            if err > F32_TOL:
+                raise AssertionError(f"[mesh] u16 batch: f32 {err:.3e} from "
+                                     "the plain version")
+            f32 = got
+        elif not torch.equal(got, warp_cuda.quantize_plain(f32, out_dtype)):
+            raise AssertionError("[mesh] u16 batch: the u16 store is not the "
+                                 "plain quantize of the f32 store")
+        del got
+    del f32
+    if b_launch != _launches(planarize=1, warp=1):
+        raise AssertionError(f"[mesh] u16 batch: launches {b_launch}")
+    times = {}
+    for label, src, bits in (("u8", rows, 8), ("u16", rows16, 16)):
+        route = dict(keep_rec709=False, quantize_bits=bits, interp="bicubic",
+                     **HEADLINE)
+
+        def batch(src=src, route=route):
+            return meshlib.warp_frames_sharded_cuda(mesh, src, *ring,
+                                                    **route)[0]
+
+        def frame(f, src=src, route=route):
+            return meshlib.warp_frames_sharded_cuda(mesh, src[f:f + 1],
+                                                    *ring, **route)[0][0]
+
+        _got, c_launch, _ = _batch_vs_frames(f"{label} colour route", batch,
+                                             frame, n)
+        del _got
+        if c_launch != _launches(planarize=1, warp=1):
+            raise AssertionError(f"[mesh] {label} colour route: launches "
+                                 f"{c_launch} a batch")
+        plain = _counters()[1]
+        times[label] = (cuda_ms(batch, reps=3, batches=3),
+                        cuda_ms(lambda: [frame(f) for f in range(n)],
+                                reps=3, batches=3))
+        log(f"[mesh] (b) {label} batch, colour route (f32 store -> "
+            f"Rec.709 -> SMPTE-170M + sRGB -> {bits}-bit quantize): bitwise "
+            f"the per-frame route | launches {c_launch} a batch, plain "
+            f"{plain} for the {n} frames | device ms {times[label][0]:.4f} "
+            f"a batch against {times[label][1]:.4f} per frame")
+    log(f"[mesh] (b) u16 batch, f32 and u16 stores: bitwise the per-frame "
+        f"launches, f32 {err:.3e} from the plain version, u16 store the "
+        f"plain quantize of the f32 store | launches {b_launch} a batch, "
+        f"{f_launch} per frame")
+    del rows16
+
+
+def _mesh_e2e(dev, tmp) -> dict:
+    """(c): perspcut video mode at --preset default on a 6-frame 8K 4:2:0
+    Y4M, batched (4 frames a launch: one full batch, a 2-frame tail) and
+    per frame, in turns (batched, per-frame, per-frame, batched), every
+    run's files byte-equal to the first's."""
+    clip = tmp / "mesh8k.y4m"
+    t0 = time.perf_counter()
+    write_y4m_420(clip, [lonlat_frame(SRC_H, SRC_W, 0.3 * k, dev)
+                         for k in range(MESH_FRAMES)], MESH_FRAMES)
+    setup_s = time.perf_counter() - t0
+    per_launch = {"batched": MESH_BATCH, "per-frame": 1}
+    runs = {"batched": [], "per-frame": []}
+    out_dirs = []
+    for turn, label in enumerate(("batched", "per-frame", "per-frame",
+                                  "batched")):
+        out_dirs.append(tmp / f"mesh_{turn}_{label}")
+        args = ["-i", str(clip), "-o", str(out_dirs[-1]), "--preset",
+                "default", "--size", str(MAIN["width"]), "-f",
+                str(MESH_FRAMES), "--ext", "png", "--device", dev.type,
+                "--stats"]
+        saved = executor.CARD_FRAMES_PER_LAUNCH
+        executor.CARD_FRAMES_PER_LAUNCH = per_launch[label]
+        try:
+            _reset_counters()
+            t0 = time.perf_counter()
+            rc, lines = _quiet(perspcut.main, args)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            executor.CARD_FRAMES_PER_LAUNCH = saved
+        launches, plain = _counters()
+        if rc != 0:
+            raise AssertionError(f"[mesh] perspcut video {label} exited {rc}:"
+                                 f" {lines[-3:]}")
+        n_batches = -(-MESH_FRAMES // per_launch[label])
+        want = _launches(planarize=n_batches, warp=n_batches)
+        # the colour move stands between the warp and the quantize: one
+        # plain quantize a (group, batch); default has one view group
+        if launches != want or plain.pop("quantize") != n_batches \
+                or any(plain.values()):
+            raise AssertionError(f"[mesh] perspcut video {label}: launches "
+                                 f"{launches} (expected {want}), plain "
+                                 f"{plain}")
+        stats = next((line for line in lines if line.startswith("[STATS]")),
+                     "")
+        runs[label].append({"launches": launches, "wall_s": wall_s,
+                            "stats": stats})
+        log(f"[mesh] (c) perspcut video --preset default, {MESH_FRAMES} 8K "
+            f"frames, turn {turn + 1} {label}: wall {wall_s:.3f}s | launches "
+            f"{launches} | {stats}")
+    names = sorted(p.name for p in out_dirs[0].iterdir())
+    if len(names) != MESH_FRAMES * len(RING):
+        raise AssertionError(f"[mesh] perspcut video: {len(names)} outputs")
+    for out_dir in out_dirs[1:]:
+        differ = [name for name in names
+                  if (out_dirs[0] / name).read_bytes()
+                  != (out_dir / name).read_bytes()]
+        if differ or sorted(p.name for p in out_dir.iterdir()) != names:
+            raise AssertionError(f"[mesh] {out_dir.name}'s files differ "
+                                 f"from {out_dirs[0].name}'s: {differ[:4]}")
+    # frame 0's views against the plain chain on the card
+    _idx, _t, rgb = next(iter(videolib.iter_frames(clip, fps=MESH_FRAMES)))
+    src = torch.from_numpy(np.ascontiguousarray(rgb)).to(dev)
+    zeros = [0.0] * len(RING)
+    ref = quantize(colorlib.video_color_move_planar(
+        warp_cuda.warp_equirect_to_views_plain(
+            src, RING, zeros, zeros, interp="bicubic", planar=True, **MAIN)))
+    # the colour move's slope (up to 12.92 near black) turns the warp's
+    # ~1e-6 f32 residue into rounding flips on more pixels than the bare
+    # warp's 0.1%: <= 1 LSB, on <= ORACLE_SHARE of pixels
+    worst, share = 0, 0.0
+    for k, v in enumerate("ABCDEFGH"):
+        img = torch.from_numpy(read_png(
+            out_dirs[0] / f"mesh8k_{0:07d}_{v}.png").astype(np.int32))
+        diff = (img.to(dev) - ref[k].permute(1, 2, 0)).abs()
+        worst = max(worst, int(diff.max()))
+        share = max(share, float((diff > 0).any(dim=-1).float().mean()))
+    if worst > 1 or share > ORACLE_SHARE:
+        raise AssertionError(f"[mesh] frame 0: {worst} LSB from the plain "
+                             f"chain, {share:.4%} of pixels differ")
+    walls = {label: statistics.mean(r["wall_s"] for r in turns)
+             for label, turns in runs.items()}
+    log(f"[mesh] (c) {len(names)} files byte-equal over the 4 runs | mean "
+        f"wall batched {walls['batched']:.3f}s, per-frame "
+        f"{walls['per-frame']:.3f}s | frame 0 vs plain chain on the card: "
+        f"max {worst} LSB, {share:.5%} of pixels differ | set-up (Y4M "
+        f"write) {setup_s:.2f}s")
+    return runs
+
+
+def phase_mesh(dev, tmp) -> dict:
+    """[mesh]: the batched video path (runtime/mesh.py and the executor's
+    batches): (a) one warp launch for 4 8K frames × the view set, bitwise
+    the per-frame launches; (b) u16 batches and the colour route; (c)
+    perspcut's video mode batched against per-frame; (d) the batch stats,
+    card against CPU."""
+    t_phase = time.perf_counter()
+    mesh = meshlib.data_mesh()
+    shifts = [0.4 * f for f in range(MESH_BATCH)]
+    rows = torch.stack([lonlat_frame(SRC_H, SRC_W, s, dev).reshape(
+        SRC_H, SRC_W * 3) for s in shifts])
+    src_f32 = [r.reshape(SRC_H, SRC_W, 3).to(torch.float32) / 255.0
+               for r in rows]
+    out = {"ring": _mesh_batched_u8(rows, src_f32, HEADLINE,
+                                    "yaw ring 8x1920x1080")}
+    _mesh_batched_u8(rows, src_f32, MAIN, "default 8x1600x1600")
+    del src_f32
+    _mesh_u16_and_colour(rows, mesh)
+    out["e2e"] = _mesh_e2e(dev, tmp)
+    frames = rows.reshape(MESH_BATCH, SRC_H, SRC_W, 3).to(torch.float32) \
+        / 255.0
+    del rows
+    got = meshlib.sharded_batch_stats(mesh, frames)
+    ref = meshlib.sharded_batch_stats(meshlib.data_mesh([torch.device("cpu")]),
+                                      frames.cpu())
+    rel = max(abs(float(g) - float(r)) / abs(float(r))
+              for g, r in zip(got, ref))
+    if rel > SCORE_RTOL:
+        raise AssertionError(f"[mesh] batch stats: card {got}, CPU {ref}")
+    log(f"[mesh] (d) sharded_batch_stats over {mesh.size} card(s): mean luma "
+        f"{float(got[0]):.6f}, mean tenengrad {float(got[1]):.4f}, "
+        f"{rel:.2e} from the CPU | phase wall "
+        f"{time.perf_counter() - t_phase:.1f}s")
     return out
 
 
@@ -3243,6 +3544,7 @@ def main() -> int:
         dfe = phase_dualfisheye(dev, tmp, remap)
         dfe_lut = phase_dualfisheye_lut(dev, tmp, remap, dfe)
         v2f = phase_video2frames(dev, tmp)
+        mesh = phase_mesh(dev, tmp)
         fsel = phase_frameselector(dev, tmp)
         ms_xml = phase_ms360xml(dev, src_dir, frames, tmp)
         dfe_xml = phase_dualfisheye_xml(dev, tmp, dfe)
@@ -3263,16 +3565,18 @@ def main() -> int:
     def total(kernel: str) -> int:
         return sum(r["launches"].get(kernel, 0)
                    for r in [*runs.values(), dfe, dfe_lut, *v2f.values(),
-                             *fsel.values(), ms_xml, dfe_xml, masks, warm])
+                             mesh["e2e"]["batched"][0], *fsel.values(),
+                             ms_xml, dfe_xml, masks, warm])
 
     checks = remap["checks"]
 
-    def row(name, source, replaces, kernel, stats):
+    def row(name, source, replaces, kernel, stats, launches=None):
         """A warp or remap row's ms and bound are those of the launch the
         image-mode main path makes (u8 store); the f32 store's, the
         four-pass quantize it replaces and the device routes stand beside
         them. The first planarize row is the texel mode, with the u8
-        planes' time beside it."""
+        planes' time beside it. ``launches`` defaults to the kernel's
+        launches over every phase's main path."""
         extra = {k: stats[k] for k in (
             "ms_f32_out", "bound_ms_f32_out", "bound_by_f32_out",
             "quantize_ms", "route_unfused_ms", "route_ms", "ms_u8_planes",
@@ -3280,7 +3584,7 @@ def main() -> int:
         return {"name": name, "route": "cuda",
                 "source": f"gs360x_torch/csrc/{source}",
                 "replaces": replaces,
-                "launches": total(kernel),
+                "launches": total(kernel) if launches is None else launches,
                 "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
                 "plain_ms": stats["plain_ms"],
                 "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
@@ -3312,6 +3616,13 @@ def main() -> int:
         row("warp_equirect (_warp_kernel_wide: equisolid view)",
             "warp_equirect.cu", "gs360x/kernels/warp_pallas.py:1182", "warp",
             tilted["equisolid"]),
+        row("warp_equirect batched (mesh.warp_frames_sharded_pallas: 4 8K "
+            "u8 frames x yaw ring 8x1920x1080 in one launch, u8 store; "
+            "launches: the batched warp launches of [mesh] (c)'s first "
+            "batched perspcut run)",
+            "warp_equirect.cu", "gs360x/runtime/mesh.py:93", "warp",
+            mesh["ring"],
+            launches=mesh["e2e"]["batched"][0]["launches"]["warp"]),
         row("remap (_remap_kernel: undistort 3840², u8 store)", "remap.cu",
             "gs360x/kernels/remap_pallas.py:110", "remap",
             checks["undistort"]),

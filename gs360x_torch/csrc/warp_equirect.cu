@@ -24,6 +24,18 @@
 // W/2 column shift (v360 reflecty, gs360x/kernels/warp.py _reflect_y), so no
 // padded copy of the source is needed and no pitch is special.
 //
+// A launch takes a batch of frames: blockIdx.z = f * V + v, every frame
+// warped through the same (V, 16) view table into out[f, v]. Frame f's
+// source starts frame_stride elements after frame 0's; that offset is
+// added to the base pointer in 64 bits before any tap is read, so the
+// 32-bit tap index stays one frame's however many frames a batch holds.
+// Planes take a plane stride beside it: planar
+// (3, B*H, W), one source pass over a batch's (B*H, 3*W) rows, has frame
+// f's plane c at c * B*H*W + f * H*W. Frame f of a batched launch is
+// bitwise the single-frame launch on frame f: the same code reads the
+// same values. Replaces the frame axis of gs360x/runtime/mesh.py
+// warp_frames_sharded_pallas, one Pallas call a frame inside shard_map.
+//
 // The fisheye rim: r <= 1 decides between 0 and a full value, so nx, ny and
 // r are computed with round-to-nearest intrinsics (no FMA contraction), the
 // same f32 expression as the plain twin's _pixel_ndc / fisheye_rays: the
@@ -79,8 +91,42 @@ constexpr int kEquisolid = 2;
 
 struct Geometry {
   int src_h, src_w, out_h, out_w;
+  int n_views;
   float scale;
+  int64_t frame_stride;  // source elements from one frame to the next
+  uint64_t view_magic;   // ceil(2^32 / n_views): see frame_of
 };
+
+// The frame of blockIdx.z = f * n_views + v: a multiply-high by
+// ceil(2^32 / n_views) = (2^32 + e) / n_views, e < n_views, exact for
+// blockIdx.z and n_views below 2^16: the excess blockIdx.z * e /
+// (n_views * 2^32) stays under 1 / n_views.
+__device__ __forceinline__ int frame_of(int fv, const Geometry& g) {
+  return static_cast<int>((static_cast<uint64_t>(fv) * g.view_magic) >> 32);
+}
+
+// The source of frame f: its base pointer moved by a 64-bit offset, so
+// the tap loops keep one frame's 32-bit index. The empty asm makes the
+// moved pointer one value: without it nvcc folds the offset into every
+// tap's address (a 64-bit multiply-add, a sign extension and two LEAs a
+// tap against one IMAD.WIDE), 11% slower a frame than the kernel without
+// a frame offset (PERF.md, the frame axis).
+template <typename T>
+__device__ __forceinline__ const T* frame_base(const T* p, int64_t offset) {
+  p += offset;
+  asm("" : "+l"(p));
+  return p;
+}
+
+__device__ __forceinline__ Texels at_frame(const Texels& s, int64_t offset) {
+  return Texels{frame_base(s.p, offset)};
+}
+
+template <typename T, int C>
+__device__ __forceinline__ Planes<T, C> at_frame(const Planes<T, C>& s,
+                                                 int64_t offset) {
+  return Planes<T, C>{frame_base(s.p, offset), s.plane};
+}
 
 // x modulo w for x in [-w, 2w): every tap column before the pole shift
 // lies in [-2, w + 1] (warp_cuda.wrap_tap_column states the rule and its
@@ -122,18 +168,21 @@ __device__ __forceinline__ void row_taps(int y, const int (&cols)[N],
   }
 }
 
+// One kernel for one frame and for a batch: blockIdx.z = f * n_views + v,
+// frame f's source at at_frame (f = 0 and offset 0 for one frame).
 template <typename Src, typename Tout, bool kBicubic, int kProj>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-warp_equirect_kernel(Src src, const float* __restrict__ views,
+warp_equirect_kernel(Src batch, const float* __restrict__ views,
                      Tout* __restrict__ out, Geometry g) {
   const int j = blockIdx.x * kBlockX + threadIdx.x;
   const int i = blockIdx.y * kBlockY + threadIdx.y;
-  const int vi = blockIdx.z;
+  const int fv = blockIdx.z;  // f * n_views + vi
   if (j >= g.out_w || i >= g.out_h) return;
 
-  const float* tab = views + vi * kTable;
+  const int f = frame_of(fv, g);
+  const float* tab = views + (fv - f * g.n_views) * kTable;
   const int64_t out_plane = static_cast<int64_t>(g.out_h) * g.out_w;
-  Tout* o = out + static_cast<int64_t>(vi) * 3 * out_plane +
+  Tout* o = out + static_cast<int64_t>(fv) * 3 * out_plane +
             static_cast<int64_t>(i) * g.out_w + j;
 
   // pixel center in [-1, 1], rounded exactly as the twin's _pixel_ndc
@@ -190,6 +239,10 @@ warp_equirect_kernel(Src src, const float* __restrict__ views,
   const int x0 = static_cast<int>(x0f);
   const int y0 = static_cast<int>(y0f);
 
+  // the frame's source, formed where the taps start: a 64-bit pointer
+  // live across the coordinate chain made ptxas spill in the fisheye
+  // kernels over u8 planes
+  const Src src = at_frame(batch, static_cast<int64_t>(f) * g.frame_stride);
   float acc[3] = {0.0f, 0.0f, 0.0f};
   if (kBicubic) {
     float wxs[4], wys[4];
@@ -234,7 +287,7 @@ warp_equirect_kernel(Src src, const float* __restrict__ views,
 struct Launch {
   const float* views;
   void* out;
-  int n_views, interp, projection;
+  int n_frames, interp, projection;
   Geometry g;
   cudaStream_t stream;
 };
@@ -243,7 +296,7 @@ template <typename Src, typename Tout, int kProj>
 void launch_interp(const Src& src, const Launch& l) {
   dim3 block(kBlockX, kBlockY);
   dim3 grid((l.g.out_w + kBlockX - 1) / kBlockX,
-            (l.g.out_h + kBlockY - 1) / kBlockY, l.n_views);
+            (l.g.out_h + kBlockY - 1) / kBlockY, l.n_frames * l.g.n_views);
   Tout* out = static_cast<Tout*>(l.out);
   if (l.interp == 1) {
     warp_equirect_kernel<Src, Tout, true, kProj><<<grid, block, 0, l.stream>>>(
@@ -280,26 +333,44 @@ cudaError_t launch_out(const Src& src, int out_kind, const Launch& l) {
 }  // namespace
 
 // src_kind: 3 RGBX texels (H, W) of 4 bytes, 4-byte aligned; 0 u8 planes;
-// 2 f32 planes (3, H, W). interp: 0 bilinear, 1 bicubic. projection:
-// 0 perspective, 1 equidistant fisheye, 2 equisolid fisheye. views:
-// (n_views, 16) f32 on the device. out: (n_views, 3, out_h, out_w) of
-// out_kind 0 u8, 1 u16 or 2 f32. Returns a cudaError_t (0 = launched).
-extern "C" int gs360x_warp_equirect(const void* src, int src_kind, int src_h,
+// 2 f32 planes (3, H, W). n_frames frames, frame f's source at src +
+// f * frame_stride elements (texels or plane elements); plane c of a frame
+// at c * plane_stride elements from its start, so (3, H, W) planes of one
+// frame have plane_stride H * W and (3, B*H, W) planes of a batch B*H*W.
+// Within a frame every tap index must fit 31 bits: 3*H*W and
+// 2 * plane_stride + H*W below 2^31. interp: 0 bilinear, 1 bicubic.
+// projection: 0 perspective, 1 equidistant fisheye, 2 equisolid fisheye.
+// views: (n_views, 16) f32 on the device, shared by every frame. out:
+// (n_frames, n_views, 3, out_h, out_w) of out_kind 0 u8, 1 u16 or 2 f32;
+// n_frames * n_views <= 65535 (the grid's z). Returns a cudaError_t
+// (0 = launched).
+extern "C" int gs360x_warp_equirect(const void* src, int src_kind,
+                                    int n_frames, int64_t frame_stride,
+                                    int64_t plane_stride, int src_h,
                                     int src_w, const void* views, int n_views,
                                     void* out, int out_kind, int out_h,
                                     int out_w, int interp, int projection,
                                     float scale, void* stream) {
-  if (n_views <= 0 || out_h <= 0 || out_w <= 0) return 0;
+  if (n_frames <= 0 || n_views <= 0 || out_h <= 0 || out_w <= 0) return 0;
+  const int64_t plane = static_cast<int64_t>(src_h) * src_w;
   // wrap_col needs every tap column within [-w, 2w): w >= 2
-  if (src_h <= 0 || src_w < 2 || n_views > 65535 ||
-      static_cast<int64_t>(src_h) * src_w * 3 > 0x7fffffff ||
+  if (src_h <= 0 || src_w < 2 ||
+      static_cast<int64_t>(n_frames) * n_views > 65535 ||
+      plane * 3 > 0x7fffffff || frame_stride < 0 ||
+      (n_frames > 1 && frame_stride < plane) ||
       (interp != 0 && interp != 1) || projection < 0 || projection > 2 ||
       (out_kind != KIND_U8 && out_kind != KIND_U16 && out_kind != KIND_F32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Launch l{static_cast<const float*>(views), out, n_views, interp,
-                 projection, Geometry{src_h, src_w, out_h, out_w, scale},
+  if (src_kind != KIND_RGBX &&
+      (plane_stride < plane || 2 * plane_stride + plane > 0x7fffffff))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch l{static_cast<const float*>(views), out, n_frames, interp,
+                 projection,
+                 Geometry{src_h, src_w, out_h, out_w, n_views, scale,
+                          frame_stride,
+                          ((uint64_t{1} << 32) + n_views - 1) / n_views},
                  static_cast<cudaStream_t>(stream)};
-  const int plane = src_h * src_w;
+  const int planes = static_cast<int>(plane_stride);
   if (src_kind == KIND_RGBX) {
     if (reinterpret_cast<uintptr_t>(src) % 4 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -308,10 +379,11 @@ extern "C" int gs360x_warp_equirect(const void* src, int src_kind, int src_h,
   }
   if (src_kind == KIND_U8)
     return static_cast<int>(launch_out(
-        Planes<uint8_t, 3>{static_cast<const uint8_t*>(src), plane}, out_kind,
-        l));
+        Planes<uint8_t, 3>{static_cast<const uint8_t*>(src), planes},
+        out_kind, l));
   if (src_kind == KIND_F32)
     return static_cast<int>(launch_out(
-        Planes<float, 3>{static_cast<const float*>(src), plane}, out_kind, l));
+        Planes<float, 3>{static_cast<const float*>(src), planes}, out_kind,
+        l));
   return static_cast<int>(cudaErrorInvalidValue);
 }

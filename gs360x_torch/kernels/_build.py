@@ -78,8 +78,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gs360x_planarize_variant.restype = i32
     lib.gs360x_planarize_auto_variant.argtypes = [vp, vp, i32, i64, i64]
     lib.gs360x_planarize_auto_variant.restype = i32
-    lib.gs360x_warp_equirect.argtypes = [vp, i32, i32, i32, vp, i32, vp,
-                                         i32, i32, i32, i32, i32, f32, vp]
+    lib.gs360x_warp_equirect.argtypes = [vp, i32, i32, i64, i64, i32, i32,
+                                         vp, i32, vp, i32, i32, i32, i32,
+                                         i32, f32, vp]
     lib.gs360x_warp_equirect.restype = i32
     lib.gs360x_remap.argtypes = [vp, i32, i32, i32, i32, vp, vp, vp, i32,
                                  vp, i32, i32, i32, i32, f32, f32, vp]

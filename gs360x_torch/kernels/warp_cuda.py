@@ -13,7 +13,9 @@ path on the card:
   poles in view, pitched and rolled views, ``fisheye_v360`` and
   ``equisolid`` outputs), replacing ``_warp_kernel_yaw2``, ``_warp_kernel``,
   ``_warp_kernel_wide3`` and the fallbacks ``_warp_kernel_wide2``,
-  ``_warp_kernel_wide`` and ``_warp_kernel_yaw``.
+  ``_warp_kernel_wide`` and ``_warp_kernel_yaw``; a batch of B frames →
+  (B, V, 3, h, w) in one launch (the frame axis of
+  ``gs360x.runtime.mesh.warp_frames_sharded_pallas``).
 
 On the card the warp is bound by instruction issue, not by bytes. A tap of
 a u8 frame is therefore one 4-byte texel load for its three channels
@@ -49,6 +51,8 @@ from gs360x_torch.kernels import _build
 from gs360x_torch.kernels import warp as twin
 
 LAUNCHES: Dict[str, int] = {"planarize": 0, "warp": 0}
+# frames × views of one warp launch: the grid's z axis
+MAX_FRAME_VIEWS = 65535
 PLAIN_CALLS: Dict[str, int] = {"planarize": 0, "warp": 0}
 # runs of the four-pass plain quantize (video mode, Video2Frames, the CPU
 # route): 0 where a kernel's store quantized
@@ -337,6 +341,33 @@ def _as_rows(src: torch.Tensor) -> torch.Tensor:
     return src
 
 
+def _batch_rows(src: torch.Tensor) -> tuple:
+    """``(rows, batched)``: ``src`` as (B, H, W·3) rows, and whether it
+    was a batch. One frame is (H, W·3) rows or an (H, W, 3) frame; a batch
+    is (B, H, W·3) rows or (B, H, W, 3) frames. A 3-D tensor whose last
+    axis is 3 is a frame: as rows it would be one pixel wide, which no warp
+    takes."""
+    if src.dim() == 2:
+        return src[None], False
+    if src.dim() == 3:
+        if src.shape[2] == 3:
+            return _as_rows(src)[None], False
+        return src, True
+    if src.dim() == 4 and src.shape[3] == 3:
+        b, h, w, c = src.shape
+        return src.reshape(b, h, w * c), True
+    raise ValueError(f"expected (H, W*3) rows or an (H, W, 3) frame, or a "
+                     f"batch of either, got {tuple(src.shape)}")
+
+
+def _check_grid(n_frames: int, n_views: int) -> None:
+    """A launch warps every frame × view in one grid, whose z axis holds
+    at most 65535: a larger batch raises, it is never split."""
+    if n_frames * n_views > MAX_FRAME_VIEWS:
+        raise ValueError(f"warp: {n_frames} frames x {n_views} views is "
+                         f"more than {MAX_FRAME_VIEWS} in one launch")
+
+
 def warp_equirect_to_views_plain(src, yaws, pitches, rolls, *,
                                  width: int, height: int,
                                  hfov_deg: float, vfov_deg: float,
@@ -373,71 +404,103 @@ def warp_equirect_to_views_cuda(src_rows, yaws, pitches, rolls, *,
                                 planar: bool = False,
                                 out_dtype: Optional[torch.dtype] = None
                                 ) -> torch.Tensor:
-    """Cut V views out of one equirect frame in one kernel launch.
+    """Cut V views out of one equirect frame, or out of every frame of a
+    batch, in one kernel launch.
 
     Mirrors :func:`gs360x.kernels.warp_pallas.warp_equirect_to_views_pallas`:
     ``src_rows`` is (H, W·3) (or (H, W, 3)) u8/u16/f32, angles are host
     values in degrees; returns (V, 3, height, width) when ``planar`` else
-    (V, height, width, 3). ``interp="nearest"`` runs bilinear, as the JAX
+    (V, height, width, 3). A batch, (B, H, W·3) rows or (B, H, W, 3)
+    frames (the frame axis of
+    :func:`gs360x.runtime.mesh.warp_frames_sharded_pallas`), returns
+    (B, V, 3, height, width) or (B, V, height, width, 3); B·V above 65535
+    raises ``ValueError``. ``interp="nearest"`` runs bilinear, as the JAX
     executor maps it for its kernels. ``projection`` is ``perspective``,
     ``fisheye_v360`` or ``equisolid`` (pixels outside a fisheye's image
     circle are 0); anything else raises ``ValueError``. ``out_dtype``:
     None or f32 for float views in [0, 1]; u8 or u16 for views quantized by
     the kernel's store, bitwise :func:`quantize_plain` of the f32 views.
 
-    CUDA tensors: ``planarize.cu`` (texels for a u8 frame, scaled f32
-    planes otherwise) then ``warp_equirect.cu``, for every view. CPU
-    tensors: the plain version, quantized by :func:`quantize_plain`.
+    CUDA tensors: one ``planarize.cu`` launch over all the rows (texels for
+    u8 frames, scaled f32 planes (3, B·H, W) otherwise) then one
+    ``warp_equirect.cu`` launch for every frame and view. CPU tensors: the
+    plain version of each frame, stacked, quantized by
+    :func:`quantize_plain`.
     """
     interp = _check_view_args(projection, interp)
     _out_kind(out_dtype)
     yaws = [float(y) for y in np.asarray(yaws, np.float64).reshape(-1)]
     pitches = [float(p) for p in np.asarray(pitches, np.float64).reshape(-1)]
     rolls = [float(r) for r in np.asarray(rolls, np.float64).reshape(-1)]
-    rows = _as_rows(src_rows)
-    if rows.dim() != 2 or rows.shape[1] % 3:
+    rows, batched = _batch_rows(src_rows)
+    if rows.shape[2] % 3:
         raise ValueError(f"expected (H, W*3) rows or an (H, W, 3) frame, "
                          f"got {tuple(src_rows.shape)}")
+    n_frames, h, w3 = rows.shape
+    _check_grid(n_frames, len(yaws))
     if rows.device.type == "cpu":
-        return quantize_plain(warp_equirect_to_views_plain(
-            rows, yaws, pitches, rolls, width=width, height=height,
+        out = quantize_plain(torch.stack([warp_equirect_to_views_plain(
+            frame, yaws, pitches, rolls, width=width, height=height,
             hfov_deg=hfov_deg, vfov_deg=vfov_deg, projection=projection,
-            interp=interp, planar=planar), out_dtype)
+            interp=interp, planar=planar) for frame in rows]), out_dtype)
+        return out if batched else out[0]
     _require_cuda(rows, "warp_equirect_to_views_cuda")
     if rows.dtype not in _KIND:
         raise ValueError(f"unsupported source dtype {rows.dtype}")
     kw = dict(width=width, height=height, hfov_deg=hfov_deg,
               vfov_deg=vfov_deg, projection=projection, interp=interp,
               out_dtype=out_dtype)
+    all_rows = rows.reshape(n_frames * h, w3)
     if rows.dtype == torch.uint8:
-        # texels of raw bytes: the kernel applies 1/255 once
-        out = warp_texels(texelize_rows(rows), yaws, pitches, rolls, **kw)
-    else:
-        out = warp_planes(planarize_rows(rows, _SCALE[rows.dtype],
-                                         torch.float32),
+        # texels of raw bytes: the kernel applies 1/255 once; (B·H, W, 4)
+        # texels are (B, H, W, 4)
+        out = warp_texels(texelize_rows(all_rows).view(n_frames, h, -1, 4),
                           yaws, pitches, rolls, **kw)
-    return out if planar else out.permute(0, 2, 3, 1)
+    else:
+        _check_plane_index(n_frames * h * (w3 // 3), h, w3 // 3)
+        # (3, B·H, W) planes: frame f's plane c at c·B·H·W + f·H·W
+        planes = planarize_rows(all_rows, _SCALE[rows.dtype], torch.float32)
+        out = warp_planes(planes.view(3, n_frames, h, -1).transpose(0, 1),
+                          yaws, pitches, rolls, **kw)
+    if not planar:
+        out = out.permute(0, 1, 3, 4, 2)
+    return out if batched else out[0]
 
 
-def _launch_warp(src: torch.Tensor, src_kind: int, src_h: int, src_w: int,
-                 yaws, pitches, rolls, *, width: int, height: int,
-                 hfov_deg: float, vfov_deg: float, projection: str,
-                 interp: str, out_dtype: Optional[torch.dtype]
-                 ) -> torch.Tensor:
+def _check_plane_index(plane_stride: int, h: int, w: int) -> None:
+    """A frame's last tap of its third plane, 2·plane_stride + H·W, must
+    fit the kernel's 31-bit index (planes (3, B·H, W) of a batch have
+    ``plane_stride`` B·H·W)."""
+    if 2 * plane_stride + h * w >= 2 ** 31:
+        raise ValueError(f"warp: a plane stride of {plane_stride} on {w}x{h} "
+                         "frames is past the kernel's 31-bit index")
+
+
+def _launch_warp(src: torch.Tensor, src_kind: int, n_frames: int,
+                 frame_stride: int, plane_stride: int, src_h: int,
+                 src_w: int, yaws, pitches, rolls, *, width: int,
+                 height: int, hfov_deg: float, vfov_deg: float,
+                 projection: str, interp: str,
+                 out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """One ``warp_equirect.cu`` launch over ``n_frames`` frames of ``src``
+    (frame f at ``f · frame_stride`` elements, plane c of a frame at ``c ·
+    plane_stride``) → (n_frames, V, 3, height, width)."""
     out_dtype, out_kind = _out_kind(out_dtype)
     if src_w < 2 or 3 * src_h * src_w >= 2 ** 31:
         raise ValueError(f"warp: a {src_w}x{src_h} source is outside the "
                          "kernel's range (W >= 2, 3*H*W < 2^31)")
+    n_views = len(yaws)
+    _check_grid(n_frames, n_views)
     table = _device_table(yaws, pitches, rolls, hfov_deg, vfov_deg,
                           projection, src.device)
-    n_views = len(yaws)
-    out = torch.empty((n_views, 3, height, width), dtype=out_dtype,
+    out = torch.empty((n_frames, n_views, 3, height, width), dtype=out_dtype,
                       device=src.device)
     scale = _SCALE[torch.uint8] if src.dtype == torch.uint8 else 1.0
     lib = _build.load()
     with torch.cuda.device(src.device):
         err = lib.gs360x_warp_equirect(
-            ctypes.c_void_p(src.data_ptr()), src_kind, src_h, src_w,
+            ctypes.c_void_p(src.data_ptr()), src_kind, n_frames,
+            frame_stride, plane_stride, src_h, src_w,
             ctypes.c_void_p(table.data_ptr()), n_views,
             ctypes.c_void_p(out.data_ptr()), out_kind, height, width,
             _INTERP[interp], _PROJECTION[projection], float(scale),
@@ -453,19 +516,24 @@ def warp_texels(texels: torch.Tensor, yaws, pitches, rolls, *,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch ``warp_equirect.cu`` on the (H, W, 4) RGBX u8 texels of a
     CUDA frame (:func:`texelize_rows`; scaled by 1/255 in the kernel) →
-    (V, 3, height, width) of ``out_dtype`` (None: f32). A view of texels
-    that is not contiguous is copied, never read misaligned."""
+    (V, 3, height, width) of ``out_dtype`` (None: f32); on the (B, H, W, 4)
+    texels of a batch → (B, V, 3, height, width), one launch. Texels that
+    are not contiguous are copied, never read misaligned."""
     interp = _check_view_args(projection, interp)
     _require_cuda(texels, "warp_texels")
-    if not is_texels(texels):
-        raise ValueError(f"warp_texels: expected (H, W, 4) u8 texels, got "
-                         f"{tuple(texels.shape)} {texels.dtype}")
-    texels = aligned_texels(texels)
-    return _launch_warp(texels, _KIND_TEXELS, texels.shape[0],
-                        texels.shape[1], yaws, pitches, rolls, width=width,
-                        height=height, hfov_deg=hfov_deg, vfov_deg=vfov_deg,
-                        projection=projection, interp=interp,
-                        out_dtype=out_dtype)
+    batched = texels.dim() == 4
+    if not is_texels(texels[0] if batched else texels):
+        raise ValueError(f"warp_texels: expected (H, W, 4) or (B, H, W, 4) "
+                         f"u8 texels, got {tuple(texels.shape)} "
+                         f"{texels.dtype}")
+    texels = aligned_texels(texels if batched else texels[None])
+    n_frames, h, w = texels.shape[:3]
+    out = _launch_warp(texels, _KIND_TEXELS, n_frames, h * w, h * w, h, w,
+                       yaws, pitches, rolls, width=width, height=height,
+                       hfov_deg=hfov_deg, vfov_deg=vfov_deg,
+                       projection=projection, interp=interp,
+                       out_dtype=out_dtype)
+    return out if batched else out[0]
 
 
 def warp_planes(planes: torch.Tensor, yaws, pitches, rolls, *,
@@ -474,16 +542,29 @@ def warp_planes(planes: torch.Tensor, yaws, pitches, rolls, *,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch ``warp_equirect.cu`` on a planar CUDA source: (3, H, W) u8
     (scaled by 1/255 in the kernel) or f32 (read as is) → (V, 3, height,
-    width) of ``out_dtype`` (None: f32)."""
+    width) of ``out_dtype`` (None: f32); a batch (B, 3, H, W) → (B, V, 3,
+    height, width), one launch. A batch's frame and plane strides are
+    taken as they are where each plane's rows are contiguous, as in
+    ``planarize_rows(...).view(3, B, H, W).transpose(0, 1)``."""
     interp = _check_view_args(projection, interp)
     _require_cuda(planes, "warp_planes")
-    if planes.dim() != 3 or planes.shape[0] != 3 \
-            or planes.dtype not in (torch.uint8, torch.float32):
-        raise ValueError(f"warp_planes: expected (3, H, W) u8/f32 planes, "
-                         f"got {tuple(planes.shape)} {planes.dtype}")
-    planes = planes.contiguous()
-    return _launch_warp(planes, _KIND[planes.dtype], planes.shape[1],
-                        planes.shape[2], yaws, pitches, rolls, width=width,
-                        height=height, hfov_deg=hfov_deg, vfov_deg=vfov_deg,
-                        projection=projection, interp=interp,
-                        out_dtype=out_dtype)
+    batched = planes.dim() == 4
+    frames = planes if batched else planes[None]
+    if frames.dim() != 4 or frames.shape[1] != 3 \
+            or frames.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"warp_planes: expected (3, H, W) or (B, 3, H, W) "
+                         f"u8/f32 planes, got {tuple(planes.shape)} "
+                         f"{planes.dtype}")
+    n_frames, _c, h, w = frames.shape
+    if frames.stride(3) != 1 or frames.stride(2) != w \
+            or frames.stride(1) < h * w \
+            or (n_frames > 1 and frames.stride(0) < h * w):
+        frames = frames.contiguous()
+    plane_stride = frames.stride(1)
+    _check_plane_index(plane_stride, h, w)
+    out = _launch_warp(frames, _KIND[frames.dtype], n_frames,
+                       frames.stride(0), plane_stride, h, w, yaws, pitches, rolls, width=width,
+                       height=height, hfov_deg=hfov_deg, vfov_deg=vfov_deg,
+                       projection=projection, interp=interp,
+                       out_dtype=out_dtype)
+    return out if batched else out[0]

@@ -1,14 +1,19 @@
 """RenderPlan executor (port of :mod:`gs360x.runtime.executor`).
 
-Decodes each frame once, uploads it to the device once as u8 (H, W·3)
-rows, warps all views of a view group in one launch, quantizes on the
-device (in image mode in the warp kernel's own store; after the colour
-move in video mode), fetches once per (group, frame) and streams the
-encodes through the async writer pool. Progress (≥5 %% steps), cooperative stop via an
+Image mode decodes each frame once, uploads it to the device once as
+(H, W·3) rows, warps all views of a view group in one launch, quantizes in
+the warp kernel's own store, fetches once per (group, frame) and streams
+the encodes through the async writer pool. Video mode batches frames over
+a data mesh (:mod:`gs360x_torch.runtime.mesh`): on a CUDA device 4 frames
+a batch over every visible card (at least one a card), on the CPU 1; one
+upload a batch, one warp launch a (group, batch, device) for every frame
+× view, the colour move and the quantize on the device, one fetch a
+(group, batch, device). Progress (≥5 %% steps), cooperative stop via an
 Event and the overwrite guard behave as in the JAX executor.
 
 The device is explicit: :func:`run_plan` takes a :class:`torch.device`
-and passes it down. ``backend`` keeps the JAX spelling: ``auto`` and
+and passes it down; video mode on a CUDA device takes every visible card,
+whichever card ``device`` names, as the JAX executor takes every chip. ``backend`` keeps the JAX spelling: ``auto`` and
 ``pallas`` send every view group through the CUDA kernel wrapper
 (:mod:`gs360x_torch.kernels.warp_cuda`), which launches the kernels on a
 CUDA device and runs their plain versions on a CPU device; ``xla`` runs
@@ -34,11 +39,16 @@ import torch
 from gs360x_torch.io import image as imagelib
 from gs360x_torch.io import video as videolib
 from gs360x_torch.runtime.profiling import StageTimers
-from gs360x_torch.core import color as colorlib
 from gs360x_torch.kernels import warp_cuda
 from gs360x_torch.rig.spec import RenderPlan
+from gs360x_torch.runtime import mesh as meshlib
 
 PROGRESS_INTERVAL = 5
+# video mode on the card: frames a batch over the mesh, the JAX executor's
+# per_launch on an accelerator (on one card, frames a launch). On a
+# 200-frame 8K clip its wall matched 1 frame a launch within the spread of
+# runs in turns (video_batch_ab.py; PERF.md, the batched video path)
+CARD_FRAMES_PER_LAUNCH = 4
 
 
 @dataclass
@@ -163,7 +173,6 @@ def _group_angles(views, idxs):
 
 def _warp_frame_views(frame: np.ndarray, views, *, interp: str,
                       backend: str, device: torch.device,
-                      keep_rec709: Optional[bool] = None,
                       quantize_bits: Optional[int] = None):
     """Warp one decoded frame through all plan views.
 
@@ -171,10 +180,9 @@ def _warp_frame_views(frame: np.ndarray, views, *, interp: str,
     the group's batched planar (V, 3, h, w) device result shared across
     its views (fetched once by :class:`_ViewFetcher`; the channel
     interleave happens in the encode threads). The frame goes to the
-    device once, as (H, W·3) rows in its own dtype. When ``keep_rec709``
-    is not None the video colour move runs on the device, on the warped
-    f32 outputs, and :func:`_quantize_device` follows; in image mode
-    (``keep_rec709`` None) the kernel's own store quantizes.
+    device once, as (H, W·3) rows in its own dtype. The kernel's own
+    store quantizes (the plain twin's views, ``--backend xla``, go through
+    :func:`_quantize_device`). Video mode takes :func:`_warp_frames_batch`.
     """
     results: List = [None] * len(views)
     rows = upload_rows(frame, device)
@@ -182,17 +190,13 @@ def _warp_frame_views(frame: np.ndarray, views, *, interp: str,
     warp = (warp_cuda.warp_equirect_to_views_plain if backend == "xla"
             else warp_cuda.warp_equirect_to_views_cuda)
     # the plain twin (--backend xla) has no quantizing store
-    fused = (keep_rec709 is None and quantize_bits is not None
-             and backend != "xla")
+    fused = quantize_bits is not None and backend != "xla"
     store = dict(out_dtype=_quantize_dtype(quantize_bits)) if fused else {}
     for (projection, vw, vh, hfov, vfov), idxs in _view_groups(views).items():
         yaws, pitches, rolls = _group_angles(views, idxs)
         out = warp(rows, yaws, pitches, rolls, width=vw, height=vh,
                    hfov_deg=hfov, vfov_deg=vfov, projection=projection,
                    interp=interp, planar=True, **store)
-        if keep_rec709 is not None:
-            out = colorlib.video_color_move_planar(out,
-                                                   keep_rec709=keep_rec709)
         if quantize_bits is not None and not fused:
             out = _quantize_device(out, quantize_bits)
         for j, i in enumerate(idxs):
@@ -327,14 +331,122 @@ def _run_images(plan, writer, report, stop_event, tick, backend, device,
         drain(inflight)
 
 
-def _run_video(plan, writer, report, stop_event, tick, backend, device,
-               interp, jpeg_quality, overwrite, timers) -> None:
-    """Single-device per-frame video loop: decode N+1 || warp N+1 || fetch
-    and encode N. Output names keep the source's frame index."""
+def _warp_frames_batch(frames, views, *, interp, keep_rec709,
+                       quantize_bits, mesh, backend="auto"):
+    """Warp a batch of decoded (H, W, 3) frames through all plan views over
+    ``mesh``: the stacked batch (padded to a multiple of the mesh size by
+    :func:`meshlib.pad_to_mesh`) goes to the devices once, then each view
+    group is one :func:`meshlib.warp_frames_sharded_cuda` call (``auto``,
+    ``pallas``: one source pass and one warp launch a device, planar
+    outputs) or one :func:`meshlib.warp_frames_sharded` call (``xla``: the
+    plain twin, channel-last outputs), colour move and quantize on the
+    device. Returns, for each frame, ``[(block, (frame in block, view in
+    group), planar), ...]`` in view order: each (group, device) block is
+    shared by its frames and views, so :class:`_ViewFetcher` copies it to
+    the host once, and the mesh's pad is sliced off before any copy."""
+    results: List[List] = [[None] * len(views) for _ in frames]
+    # one frame goes up as it is: np.stack would copy it first
+    stacked = np.stack(frames) if len(frames) > 1 else frames[0][None]
+    batch = meshlib.shard_frames(mesh, meshlib.pad_to_mesh(mesh, stacked))
+    warp = (meshlib.warp_frames_sharded if backend == "xla"
+            else meshlib.warp_frames_sharded_cuda)
+    for (projection, vw, vh, hfov, vfov), idxs in _view_groups(views).items():
+        blocks = warp(mesh, batch, *_group_angles(views, idxs), width=vw,
+                      height=vh, hfov_deg=hfov, vfov_deg=vfov,
+                      interp=interp, projection=projection,
+                      keep_rec709=keep_rec709, quantize_bits=quantize_bits)
+        f = 0
+        for block in meshlib.drop_tail(blocks, len(frames)):
+            for local in range(len(block)):
+                for j, i in enumerate(idxs):
+                    results[f][i] = (block, (local, j), backend != "xla")
+                f += 1
+    return results
+
+
+def _run_video_sharded(plan, writer, report, stop_event, tick, interp,
+                       jpeg_quality, overwrite, timers, n_batch, mesh,
+                       backend="auto") -> None:
+    """Batched video path: frames batch ``n_batch`` at a time (a multiple
+    of the mesh size), split over ``mesh``, and every frame × view of a
+    view group goes through one launch a device. Batch k+1 is dispatched
+    before batch k is fetched; every upload, launch and fetch stays on
+    PyTorch's current stream, and each batch has its own outputs. Output
+    names keep the source's frame index."""
     source = plan.jobs[0].source
     views = plan.unique_views()
     name_patterns = [plan.jobs[i].output_name for i in range(len(views))]
-    info = videolib.probe_video(source)
+    qbits = 16 if plan.bit_depth > 8 else 8
+    frame_iter = videolib.iter_frames(source, fps=plan.fps,
+                                      start=plan.start_time,
+                                      end=plan.end_time)
+    done = 0
+    total_est = report.total
+    pending = None  # (idxs, results) on the devices, not yet fetched
+
+    def drain(entry):
+        nonlocal done
+        idxs, results = entry
+        fetch = _ViewFetcher(timers)
+        for idx, outs in zip(idxs, results):
+            for pattern, (out, j, planar) in zip(name_patterns, outs):
+                name = pattern.replace("%07d", f"{idx:07d}")
+                out_path = plan.out_dir / name
+                if not overwrite and out_path.exists():
+                    report.skipped += 1
+                else:
+                    writer.submit(out_path, fetch(out, j),
+                                  jpeg_quality=jpeg_quality, planar=planar)
+                    report.ok += 1
+                done += 1
+                if total_est:
+                    tick(done, total_est)
+
+    batch_idx: List = []
+    batch_rgb: List = []
+
+    def flush():
+        nonlocal pending, batch_idx, batch_rgb
+        if not batch_rgb:
+            return
+        with timers.stage("warp_dispatch"):
+            results = _warp_frames_batch(
+                batch_rgb, views, interp=interp,
+                keep_rec709=plan.keep_rec709,
+                quantize_bits=qbits, mesh=mesh, backend=backend)
+        if pending is not None:
+            drain(pending)
+        pending = (batch_idx, results)
+        batch_idx, batch_rgb = [], []
+
+    for idx, _t, rgb in _Prefetcher(
+            timers.wrap_iter("decode", frame_iter), stop_event,
+            depth=n_batch + 1):
+        if stop_event.is_set():
+            return
+        if plan.selected_frames is not None \
+                and idx not in plan.selected_frames:
+            continue  # CSV frame selection: original numbering preserved
+        batch_idx.append(idx)
+        batch_rgb.append(np.ascontiguousarray(rgb))
+        if len(batch_rgb) == n_batch:
+            flush()
+    flush()
+    if pending is not None and not stop_event.is_set():
+        drain(pending)
+    report.total = done
+
+
+def _run_video(plan, writer, report, stop_event, tick, backend, device,
+               interp, jpeg_quality, overwrite, timers) -> None:
+    """Video mode: every backend takes the batched path. On a CUDA device
+    the mesh is every visible card, whichever card ``device`` names (as
+    the JAX executor takes every chip; ``CUDA_VISIBLE_DEVICES`` narrows
+    it), and a batch holds :data:`CARD_FRAMES_PER_LAUNCH` frames spread
+    over the mesh, at least one a card (``n_dev · ceil(4 / n_dev)``, the
+    JAX executor's rule); on the CPU, a 1-device mesh of ``device`` and
+    one frame a batch."""
+    info = videolib.probe_video(plan.jobs[0].source)
     est_frames = None
     if info.n_frames and info.fps and plan.fps:
         span = info.n_frames / info.fps
@@ -343,50 +455,14 @@ def _run_video(plan, writer, report, stop_event, tick, backend, device,
             t1 = min(plan.end_time, span) if plan.end_time else span
             span = max(0.0, t1 - t0)
         est_frames = int(span * plan.fps) + 1
-    total_est = (est_frames or 0) * len(views)
-    report.total = total_est
-    qbits = 16 if plan.bit_depth > 8 else 8
+    report.total = (est_frames or 0) * len(plan.unique_views())
 
-    frame_iter = videolib.iter_frames(source, fps=plan.fps, start=plan.start_time,
-                                      end=plan.end_time)
-    done = 0
-    pending = None  # (idx, outs) warped on device, not yet fetched
-
-    def drain(entry):
-        nonlocal done
-        idx, outs = entry
-        fetch = _ViewFetcher(timers)
-        for pattern, (out, j) in zip(name_patterns, outs):
-            name = pattern.replace("%07d", f"{idx:07d}")
-            out_path = plan.out_dir / name
-            if not overwrite and out_path.exists():
-                report.skipped += 1
-            else:
-                img = fetch(out, j)
-                writer.submit(out_path, img, jpeg_quality=jpeg_quality,
-                              planar=True)
-                report.ok += 1
-            done += 1
-            if total_est:
-                tick(done, total_est)
-
-    for idx, _t, rgb in _Prefetcher(
-            timers.wrap_iter("decode", frame_iter), stop_event):
-        if stop_event.is_set():
-            return
-        if plan.selected_frames is not None \
-                and idx not in plan.selected_frames:
-            continue  # CSV frame selection: original numbering preserved
-        # video colour chain (Rec709 -> SMPTE170M [+ sRGB trc]) on the
-        # warped outputs, on the device
-        with timers.stage("warp_dispatch"):
-            outs = _warp_frame_views(rgb, views, interp=interp,
-                                     backend=backend, device=device,
-                                     keep_rec709=plan.keep_rec709,
-                                     quantize_bits=qbits)
-        if pending is not None:
-            drain(pending)
-        pending = (idx, outs)
-    if pending is not None and not stop_event.is_set():
-        drain(pending)
-    report.total = done
+    if device.type == "cuda":
+        mesh, per_launch = meshlib.data_mesh(), CARD_FRAMES_PER_LAUNCH
+    else:
+        mesh, per_launch = meshlib.data_mesh([device]), 1
+    n_dev = mesh.size
+    n_batch = n_dev * max(1, -(-per_launch // n_dev))
+    _run_video_sharded(plan, writer, report, stop_event, tick, interp,
+                       jpeg_quality, overwrite, timers, n_batch, mesh,
+                       backend=backend)

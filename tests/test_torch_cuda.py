@@ -7,7 +7,10 @@ warp on the yaw ring and the tilted,
 pole and fisheye geometry of the ``tests/test_warp_pallas.py`` parity
 cases of ``_warp_kernel``, ``_warp_kernel_wide3``, ``_warp_kernel_wide2``,
 ``_warp_kernel_wide`` and ``_warp_kernel_yaw``), and the remap
-(``chip_smoke.py`` covers the main paths' full shapes); and the slice's
+(``chip_smoke.py`` covers the main paths' full shapes); the batched warp
+launch (a frame axis: every source layout, store, projection and interp,
+1-4 frames, four 8K frames) bitwise the single-frame launches, and the
+batched wrapper bitwise its per-frame calls; and the slice's
 new paths on the card against the same code on the CPU (rtol 1e-4): the
 fisheye→perspective maps through ``remap.cu``, the planar ``.cube`` apply,
 the FrameSelector gray (bitwise) and ``score_frame`` for every metric, and
@@ -303,6 +306,115 @@ def test_tilted_pole_fisheye_kernel_matches_plain(
         _assert_source_layouts_agree(
             rows, got, (yaws, pitches, rolls),
             dict(projection=projection, interp=interp, **kw))
+
+
+# the batched launch: (projection, view kwargs, yaws, pitches, rolls) of
+# 3 views with a seam view, a pitched and a rolled one
+BATCH_VIEWS = {
+    "perspective": (dict(width=40, height=24, hfov_deg=100.0,
+                         vfov_deg=70.0), [0.0, 180.0, 300.0],
+                    [0.0, 30.0, -70.0], [0.0, 10.0, 0.0]),
+    "fisheye_v360": (dict(width=32, height=32, hfov_deg=180.0,
+                          vfov_deg=180.0), [0.0, 180.0, 90.0],
+                     [0.0, 0.0, 45.0], [0.0, 0.0, 5.0]),
+    "equisolid": (dict(width=32, height=32, hfov_deg=190.0,
+                       vfov_deg=190.0), [0.0, 180.0, 90.0],
+                  [0.0, 10.0, -45.0], [0.0, 5.0, 0.0]),
+}
+
+
+def _batch_sources(source, rows):
+    """(B, ...) batch and [per-frame sources] of one layout, both from one
+    source pass: texels (B, H, W, 4), u8 or f32 planes (B, 3, H, W) with
+    plane stride B·H·W (one ``planarize_rows`` over the B·H rows)."""
+    n, h, w3 = rows.shape
+    flat = rows.reshape(n * h, w3)
+    if source == "texels":
+        return (warp_cuda.texelize_rows(flat).view(n, h, w3 // 3, 4),
+                [warp_cuda.texelize_rows(r) for r in rows], warp_cuda.warp_texels)
+    dtype, scale = ((torch.uint8, 1.0) if source == "u8 planes"
+                    else (torch.float32, 1.0 / 255.0))
+    planes = warp_cuda.planarize_rows(flat, scale, dtype)
+    return (planes.view(3, n, h, w3 // 3).transpose(0, 1),
+            [warp_cuda.planarize_rows(r, scale, dtype) for r in rows],
+            warp_cuda.warp_planes)
+
+
+@pytest.mark.parametrize("interp", ["bicubic", "bilinear"])
+@pytest.mark.parametrize("projection", list(BATCH_VIEWS))
+@pytest.mark.parametrize("out_dtype", [None, torch.uint8, torch.uint16])
+@pytest.mark.parametrize("source", ["texels", "u8 planes", "f32 planes"])
+def test_batched_warp_launch_bitwise_equals_single_frame_launches(
+        dev, source, out_dtype, projection, interp):
+    rows = torch.stack([_rows(np.uint8, 96, 192, dev, seed=s)
+                        for s in range(4)])
+    batch, singles, launch = _batch_sources(source, rows)
+    view_kw, *angles = BATCH_VIEWS[projection]
+    kw = dict(projection=projection, interp=interp, out_dtype=out_dtype,
+              **view_kw)
+    ref = [launch(single, *angles, **kw) for single in singles]
+    for n in (1, 2, 4):
+        before = warp_cuda.LAUNCHES["warp"]
+        got = launch(batch[:n], *angles, **kw)
+        torch.cuda.synchronize()
+        assert warp_cuda.LAUNCHES["warp"] == before + 1
+        assert got.shape == (n, 3, 3, view_kw["height"], view_kw["width"])
+        for f in range(n):
+            assert torch.equal(got[f], ref[f]), (source, n, f)
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+def test_batched_wrapper_bitwise_equals_per_frame_calls(dev, dtype, planar):
+    rows = torch.stack([_rows(dtype, 64, 128, dev, seed=10 + s)
+                        for s in range(3)])
+    kw = dict(width=48, height=32, hfov_deg=90.0, vfov_deg=70.0,
+              interp="bicubic", planar=planar)
+    angles = ([0.0, 180.0], [0.0, 20.0], [0.0, 0.0])
+    for out_dtype in (None, torch.uint8, torch.uint16):
+        before = dict(warp_cuda.LAUNCHES)
+        got = warp_cuda.warp_equirect_to_views_cuda(
+            rows, *angles, out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        # one source pass and one warp for the batch
+        assert warp_cuda.LAUNCHES == {"planarize": before["planarize"] + 1,
+                                      "warp": before["warp"] + 1}
+        for f in range(3):
+            assert torch.equal(got[f], warp_cuda.warp_equirect_to_views_cuda(
+                rows[f], *angles, out_dtype=out_dtype, **kw))
+
+
+def test_batched_launch_of_four_8k_frames_past_2gb(dev):
+    # four 8K texel frames are 472 MB and four f32 plane sets 1.6 GB: a
+    # frame offset held in 32 bits would corrupt frames 2-3
+    h, w = 3840, 7680
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = torch.randint(0, 256, (4, h, 3 * w), generator=gen,
+                         dtype=torch.uint8, device=dev)
+    angles = ([10.0, 190.0], [0.0, -30.0], [0.0, 0.0])
+    kw = dict(width=64, height=48, hfov_deg=90.0, vfov_deg=70.0,
+              interp="bicubic", planar=True)
+    for src in (rows, (rows.to(torch.int32) * 257).to(torch.uint16)):
+        got = warp_cuda.warp_equirect_to_views_cuda(src, *angles, **kw)
+        for f in range(4):
+            assert torch.equal(got[f], warp_cuda.warp_equirect_to_views_cuda(
+                src[f], *angles, **kw)), f
+        del got
+
+
+def test_batched_launch_refuses_more_than_a_grid_of_frame_views(dev):
+    rows = torch.zeros((2, 8, 48), dtype=torch.uint8, device=dev)
+    many = [0.0] * 32768
+    before = dict(warp_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="65535"):
+        warp_cuda.warp_equirect_to_views_cuda(
+            rows, many, many, many, width=4, height=4, hfov_deg=90.0,
+            vfov_deg=90.0)
+    texels = warp_cuda.texelize_rows(rows.reshape(16, 48)).view(2, 8, 16, 4)
+    with pytest.raises(ValueError, match="65535"):
+        warp_cuda.warp_texels(texels, many, many, many, width=4, height=4,
+                              hfov_deg=90.0, vfov_deg=90.0)
+    assert warp_cuda.LAUNCHES["warp"] == before["warp"]
 
 
 def _barrel_maps(h, w, src_h, src_w, shift):

@@ -2,7 +2,7 @@
 ``gs360x_torch`` module (the remap path, the tools, the sharpness and flow
 modules, the host IO and camera-format copies, the segmentation model,
 MaskSeg, segtrain, the voxel path, PlyOptimizer, the scene loader, the
-warmup tool and the 12 GUI modules named explicitly), and ``chip_smoke`` as a module, import in a
+warmup tool, the data mesh and the 12 GUI modules named explicitly), and ``chip_smoke`` as a module, import in a
 fresh interpreter with no ``jax``, no ``gs360x`` and no ``flax``,
 ``msgpack``, ``orbax`` or ``optax`` module in ``sys.modules`` afterwards. A
 subprocess, because this test process has already imported JAX. No source
@@ -62,6 +62,7 @@ def test_port_imports_no_jax():
             "gs360x_torch.io.ply", "gs360x_torch.io.formats.hub",
             "gs360x_torch.native", "gs360x_torch.templates",
             "gs360x_torch.runtime.profiling",
+            "gs360x_torch.runtime.mesh",
             "gs360x_torch.runtime.cancel",
             "gs360x_torch.runtime.throttle",
             "gs360x_torch.core.pose",
@@ -112,8 +113,8 @@ def port_sources() -> list:
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
-    # the port's two scripts at the root: the smoke run and the A/B timer
-    for script in ("chip_smoke.py", "resample_ab.py"):
+    # the port's scripts at the root: the smoke run and the A/B timers
+    for script in ("chip_smoke.py", "resample_ab.py", "video_batch_ab.py"):
         roots = imported_roots(ROOT / script)
         assert "gs360x_torch" in roots, script
         assert not roots & FORBIDDEN_ROOTS, (script, sorted(roots))
