@@ -19,6 +19,10 @@ it went through the kernels only and that its pixels are right:
 
 * ``gs360x-torch-perspcut`` on 2 synthetic 8K frames with the
   ``default``, ``fisheyelike`` and ``fisheyeXY`` presets (PNG);
+* the trace hook (``[trace]``): ``perspcut --preset default`` on the same
+  frames with ``GS360X_TRACE_DIR`` set, between two runs without it; the
+  trace under ``<dir>/run_plan/`` holds exactly the kernels the launch
+  counters count, and gives the device's busy share of ``run_plan``;
 * ``gs360x-torch-dualfisheye`` on 2 synthetic 3840² pairs with the
   generated default calibration, undistorted fisheyes, the 10 SFM10
   views and one mask pair (PNG), then once more through a 33³ ``.cube``
@@ -54,7 +58,10 @@ it went through the kernels only and that its pixels are right:
   then MaskSeg with them; (c) ``--make-default -o``, then MaskSeg's
   default resolution with it; (d) the ``tools/seg_eval.py`` recipe
   trained on the card, its four capability numbers held to the floor of
-  the JAX package's seeds (``tests/torch_seg_floor.py``);
+  the JAX package's seeds (``tests/torch_seg_floor.py``); (e) the
+  data-parallel step over two replicas on the one card against one
+  replica, and one replica bitwise the step without a mesh; (b) prints
+  ``devices 1``, the mesh of every visible card;
 * ``gs360x-torch-plyopt`` (``[plyopt]``) on an 8M-point dense cloud in
   every mode (the target search, ``-v`` with each ``--keep-strategy``, the
   spatial hash, the adaptive octree, the sky dome with an appended PLY),
@@ -145,7 +152,8 @@ try:
     from gs360x_torch.runtime import mesh as meshlib
     from gs360x_torch.runtime.executor import _view_groups
     from gs360x_torch.runtime.profiling import (StageTimers, cuda_ms,
-                                                device_ms)
+                                                device_ms, maybe_trace,
+                                                read_trace)
     from gs360x_torch.tools import (dualfisheye, frameselector, maskseg,
                                     ms360xml, perspcut, plyopt, segtrain,
                                     video2frames)
@@ -260,6 +268,10 @@ ST_SIZE, ST_BATCH, ST_STEPS = 256, 8, 3
 ST_LOSS_RTOL = 1e-5          # step 1's loss, relative
 ST_LATER_LOSS_RTOL = 1e-4    # steps 2-3, after Adam's first updates
 ST_GRAD_TOL = 5e-4           # step 1's gradients, of the largest |gradient|
+# (e): the data-parallel step over two replicas on the one card against
+# one replica, by the im2col route: every step's loss within ST_LOSS_RTOL,
+# step 1's gradients within ST_GRAD_TOL
+ST_REPLICAS = 2
 ST_CLI_SCENES = 32           # (b): 512² image / mask pairs, trained at
 ST_CLI_SIZE = 256            # --size 256 --batch-size 8 --epochs 3
 CAP_STEPS = 3000             # (d): the tools/seg_eval.py recipe
@@ -1079,6 +1091,92 @@ def phase_perspcut(dev, src_dir: pathlib.Path, frames: dict, tmp,
         f"plain {plain} | frame 1 vs plain warp on the card: max {worst} "
         f"LSB, {share:.5%} > 1 LSB{extra}")
     return {"launches": launches, "wall_s": wall_s}
+
+
+# the kernels of each launch counter by function name, as they appear in
+# a trace's names (mangled, in an anonymous namespace, or demangled)
+TRACE_FAMILIES = {"planarize": ("planarize_regs", "planarize_scalar",
+                                "texelize_regs", "texelize_scalar"),
+                  "warp": ("warp_equirect_kernel",),
+                  "remap": ("remap_kernel",)}
+
+
+def _trace_family(name: str) -> str:
+    """The launch counter a kernel event of the trace counts under."""
+    for family, functions in TRACE_FAMILIES.items():
+        if any(fn in name for fn in functions):
+            return family
+    return "other"
+
+
+def phase_trace(dev, src_dir: pathlib.Path, tmp) -> dict:
+    """[trace]: perspcut --preset default on the 2 8K frames with
+    GS360X_TRACE_DIR set, between two runs without it (which must write
+    no trace): the trace under <dir>/run_plan/ holds exactly the
+    planarize and warp_equirect launches the counters count, and gives
+    the device's busy share of run_plan's window."""
+    trace_dir = tmp / "trace"
+    runs = {}
+
+    def written() -> list:
+        return sorted(trace_dir.rglob("*")) if trace_dir.exists() else []
+    try:
+        for key in ("plain", "traced", "plain again"):
+            if key == "traced":
+                os.environ["GS360X_TRACE_DIR"] = str(trace_dir)
+            else:
+                os.environ.pop("GS360X_TRACE_DIR", None)
+            before = written()
+            _reset_counters()
+            t0 = time.perf_counter()
+            rc = perspcut.main([
+                "-i", str(src_dir), "-o", str(tmp / f"trace_{key[:5]}"),
+                "--preset", "default", "--size", "1600", "--ext", "png",
+                "--device", dev.type])
+            torch.cuda.synchronize()
+            runs[key] = (time.perf_counter() - t0, _counters()[0])
+            if rc != 0:
+                raise AssertionError(f"[trace] perspcut ({key}) exited {rc}")
+            if key != "traced" and written() != before:
+                raise AssertionError(f"[trace] a run without "
+                                     f"GS360X_TRACE_DIR wrote under "
+                                     f"{trace_dir}")
+        # the profiler's own start, stop and write, with nothing traced:
+        # after the traced run, so that run pays the first session's set-up
+        os.environ["GS360X_TRACE_DIR"] = str(tmp / "trace_empty")
+        t0 = time.perf_counter()
+        with maybe_trace("empty"):
+            pass
+        empty_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("GS360X_TRACE_DIR", None)
+    if sorted(p.name for p in trace_dir.iterdir()) != ["run_plan"]:
+        raise AssertionError(f"[trace] {sorted(trace_dir.iterdir())}")
+    got = read_trace(trace_dir, "run_plan")
+    trace_mb = sum(f.stat().st_size for f in trace_dir.rglob("*.json")) / 1e6
+    launches = runs["traced"][1]
+    counted = {}
+    for name, _ts, _dur in got["kernels"]:
+        family = _trace_family(name)
+        counted[family] = counted.get(family, 0) + 1
+    want = {k: launches[k] for k in ("planarize", "warp", "remap")}
+    if {k: counted.get(k, 0) for k in want} != want or not want["warp"]:
+        raise AssertionError(f"[trace] kernels in the trace {counted}, "
+                             f"launches {launches}")
+    busy = got["busy_us"] / got["window_us"]
+    log(f"[trace] perspcut --preset default, {E2E_FRAMES} 8K frames, "
+        f"GS360X_TRACE_DIR set: {trace_dir.name}/run_plan/ holds "
+        f"{len(got['kernels'])} kernel events ({counted}), the launch "
+        f"counters {launches} | run_plan window {got['window_us'] / 1e3:.3f}"
+        f" ms, kernels busy {got['busy_us'] / 1e3:.3f} ms = {busy:.4%} "
+        f"(idle {1 - busy:.4%}) | wall without / with / without the trace "
+        f"{runs['plain'][0]:.3f} / {runs['traced'][0]:.3f} / "
+        f"{runs['plain again'][0]:.3f} s, of the traced wall "
+        f"{runs['traced'][0] - got['window_us'] / 1e6:.3f} s outside the "
+        f"window (the profiler's start and the trace's write, "
+        f"{trace_mb:.2f} MB of JSON); an empty trace later {empty_s:.3f} s "
+        "| the runs without it wrote no trace")
+    return {"launches": launches, "busy": busy}
 
 
 def phase_dualfisheye(dev, tmp, remap: dict) -> dict:
@@ -2750,6 +2848,71 @@ def _segtrain_parity(dev) -> tuple:
     return losses, worst, ms, split, pair_s
 
 
+def _segtrain_mesh(dev) -> dict:
+    """(e): the data-parallel step (``train_step`` over a data mesh) at the
+    default width, 256², batch 8, fg_weight 4, 3 steps, by the im2col
+    route (:func:`_im2col_convs`: the same convolutions at any block size
+    and in any process), over a mesh of ``ST_REPLICAS`` replicas on the
+    one card against a mesh of one, and the one-replica run bitwise the
+    step without a mesh; then the device ms of a step of each mesh."""
+    params = seg.init_params(torch.Generator().manual_seed(0))
+    batches = _seg_batches(ST_STEPS, ST_SIZE, ST_BATCH, seed=23)
+    meshes = {"one": meshlib.data_mesh([dev]),
+              "two": meshlib.data_mesh([dev] * ST_REPLICAS)}
+    losses, worst = [], (0.0, "")
+    with _im2col_convs():
+        plain = seg.create_train_state(None, 1e-3, device=dev,
+                                       params=params)
+        states = {k: seg.create_train_state(None, 1e-3, params=params,
+                                            mesh=m)
+                  for k, m in meshes.items()}
+        if states["one"].replicas or \
+                len(states["two"].replicas) != ST_REPLICAS - 1:
+            raise AssertionError("segtrain (e): replicas "
+                                 f"{[len(st.replicas) for st in states.values()]}")
+        for step, (im, lb) in enumerate(batches):
+            x = torch.from_numpy(im).to(dev)
+            y = torch.from_numpy(lb).to(dev)
+            ref = float(seg.train_step(states["one"], x, y, 4.0))
+            got = float(seg.train_step(states["two"], x, y, 4.0))
+            base = float(seg.train_step(plain, x, y, 4.0))
+            losses.append((got, ref))
+            if base != ref:
+                raise AssertionError(f"segtrain (e) step {step + 1}: loss "
+                                     f"{ref!r} over a one-replica mesh, "
+                                     f"{base!r} without a mesh")
+            if abs(got - ref) > ST_LOSS_RTOL * abs(ref):
+                raise AssertionError(f"segtrain (e) step {step + 1}: loss "
+                                     f"{got!r} over {ST_REPLICAS} replicas, "
+                                     f"{ref!r} over one")
+            if step == 0:
+                g_one, g_two = _grads(states["one"]), _grads(states["two"])
+                gmax = max(float(g.abs().max()) for g in g_one.values())
+                worst = max((float((g_two[n] - g).abs().max()) / gmax, n)
+                            for n, g in g_one.items())
+                if worst[0] > ST_GRAD_TOL:
+                    raise AssertionError(
+                        f"segtrain (e) step 1: gradient of {worst[1]} "
+                        f"{worst[0]:.3e} of the largest apart, "
+                        f"{ST_REPLICAS} replicas vs one")
+        main = states["two"].model.state_dict()
+        if not all(torch.equal(v, main[k]) for r in states["two"].replicas
+                   for k, v in r.state_dict().items()):
+            raise AssertionError("segtrain (e): a replica's weights are "
+                                 "not the first device's")
+        if not all(torch.equal(a, b) for a, b in zip(
+                states["one"].model.state_dict().values(),
+                plain.model.state_dict().values())):
+            raise AssertionError("segtrain (e): a one-replica mesh's weights "
+                                 "are not those of the step without a mesh")
+        x = torch.from_numpy(batches[0][0]).to(dev)
+        y = torch.from_numpy(batches[0][1]).to(dev)
+        ms = {k: cuda_ms(lambda st=st: seg.train_step(st, x, y, 4.0),
+                         reps=3, batches=3, warmup=2)
+              for k, st in states.items()}
+    return {"losses": losses, "worst": worst, "ms": ms}
+
+
 def _write_pairs(root: pathlib.Path, n: int, size: int) -> tuple:
     """``n`` photo-style synthseg scenes at size² as PNG image and class
     mask pairs under root/img and root/mask."""
@@ -2816,6 +2979,11 @@ def _segtrain_cli(dev, tmp, ms_in: pathlib.Path) -> dict:
     if rc != 0 or not lines[-1].startswith(f"[OK] checkpoint: {out}") \
             or sum(ln.startswith("[INFO] epoch ") for ln in lines) != 3:
         raise AssertionError(f"segtrain exited {rc}: {lines[-4:]}")
+    # the CLI trains over every visible card: one on this machine
+    want = (f"[INFO] {ST_CLI_SCENES} pairs, size {ST_CLI_SIZE}, devices "
+            f"{torch.cuda.device_count()}")
+    if lines[0] != want:
+        raise AssertionError(f"segtrain: {lines[0]!r}, expected {want!r}")
     back = seg.load_weights(out)
     if back.keys() != saved.keys() or not all(
             torch.equal(back[k], saved[k]) for k in saved):
@@ -2859,7 +3027,7 @@ def _segtrain_cli(dev, tmp, ms_in: pathlib.Path) -> dict:
         raise AssertionError(f"maskseg with the default built on the card "
                              f"exited {rc}: {def_lines[:3]}")
     return {"setup_s": setup_s, "cli_s": cli_s, "train_s": train_s,
-            "steps": steps, "epochs": [ln for ln in lines
+            "steps": steps, "first": lines[0], "epochs": [ln for ln in lines
                                        if ln.startswith("[INFO] epoch ")],
             "make_s": make_s, "make_loss": last_loss}
 
@@ -2915,8 +3083,11 @@ def _train_capability(dev, convs=_im2col_convs) -> tuple:
 
 
 def phase_segtrain(dev, tmp, smi: str) -> dict:
-    """[segtrain] (a)-(d); none of the 11 kernels launches."""
+    """[segtrain] (a)-(e); none of the 11 kernels launches."""
     losses, worst, ms, split, pair_s = _segtrain_parity(dev)
+    _reset_counters()
+    dp = _segtrain_mesh(dev)
+    _no_launch("segtrain (e)")
     cli = _segtrain_cli(dev, tmp, tmp / "ms_in")
     _reset_counters()
     got, cap_s, cap_loss, cap_split = _train_capability(dev)
@@ -2946,8 +3117,8 @@ def phase_segtrain(dev, tmp, smi: str) -> dict:
         f"{1e3 * cli['train_s'] / cli['steps']:.1f} ms a step (host batch, "
         f"loss fetch and validation included) | "
         + " | ".join(ln[7:] for ln in cli["epochs"])
-        + " | the weights read back bitwise | maskseg --checkpoint on the "
-        "[maskseg] views: exit 0")
+        + f" | first line {cli['first']!r} | the weights read back bitwise "
+        "| maskseg --checkpoint on the [maskseg] views: exit 0")
     log(f"[segtrain] (c) {smi} | --make-default -o: wall "
         f"{cli['make_s']:.2f}s for 400 steps of batch 16 at 128² (corpus "
         f"generation included) = {1e3 * cli['make_s'] / 400:.1f} ms a step, "
@@ -2963,6 +3134,17 @@ def phase_segtrain(dev, tmp, smi: str) -> dict:
         f"device busy {cap_split['busy']:.1%} | " + ", ".join(
             f"{k} {got[k]:.4f} (floor {CAP_FLOOR[k]:.4f})" for k in CAP_FLOOR)
         + f", {got['n_gt']} instances")
+    log(f"[segtrain] (e) {smi} | the data-parallel step, default width, "
+        f"{ST_SIZE}², batch {ST_BATCH}, fg_weight 4, im2col route, "
+        f"{ST_STEPS} steps over {ST_REPLICAS} replicas on the one card vs "
+        f"one: losses " + ", ".join(f"{g:.6f}/{r:.6f}"
+                                    for g, r in dp["losses"])
+        + f" (within {ST_LOSS_RTOL:g} rel) | step-1 gradients max "
+        f"{dp['worst'][0]:.3e} of the largest ({dp['worst'][1]}; tolerance "
+        f"{ST_GRAD_TOL:g}) | the one-replica mesh bitwise the step without "
+        f"a mesh, the replicas bitwise the first | ms a step (CUDA events): "
+        f"one replica {dp['ms']['one']:.4f}, {ST_REPLICAS} replicas "
+        f"{dp['ms']['two']:.4f}")
     if min(short.values()) < 0:
         raise AssertionError(f"segtrain capability below the JAX seeds' "
                              f"floor: {got} (floor {CAP_FLOOR})")
@@ -3541,6 +3723,7 @@ def main() -> int:
             "fisheyeXY": phase_perspcut(dev, src_dir, frames, tmp,
                                         "fisheyeXY"),
         }
+        trace = phase_trace(dev, src_dir, tmp)
         dfe = phase_dualfisheye(dev, tmp, remap)
         dfe_lut = phase_dualfisheye_lut(dev, tmp, remap, dfe)
         v2f = phase_video2frames(dev, tmp)
@@ -3564,7 +3747,8 @@ def main() -> int:
 
     def total(kernel: str) -> int:
         return sum(r["launches"].get(kernel, 0)
-                   for r in [*runs.values(), dfe, dfe_lut, *v2f.values(),
+                   for r in [*runs.values(), trace, dfe, dfe_lut,
+                             *v2f.values(),
                              mesh["e2e"]["batched"][0], *fsel.values(),
                              ms_xml, dfe_xml, masks, warm])
 

@@ -19,7 +19,11 @@ reference).
 
 Training keeps optax's AdamW (``weight_decay`` 1e-4 on every parameter,
 not torch's 1e-2) and its warmup-cosine schedule, evaluated at the step
-count before the update. The checkpoint is the single-file msgpack of
+count before the update. Over a data mesh (``runtime.mesh.Mesh``) a step
+is data-parallel, as the JAX step over a sharded batch is: each device's
+replica takes its block of the batch, the gradients are summed on the
+first device, which alone holds the optimizer, and its weights are copied
+back to the replicas. The checkpoint is the single-file msgpack of
 :func:`save_weights`, which ``flax.serialization`` reads; the JAX
 package's Orbax directories need orbax and tensorstore and are not read.
 """
@@ -27,6 +31,7 @@ package's Orbax directories need orbax and tensorstore and are not read.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import math
 import pathlib
@@ -255,23 +260,38 @@ def warmup_cosine(learning_rate: float, decay_steps: int
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer, the rate of each step and the count of
-    steps taken."""
+    steps taken; on a data mesh of n > 1 devices, the mesh and one replica
+    of the model on each device after the first (``model`` is on the
+    first)."""
     model: UNet
     optimizer: torch.optim.AdamW
     schedule: Callable[[int], float]
     step: int = 0
+    mesh: Optional[object] = None
+    replicas: Tuple[UNet, ...] = ()
 
 
 def create_train_state(generator: torch.Generator,
                        learning_rate: float = 1e-3, features=None,
-                       decay_steps: int = 0, *, device: torch.device,
-                       params: Optional[Dict[str, torch.Tensor]] = None
-                       ) -> TrainState:
+                       decay_steps: int = 0, *,
+                       device: Optional[torch.device] = None,
+                       params: Optional[Dict[str, torch.Tensor]] = None,
+                       mesh=None) -> TrainState:
     """A U-Net with :func:`init_params` weights drawn from ``generator``
     (or ``params``) on ``device`` and ``optax.adamw``'s optimizer: betas
     0.9 / 0.999, eps 1e-8, weight decay 1e-4 on every parameter, at the
     flat ``learning_rate`` or, with ``decay_steps`` > 0, at
-    :func:`warmup_cosine`."""
+    :func:`warmup_cosine`. With a ``mesh`` (a ``runtime.mesh.Mesh``) the
+    model and the optimizer are on its first device (``device``, if given,
+    must be that one) and a replica of the model on each further device;
+    two replicas may share a device."""
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.devices[0]:
+            raise ValueError(f"create_train_state: device {device} is not "
+                             f"the mesh's first, {mesh.devices[0]}")
+        device = mesh.devices[0]
+    if device is None:
+        raise ValueError("create_train_state: pass a device or a mesh")
     model = create_model(features)
     model.load_state_dict(params if params is not None
                           else init_params(generator, features))
@@ -281,7 +301,12 @@ def create_train_state(generator: torch.Generator,
                                   weight_decay=1e-4)
     schedule = (warmup_cosine(learning_rate, decay_steps) if decay_steps
                 else lambda step: learning_rate)
-    return TrainState(model, optimizer, schedule)
+    if mesh is None or mesh.size == 1:
+        return TrainState(model, optimizer, schedule)
+    replicas = tuple(copy.deepcopy(model).to(dev)
+                     for dev in mesh.devices[1:])
+    return TrainState(model, optimizer, schedule, mesh=mesh,
+                      replicas=replicas)
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor,
@@ -300,18 +325,70 @@ def train_step(state: TrainState, images: torch.Tensor,
                labels: torch.Tensor, fg_weight: float = 1.0
                ) -> torch.Tensor:
     """One optimization step on (B, H, W, 3) f32 images and (B, H, W) int
-    labels on the state's device; the loss before the update. The rate is
-    the schedule's at the count before the update, as optax takes it."""
+    labels on the state's (first) device; the loss of the whole batch
+    before the update: ``Σ ce·w / Σ w`` with w = ``fg_weight`` on subject
+    pixels and 1 elsewhere (the mean with ``fg_weight`` 1). The rate is the
+    schedule's at the count before the update, as optax takes it. On a
+    mesh of n > 1 devices B must divide by n: each replica backpropagates
+    its block's ``Σ ce·w`` over the whole batch's ``Σ w`` (not its own),
+    so the gradients, summed on the first device in device order, are the
+    whole batch's up to the order of summation (the U-Net has GroupNorm
+    and no batch statistics: a sample's forward does not depend on the
+    split)."""
     for group in state.optimizer.param_groups:
         group["lr"] = state.schedule(state.step)
     state.optimizer.zero_grad(set_to_none=True)
-    with train_convs():
-        logits = state.model(images.permute(0, 3, 1, 2))
-        loss = loss_fn(logits, labels.long(), fg_weight)
-        loss.backward()
+    if not state.replicas:
+        with train_convs():
+            logits = state.model(images.permute(0, 3, 1, 2))
+            loss = loss_fn(logits, labels.long(), fg_weight)
+            loss.backward()
+    else:
+        loss = _sharded_backward(state, images, labels.long(), fg_weight)
     state.optimizer.step()
+    if state.replicas:
+        with torch.no_grad():
+            for replica in state.replicas:
+                for mine, main in zip(replica.parameters(),
+                                      state.model.parameters()):
+                    mine.copy_(main)
     state.step += 1
     return loss.detach()
+
+
+def _sharded_backward(state: TrainState, images: torch.Tensor,
+                      labels: torch.Tensor, fg_weight: float
+                      ) -> torch.Tensor:
+    """Forward and backward of each replica on its block of the batch,
+    each scaled by the whole batch's weight; the replicas' gradients are
+    added to the first device's in device order and then dropped. Returns
+    the whole batch's loss on the first device."""
+    from gs360x_torch.runtime.mesh import shard_frames
+
+    if fg_weight != 1.0:
+        total = torch.where(labels > 0, fg_weight, 1.0).sum()
+    else:
+        total = torch.tensor(float(labels.numel()), device=labels.device)
+    models = (state.model, *state.replicas)
+    sums = []
+    with train_convs():
+        for model, x, y in zip(models, shard_frames(state.mesh, images),
+                               shard_frames(state.mesh, labels)):
+            ce = F.cross_entropy(model(x.permute(0, 3, 1, 2)), y,
+                                 reduction="none")
+            if fg_weight != 1.0:
+                ce = ce * torch.where(y > 0, fg_weight, 1.0)
+            part = ce.sum()
+            (part / total.to(part.device)).backward()
+            sums.append(part.detach())
+    with torch.no_grad():
+        for replica in state.replicas:
+            for mine, main in zip(replica.parameters(),
+                                  state.model.parameters()):
+                main.grad += mine.grad.to(main.device)
+            replica.zero_grad(set_to_none=True)
+    first = state.mesh.devices[0]
+    return sum(s.to(first) for s in sums) / total.to(first)
 
 
 def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -38,7 +38,7 @@ import torch
 
 from gs360x_torch.io import image as imagelib
 from gs360x_torch.io import video as videolib
-from gs360x_torch.runtime.profiling import StageTimers
+from gs360x_torch.runtime.profiling import StageTimers, maybe_trace
 from gs360x_torch.kernels import warp_cuda
 from gs360x_torch.rig.spec import RenderPlan
 from gs360x_torch.runtime import mesh as meshlib
@@ -250,7 +250,8 @@ def run_plan(plan: RenderPlan, *,
     interp = plan.interpolation
 
     timers = StageTimers()
-    with imagelib.AsyncImageWriter(workers=writer_workers) as writer:
+    with maybe_trace("run_plan"), \
+            imagelib.AsyncImageWriter(workers=writer_workers) as writer:
         run = _run_video if plan.video_mode else _run_images
         run(plan, writer, report, stop_event, tick, backend, device, interp,
             jpeg_quality, overwrite, timers)

@@ -1,13 +1,19 @@
 """Per-stage timers for the streaming pipelines (the port's copy of
 :class:`StageTimers`): accumulated per-stage wall clock (decode / warp /
-fetch / encode) surfaced on the execution report; :func:`cuda_ms`, the
-device time of a call taken with CUDA events; and :func:`device_ms`, the
-device time of a call without the host's, from a CUDA graph's replay.
+fetch / encode) surfaced on the execution report; :func:`maybe_trace`, a
+``torch.profiler`` trace of a block when ``GS360X_TRACE_DIR`` is set, and
+:func:`read_trace`, its kernels and the device's busy time in it;
+:func:`cuda_ms`, the device time of a call taken with CUDA events; and
+:func:`device_ms`, the device time of a call without the host's, from a
+CUDA graph's replay.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
+import os
+import pathlib
 import threading
 import time
 from collections import defaultdict
@@ -59,6 +65,59 @@ class StageTimers:
             parts = [f"{k} {self.totals[k]:.2f}s/{self.counts[k]}"
                      for k in sorted(self.totals)]
         return " | ".join(parts) if parts else "no stages recorded"
+
+
+@contextmanager
+def maybe_trace(label: str = "gs360x"):
+    """A ``torch.profiler`` trace of the block, active only when
+    ``GS360X_TRACE_DIR`` is set (so production runs pay nothing): host ops
+    and, with a card, every kernel and copy on it, whichever thread
+    launched them, under a ``label`` annotation that spans the block. On
+    exit the TensorBoard trace (``*.pt.trace.json``) is written under
+    ``<GS360X_TRACE_DIR>/<label>/``, the directory the JAX package's
+    ``jax.profiler`` trace goes to."""
+    trace_dir = os.environ.get("GS360X_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, acc_events=True, on_trace_ready=
+                 tensorboard_trace_handler(os.path.join(trace_dir, label))):
+        with record_function(label):
+            yield
+
+
+def read_trace(trace_dir, label: str = "run_plan") -> dict:
+    """What the one trace :func:`maybe_trace` wrote under
+    ``<trace_dir>/<label>/`` shows: ``kernels``, the kernel events on the
+    device (name, start and duration in µs), ``window_us``, the span of the
+    ``label`` annotation, and ``busy_us``, the time in it during which at
+    least one kernel ran (the union of the kernels' intervals)."""
+    files = list(pathlib.Path(trace_dir, label).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise ValueError(f"read_trace: {len(files)} traces under "
+                         f"{pathlib.Path(trace_dir, label)}, expected 1")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == label]
+    if len(spans) != 1:
+        raise ValueError(f"read_trace: {len(spans)} {label!r} annotations")
+    start, window = spans[0]["ts"], spans[0]["dur"]
+    end = start + window
+    kernels = [(e["name"], e["ts"], e["dur"]) for e in events
+               if e.get("cat") == "kernel"]
+    busy, reach = 0.0, start
+    for _, ts, dur in sorted(kernels, key=lambda k: k[1]):
+        lo, hi = max(ts, reach), min(ts + dur, end)
+        if hi > lo:
+            busy += hi - lo
+        reach = max(reach, min(ts + dur, end))
+    return {"kernels": kernels, "window_us": window, "busy_us": busy}
 
 
 def cuda_ms(fn: Callable[[], object], reps: int = 10, batches: int = 5,
@@ -151,4 +210,5 @@ def device_ms(fn: Callable[[], object]) -> Tuple[float, int]:
     return statistics.median(times), kernels // DEVICE_REPS
 
 
-__all__ = ["StageTimers", "cuda_ms", "device_ms"]
+__all__ = ["StageTimers", "maybe_trace", "read_trace", "cuda_ms",
+           "device_ms"]

@@ -10,7 +10,12 @@ The same flags, messages, split, epoch loop and numpy rng, and exit codes
 (2 without ``-i/-m/-o``, 1 for fewer than two pairs, 130 on SIGINT), plus
 ``--device {cuda,cpu}`` (default ``cuda``; ``cuda`` without a card raises).
 
-The batch is ``--batch-size`` on the one device, so ``devices`` reads 1.
+Training is data-parallel over every visible card (:func:`train_mesh`),
+as the JAX CLI's is over every device: ``devices`` reads the mesh's size,
+the batch is ``--batch-size`` rounded down to a multiple of it (at least
+one a device), and each step splits it over the cards
+(:func:`~gs360x_torch.models.segmentation.train_step` on a mesh). With
+``--device cpu`` the mesh is the one CPU device.
 ``-o`` and ``--resume`` take the single-file msgpack of
 :func:`~gs360x_torch.models.segmentation.save_weights` (which
 ``flax.serialization`` reads), not an Orbax directory; ``--resume``
@@ -90,6 +95,15 @@ def resize_bilinear_np(img: np.ndarray, h: int, w: int) -> np.ndarray:
             + c * fy * (1 - fx) + d * fy * fx)
 
 
+def train_mesh(device: torch.device):
+    """The data mesh of the training steps: every visible card when
+    ``device`` is a card, whichever it names; the one CPU device
+    otherwise."""
+    from gs360x_torch.runtime.mesh import data_mesh
+
+    return data_mesh() if device.type == "cuda" else data_mesh([device])
+
+
 def build_arg_parser() -> argparse.ArgumentParser:
     from gs360x_torch.models import segmentation as seg
 
@@ -163,7 +177,9 @@ def _main(argv=None) -> int:
         target_class = seg.CLASS_TO_INDEX[
             seg.TARGET_TO_CLASSES[args.target][0]]
 
-    print(f"[INFO] {len(pairs)} pairs, size {args.size}, devices 1")
+    mesh = train_mesh(device)
+    print(f"[INFO] {len(pairs)} pairs, size {args.size}, devices "
+          f"{mesh.size}")
     rng = np.random.default_rng(args.seed)
     order = rng.permutation(len(pairs))
     n_val = max(1, int(len(pairs) * args.val_fraction)) \
@@ -195,12 +211,14 @@ def _main(argv=None) -> int:
             return 1
     state = seg.create_train_state(
         torch.Generator().manual_seed(args.seed), learning_rate=args.lr,
-        features=params and seg.features_from_params(params), device=device,
-        params=params)
+        features=params and seg.features_from_params(params), params=params,
+        mesh=mesh)
     if args.resume:
         print(f"[INFO] resumed from {args.resume}")
 
-    bs = max(1, args.batch_size)
+    # the JAX CLI's rounding: a multiple of the mesh, at least one a device
+    n_dev = mesh.size
+    bs = max(n_dev, (args.batch_size // n_dev) * n_dev)
     steps_per_epoch = max(1, len(images) // bs)
     t0 = time.time()
     for epoch in range(args.epochs):
@@ -210,8 +228,8 @@ def _main(argv=None) -> int:
             idx = perm[s * bs:(s + 1) * bs]
             if len(idx) < bs:  # pad the tail batch by wrapping
                 idx = np.concatenate([idx, perm[:bs - len(idx)]])
-            xb = torch.from_numpy(images[idx]).to(device)
-            yb = torch.from_numpy(labels[idx]).to(device)
+            xb = torch.from_numpy(images[idx]).to(mesh.devices[0])
+            yb = torch.from_numpy(labels[idx]).to(mesh.devices[0])
             losses.append(float(seg.train_step(state, xb, yb)))
         msg = (f"[INFO] epoch {epoch + 1}/{args.epochs} "
                f"loss {np.mean(losses):.4f}")

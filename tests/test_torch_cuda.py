@@ -24,7 +24,9 @@ SASS instructions ``SASS_CHECKS`` asks for; and MaskSeg's device
 steps against the CPU: the U-Net's logits with TF32 off (1e-3), the
 morphology bitwise, the blur (1e-6), the inpaint (1e-5) and
 ``combined_mask``; the training step by
-both conv routes against the CPU, and the voxel count and picks on a
+both conv routes against the CPU and over two replicas on the card
+against one; ``maybe_trace`` around a warp, its trace holding the
+launched kernels; and the voxel count and picks on a
 200,000-point cloud against the CPU and over two card runs. Marked
 ``cuda``: each test skips without a card. On a machine
 with one, run (the JAX-side conftest is not needed)::
@@ -783,6 +785,71 @@ def test_train_step_matches_cpu(dev):
         if keep.any():
             assert float((got[n].cpu() - ref[n]).abs()[keep].max()) \
                 <= 2e-6, n
+
+
+def test_two_replica_step_on_one_card_matches_one_replica(dev,
+                                                         monkeypatch):
+    """Three steps of features (8, 16), 32², batch 4, fg_weight 4 over a
+    mesh of two replicas on the one card against a mesh of one, by the
+    im2col route (the same convolutions at either block size): the losses
+    within 1e-5 relative, step 1's gradients within 5e-4 of the largest
+    (``chip_smoke.py`` ``[segtrain]`` (e)'s gates); the replica holds the
+    first's weights bitwise after each step."""
+    from gs360x_torch.models import segmentation as seg
+    from gs360x_torch.runtime import mesh as meshlib
+    monkeypatch.setattr(seg, "train_convs", seg.f32_convs)
+    params = seg.init_params(torch.Generator().manual_seed(0), (8, 16))
+    one = seg.create_train_state(None, 1e-3, (8, 16), params=params,
+                                 mesh=meshlib.data_mesh([dev]))
+    two = seg.create_train_state(None, 1e-3, (8, 16), params=params,
+                                 mesh=meshlib.data_mesh([dev, dev]))
+    assert one.replicas == () and len(two.replicas) == 1
+    rng = np.random.default_rng(14)
+    for step in range(3):
+        im = torch.from_numpy(rng.random((4, 32, 32, 3), dtype=np.float32))
+        lb = torch.from_numpy(rng.integers(1, 10, (4, 32, 32)))
+        lb[:2, :28] = 0                  # the shards' foreground differs
+        got = float(seg.train_step(two, im.to(dev), lb.to(dev), 4.0))
+        ref = float(seg.train_step(one, im.to(dev), lb.to(dev), 4.0))
+        assert abs(got - ref) <= 1e-5 * ref
+        if step == 0:
+            grads = {n: p.grad.clone()
+                     for n, p in one.model.named_parameters()}
+            gmax = max(float(g.abs().max()) for g in grads.values())
+            for n, p in two.model.named_parameters():
+                assert float((p.grad - grads[n]).abs().max()) \
+                    <= 5e-4 * gmax, n
+        main = two.model.state_dict()
+        assert all(torch.equal(v, main[k])
+                   for k, v in two.replicas[0].state_dict().items())
+
+
+def test_maybe_trace_holds_the_warp_launch(dev, tmp_path, monkeypatch):
+    """One warp of a u8 frame (a texel pass and a warp launch) under
+    ``maybe_trace``: the written trace holds those two kernels, as the
+    launch counters count them, inside its window."""
+    import re
+    from gs360x_torch.runtime import profiling
+    rows = _rows(np.uint8, 64, 128, dev)
+    kw = dict(width=48, height=32, hfov_deg=90.0, vfov_deg=70.0,
+              planar=True, out_dtype=torch.uint8)
+    angles = ([0.0, 180.0], [0.0, 20.0], [0.0, 0.0])
+    warp_cuda.warp_equirect_to_views_cuda(rows, *angles, **kw)  # build
+    torch.cuda.synchronize()
+    monkeypatch.setenv("GS360X_TRACE_DIR", str(tmp_path))
+    before = dict(warp_cuda.LAUNCHES)
+    with profiling.maybe_trace("warp"):
+        warp_cuda.warp_equirect_to_views_cuda(rows, *angles, **kw)
+        torch.cuda.synchronize()
+    launched = {k: warp_cuda.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"planarize": 1, "warp": 1}
+    got = profiling.read_trace(tmp_path, "warp")
+    # names may be mangled, in an anonymous namespace: match the function
+    names = [k[0] for k in got["kernels"]]
+    assert sum("warp_equirect_kernel" in n for n in names) == 1, names
+    assert sum(bool(re.search(r"(planarize|texelize)_(regs|scalar)", n))
+               for n in names) == 1, names
+    assert 0 < got["busy_us"] <= got["window_us"]
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,10 @@
   inverts ``params_from_flax`` bitwise.
 - ``train_step`` from the same parameters (carried with
   ``params_from_flax``) on the same batches, at features (8, 16), 32²,
-  batch 2, for ``fg_weight`` 1 and 4: the loss within ``LOSS_RTOL``, the
+  batch 2, and over a data mesh of three CPU devices at batch 6 (shards
+  of unequal foreground) against the JAX step on a batch sharded over
+  three JAX CPU devices and against the port on one device, for
+  ``fg_weight`` 1 and 4: the loss within ``LOSS_RTOL``, the
   gradients of step 1 within ``GRAD_TOL`` of the largest gradient, and
   after 3 steps the parameters within ``PARAM_TOL`` on every entry whose
   step-1 gradient is above ``GRAD_FLOOR`` of the largest (Adam's first
@@ -17,10 +20,13 @@
   ±lr in either package; those entries are counted).
 - The rate of every step 0 .. ``decay_steps`` + 2 against the optax
   schedule, and the rate ``train_step`` sets.
+- A one-device mesh is bitwise the step without a mesh.
 - A tied, positive 2×2 max-pool window routes its gradient to the same
   element in both libraries.
 - The CLI: the host helpers equal the JAX ones; from the same initial
-  weights the same messages (the ``devices`` field aside), the losses and
+  weights the same messages (the ``devices`` field aside on
+  ``--device cpu``'s one device; ``devices 8`` for both with the port's
+  mesh made of 8 CPU devices, the batch rounded to it), the losses and
   validation accuracies within ``CLI_LOSS_TOL`` / ``CLI_ACC_TOL``, and
   final logits within ``LOGIT_TOL``; the
   error exits; ``--resume`` with a msgpack file and with an Orbax
@@ -45,13 +51,16 @@ import torch.nn.functional as F
 from flax import linen as nn
 from flax import serialization
 from flax.training import train_state
+from jax.sharding import NamedSharding, PartitionSpec
 
 from gs360x.models import segmentation as jseg
+from gs360x.runtime import mesh as jmesh
 from gs360x.models import synthseg as jsyn
 from gs360x.tools import segtrain as jst
 from gs360x_torch.models import segmentation as tseg
 from gs360x_torch.models import synthseg as tsyn
 from gs360x_torch.models import weights as tw
+from gs360x_torch.runtime import mesh as tmesh
 from gs360x_torch.tools import segtrain as tst
 
 torch.set_num_threads(1)
@@ -145,49 +154,181 @@ def _batches(n=3, seed=0):
         yield im, lb
 
 
+def _jax_run(p0, batches, fg_weight, place=jnp.asarray):
+    """The JAX package's train_step from ``p0`` (create_train_state's
+    state) over ``batches``, each placed by ``place``: the losses, step 1's
+    gradients and the final parameters, by the port's names."""
+    state = train_state.TrainState.create(
+        apply_fn=jseg.create_model(FEATS).apply, params=p0,
+        tx=optax.adamw(1e-3))
+
+    def loss_fn(params, x, lb):
+        logits = state.apply_fn({"params": params}, x)
+        ce = -jnp.sum(jax.nn.one_hot(lb, tseg.NUM_CLASSES)
+                      * jax.nn.log_softmax(logits), axis=-1)
+        if fg_weight == 1.0:
+            return jnp.mean(ce)
+        w = jnp.where(lb > 0, fg_weight, 1.0)
+        return jnp.sum(ce * w) / jnp.sum(w)
+
+    losses, grads = [], None
+    for im, lb in batches:
+        x, y = place(im), place(lb)
+        if grads is None:
+            grads = tw.params_from_flax(jax.tree.map(
+                np.asarray, jax.grad(loss_fn)(state.params, x, y)))
+        state, loss = jseg.train_step(state, x, y, fg_weight=fg_weight)
+        losses.append(float(loss))
+    return losses, grads, tw.params_from_flax(
+        jax.tree.map(np.asarray, state.params))
+
+
+def _port_run(tstate, batches, fg_weight):
+    """The port's train_step over ``batches``: the losses, step 1's
+    gradients (on the state's first device) and the final parameters."""
+    losses, grads = [], None
+    for im, lb in batches:
+        losses.append(float(tseg.train_step(
+            tstate, torch.from_numpy(im), torch.from_numpy(lb), fg_weight)))
+        if grads is None:
+            grads = {name: p.grad.clone()
+                     for name, p in tstate.model.named_parameters()}
+    return losses, grads, tstate.model.state_dict()
+
+
+def _assert_runs_agree(got, ref):
+    """Every loss within ``LOSS_RTOL``, step 1's gradients within
+    ``GRAD_TOL`` of the largest, the final parameters within ``PARAM_TOL``
+    wherever step 1's gradient is at least ``GRAD_FLOOR`` of the largest
+    (at most 2% of the entries are below it)."""
+    losses, grads, params = got
+    ref_losses, ref_grads, ref_params = ref
+    assert len(losses) == len(ref_losses)
+    for loss, jloss in zip(losses, ref_losses):
+        assert abs(loss - jloss) <= LOSS_RTOL * jloss, (loss, jloss)
+    gmax = max(float(g.abs().max()) for g in ref_grads.values())
+    assert grads.keys() == ref_grads.keys()
+    for name, g in ref_grads.items():
+        err = float((grads[name] - g).abs().max())
+        assert err <= GRAD_TOL * gmax, (name, err, gmax)
+    below = 0
+    for name, value in ref_params.items():
+        keep = ref_grads[name].abs() >= GRAD_FLOOR * gmax
+        below += int((~keep).sum())
+        if keep.any():
+            err = float((params[name] - value).abs()[keep].max())
+            assert err <= PARAM_TOL, (name, err)
+    total = sum(v.numel() for v in ref_params.values())
+    assert below <= 0.02 * total, (below, total)
+
+
 @pytest.mark.parametrize("fg_weight", [1.0, 4.0])
 def test_train_step_matches_jax(fg_weight):
     p0 = _flax_params()
-    state = train_state.TrainState.create(      # create_train_state's
-        apply_fn=jseg.create_model(FEATS).apply, params=p0,
-        tx=optax.adamw(1e-3))
+    batches = list(_batches())
     tstate = tseg.create_train_state(None, 1e-3, FEATS, device=CPU,
                                      params=tw.params_from_flax(p0))
-    grads = None
-    for k, (im, lb) in enumerate(_batches()):
-        if k == 0:
-            def loss_fn(params):
-                logits = state.apply_fn({"params": params}, jnp.asarray(im))
-                ce = -jnp.sum(jax.nn.one_hot(lb, tseg.NUM_CLASSES)
-                              * jax.nn.log_softmax(logits), axis=-1)
-                if fg_weight == 1.0:
-                    return jnp.mean(ce)
-                w = jnp.where(lb > 0, fg_weight, 1.0)
-                return jnp.sum(ce * w) / jnp.sum(w)
-            grads = tw.params_from_flax(jax.tree.map(
-                np.asarray, jax.grad(loss_fn)(state.params)))
-        state, jloss = jseg.train_step(state, jnp.asarray(im),
-                                       jnp.asarray(lb), fg_weight=fg_weight)
-        loss = tseg.train_step(tstate, torch.from_numpy(im),
-                               torch.from_numpy(lb), fg_weight)
-        assert abs(float(loss) - float(jloss)) <= LOSS_RTOL * float(jloss)
-        if k == 0:
-            gmax = max(float(g.abs().max()) for g in grads.values())
-            for name, p in tstate.model.named_parameters():
-                err = float((p.grad - grads[name]).abs().max())
-                assert err <= GRAD_TOL * gmax, (name, err, gmax)
+    _assert_runs_agree(_port_run(tstate, batches, fg_weight),
+                       _jax_run(p0, batches, fg_weight))
 
-    got = tstate.model.state_dict()
-    ref = tw.params_from_flax(jax.tree.map(np.asarray, state.params))
-    below = 0
-    for name, value in ref.items():
-        keep = grads[name].abs() >= GRAD_FLOOR * gmax
-        below += int((~keep).sum())
-        if keep.any():
-            err = float((got[name] - value).abs()[keep].max())
-            assert err <= PARAM_TOL, (name, err)
-    total = sum(v.numel() for v in ref.values())
-    assert below <= 0.02 * total, (below, total)
+
+# --- the training step over a data mesh --------------------------------------
+
+MESH_N = 3
+
+
+def _mesh_batches(n=3, seed=5):
+    """Batches of 6 whose three shards hold unequal foreground: samples
+    0-1 mostly background, 2-3 half, 4-5 mostly subject."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        im = rng.random((6, SIZE, SIZE, 3), dtype=np.float32)
+        lb = rng.integers(1, tseg.NUM_CLASSES, (6, SIZE, SIZE)).astype(
+            np.int32)
+        for i, rows in enumerate((30, 30, 16, 16, 2, 2)):
+            lb[i, :rows] = 0
+        out.append((im, lb))
+    fg = (out[0][1] > 0).reshape(MESH_N, -1).mean(1)
+    assert fg[0] < 0.1 < fg[1] < 0.6 < fg[2]
+    return out
+
+
+def _mesh_state(p0, n):
+    return tseg.create_train_state(
+        None, 1e-3, FEATS, params=tw.params_from_flax(p0),
+        mesh=tmesh.data_mesh([CPU] * n))
+
+
+@pytest.mark.parametrize("fg_weight", [1.0, 4.0])
+def test_sharded_step_matches_jax_sharded(fg_weight):
+    """The port's step over three CPU devices against the JAX step on a
+    batch sharded over three JAX CPU devices: one loss over the global
+    batch (with fg_weight 4, the whole batch's weight as denominator)."""
+    p0 = _flax_params()
+    batches = _mesh_batches()
+    sharding = NamedSharding(jmesh.data_mesh(jax.devices()[:MESH_N]),
+                             PartitionSpec(jmesh.DATA_AXIS))
+
+    def place(a):
+        x = jax.device_put(jnp.asarray(a), sharding)
+        assert len(x.addressable_shards) == MESH_N
+        return x
+    tstate = _mesh_state(p0, MESH_N)
+    assert len(tstate.replicas) == MESH_N - 1
+    _assert_runs_agree(_port_run(tstate, batches, fg_weight),
+                       _jax_run(p0, batches, fg_weight, place))
+
+
+@pytest.mark.parametrize("fg_weight", [1.0, 4.0])
+def test_sharded_step_matches_one_device(fg_weight):
+    """Three replicas against one device from the same weights; after
+    every step each replica holds the first device's weights bitwise and
+    no gradient, and the optimizer holds only the first's parameters."""
+    p0 = _flax_params()
+    batches = _mesh_batches()
+    tstate = _mesh_state(p0, MESH_N)
+    got = _port_run(tstate, batches, fg_weight)
+    one = tseg.create_train_state(None, 1e-3, FEATS, device=CPU,
+                                  params=tw.params_from_flax(p0))
+    _assert_runs_agree(got, _port_run(one, batches, fg_weight))
+    main = tstate.model.state_dict()
+    for replica in tstate.replicas:
+        assert all(torch.equal(v, main[k])
+                   for k, v in replica.state_dict().items())
+        assert all(p.grad is None for p in replica.parameters())
+    opt_params = [p for g in tstate.optimizer.param_groups
+                  for p in g["params"]]
+    assert [id(p) for p in opt_params] == \
+        [id(p) for p in tstate.model.parameters()]
+
+
+def test_one_device_mesh_is_bitwise_the_meshless_step():
+    p0 = _flax_params()
+    batches = _mesh_batches()
+    mesh1 = _mesh_state(p0, 1)
+    assert mesh1.replicas == ()
+    plain = tseg.create_train_state(None, 1e-3, FEATS, device=CPU,
+                                    params=tw.params_from_flax(p0))
+    for fg_weight in (1.0, 4.0):
+        got = _port_run(mesh1, batches, fg_weight)
+        ref = _port_run(plain, batches, fg_weight)
+        assert got[0] == ref[0]
+        for a, b in zip(got[1:], ref[1:]):
+            assert a.keys() == b.keys()
+            assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_sharded_step_refuses_what_does_not_divide():
+    p0 = _flax_params()
+    tstate = _mesh_state(p0, MESH_N)
+    im, lb = _mesh_batches(1)[0]
+    with pytest.raises(ValueError, match="does not divide over 3"):
+        tseg.train_step(tstate, torch.from_numpy(im[:5]),
+                        torch.from_numpy(lb[:5]))
+    with pytest.raises(ValueError, match="not the mesh's first"):
+        tseg.create_train_state(None, 1e-3, FEATS, device=torch.device(
+            "meta"), mesh=tmesh.data_mesh([CPU] * 2))
 
 
 @pytest.mark.parametrize("decay_steps", [0, 7, 40, 3000])
@@ -305,6 +446,37 @@ def same_init(monkeypatch):
 _NUM = re.compile(r"(loss|val_acc) (\d+\.\d+)")
 
 
+def _assert_cli_lines_agree(got, ref):
+    """The lines after the first of two 12-pair runs of 3 epochs: the same
+    text, the losses and accuracies within ``CLI_LOSS_TOL`` /
+    ``CLI_ACC_TOL``."""
+    assert got[1] == ref[1] == "[INFO] train 11, val 1"
+    assert len(got) == len(ref) == 6
+    for a, b in zip(got[2:5], ref[2:5]):
+        assert _NUM.sub("#", a) == _NUM.sub("#", b)
+        for (ka, va), (kb, vb) in zip(_NUM.findall(a), _NUM.findall(b)):
+            assert ka == kb
+            tol = CLI_LOSS_TOL if ka == "loss" else CLI_ACC_TOL
+            assert abs(float(va) - float(vb)) <= tol, (a, b)
+
+
+def _assert_logits_agree(weights, jax_ckpt):
+    """The logits of the port's written weights within ``LOGIT_TOL`` of the
+    largest of the JAX checkpoint's, on a random batch."""
+    params = tseg.load_weights(weights)
+    jparams = jseg.load_checkpoint(jax_ckpt,
+                                   _jit_init(jax.random.key(0), SIZE, None))
+    x = np.random.default_rng(1).random((2, SIZE, SIZE, 3), np.float32)
+    ref_logits = np.asarray(jseg.create_model().apply(
+        {"params": jparams}, jnp.asarray(x))).transpose(0, 3, 1, 2)
+    model = tseg.create_model(tseg.features_from_params(params))
+    model.load_state_dict(params)
+    with torch.no_grad():
+        got_logits = model(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+    err = np.abs(got_logits - ref_logits).max()
+    assert err <= LOGIT_TOL * np.abs(ref_logits).max(), err
+
+
 def test_cli_matches_jax(tmp_path, same_init):
     make_dataset(tmp_path, 12)
     args = ["-i", str(tmp_path / "img"), "-m", str(tmp_path / "mask"),
@@ -317,28 +489,9 @@ def test_cli_matches_jax(tmp_path, same_init):
     assert rc == 0
     assert ref[0] == "[INFO] 12 pairs, size 32, devices 8"
     assert got[0] == "[INFO] 12 pairs, size 32, devices 1"
-    assert got[1] == ref[1] == "[INFO] train 11, val 1"
-    assert len(got) == len(ref) == 6
-    for a, b in zip(got[2:5], ref[2:5]):
-        assert _NUM.sub("#", a) == _NUM.sub("#", b)
-        for (ka, va), (kb, vb) in zip(_NUM.findall(a), _NUM.findall(b)):
-            assert ka == kb
-            tol = CLI_LOSS_TOL if ka == "loss" else CLI_ACC_TOL
-            assert abs(float(va) - float(vb)) <= tol, (a, b)
+    _assert_cli_lines_agree(got, ref)
     assert got[5].startswith(f"[OK] checkpoint: {tmp_path / 'w.msgpack'} (")
-
-    params = tseg.load_weights(tmp_path / "w.msgpack")
-    jparams = jseg.load_checkpoint(tmp_path / "jax_ckpt",
-                                   _jit_init(jax.random.key(0), SIZE, None))
-    x = np.random.default_rng(1).random((2, SIZE, SIZE, 3), np.float32)
-    ref_logits = np.asarray(jseg.create_model().apply(
-        {"params": jparams}, jnp.asarray(x))).transpose(0, 3, 1, 2)
-    model = tseg.create_model(tseg.features_from_params(params))
-    model.load_state_dict(params)
-    with torch.no_grad():
-        got_logits = model(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
-    err = np.abs(got_logits - ref_logits).max()
-    assert err <= LOGIT_TOL * np.abs(ref_logits).max(), err
+    _assert_logits_agree(tmp_path / "w.msgpack", tmp_path / "jax_ckpt")
 
     # --resume from the written file: one more epoch from those weights
     rc, lines = _cli(tst, args[:-2] + ["--epochs", "1", "-o",
@@ -346,6 +499,41 @@ def test_cli_matches_jax(tmp_path, same_init):
                                        "--resume", str(tmp_path / "w.msgpack"),
                                        "--device", "cpu"])
     assert rc == 0 and lines[2] == f"[INFO] resumed from {tmp_path}/w.msgpack"
+
+
+@pytest.mark.parametrize("batch_size", [4, 8])
+def test_cli_over_an_8_device_mesh_matches_jax(tmp_path, same_init,
+                                               monkeypatch, batch_size):
+    """The port's CLI with its mesh made of 8 CPU devices against the JAX
+    CLI over conftest's 8: both print ``devices 8`` and train batches of 8
+    (``--batch-size 4`` rounds up to the mesh), the same number of steps,
+    and the losses, accuracies and final logits agree."""
+    monkeypatch.setattr(tst, "train_mesh",
+                        lambda device: tmesh.data_mesh([device] * 8))
+    sizes = {"jax": [], "port": []}
+
+    def counted(module, key):
+        step = module.train_step
+
+        def train_step(state, images, labels, *args, **kw):
+            sizes[key].append(int(images.shape[0]))
+            return step(state, images, labels, *args, **kw)
+        monkeypatch.setattr(module, "train_step", train_step)
+    counted(jseg, "jax")
+    counted(tseg, "port")
+    make_dataset(tmp_path, 12)
+    args = ["-i", str(tmp_path / "img"), "-m", str(tmp_path / "mask"),
+            "--size", str(SIZE), "--batch-size", str(batch_size),
+            "--epochs", "3", "--lr", "3e-3"]
+    rc, ref = _cli(jst, args + ["-o", str(tmp_path / "jax_ckpt")])
+    assert rc == 0
+    rc, got = _cli(tst, args + ["-o", str(tmp_path / "w.msgpack"),
+                                "--device", "cpu"])
+    assert rc == 0
+    assert got[0] == ref[0] == "[INFO] 12 pairs, size 32, devices 8"
+    assert sizes["port"] == sizes["jax"] == [8] * 3
+    _assert_cli_lines_agree(got, ref)
+    _assert_logits_agree(tmp_path / "w.msgpack", tmp_path / "jax_ckpt")
 
 
 def test_error_exits_match_jax(tmp_path, capsys):
