@@ -14,6 +14,7 @@ warp (the reference's analogue is one ffmpeg process per view).
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import pathlib
 import threading
 from typing import Optional
@@ -287,21 +288,33 @@ class AsyncImageWriter:
     ``submit`` blocks once ``max_pending`` encodes are in flight, so the
     device loop can't race ahead of the disk (the role the reference's
     adaptive memory limiter plays, ``gs360_FrameSelector.py:65-193``).
+    With ``timers`` (a :class:`~gs360x_torch.runtime.profiling.StageTimers`),
+    that block is a ``writer_block`` stage of the submitting thread and
+    each write an ``encode`` stage of its writer thread.
     """
 
-    def __init__(self, workers: int = 4, max_pending: int = 32):
+    def __init__(self, workers: int = 4, max_pending: int = 32,
+                 timers=None):
         self._pool = cf.ThreadPoolExecutor(max_workers=workers)
         self._sem = threading.Semaphore(max_pending)
         self._errors: list = []
         self._lock = threading.Lock()
         self._count = 0
+        self._timers = timers
+
+    def _stage(self, name: str):
+        if self._timers is None:
+            return contextlib.nullcontext()
+        return self._timers.stage(name)
 
     def submit(self, path, img: np.ndarray, **kw) -> None:
-        self._sem.acquire()
+        with self._stage("writer_block"):
+            self._sem.acquire()
 
         def task():
             try:
-                write_image(path, img, **kw)
+                with self._stage("encode"):
+                    write_image(path, img, **kw)
             except Exception as exc:  # surfaced on close()
                 with self._lock:
                     self._errors.append((str(path), exc))

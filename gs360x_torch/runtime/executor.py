@@ -24,6 +24,7 @@ CUDA device: ``--backend xla`` is the only way to the plain twin there.
 
 from __future__ import annotations
 
+import contextlib
 import pathlib
 import queue as queuelib
 import sys
@@ -95,35 +96,59 @@ class ProgressPrinter:
 
 class _Prefetcher:
     """Background decode thread: overlaps host decode/IO of item N+1 with
-    device work on item N."""
+    device work on item N. Iteration ends once ``stop_event`` is set, also
+    while the consumer waits on a decode; with ``timers``, each wait is a
+    ``decode_wait`` stage."""
 
     _DONE = object()
+    _POLL_S = 0.25
 
-    def __init__(self, iterator, stop_event, depth: int = 2):
+    def __init__(self, iterator, stop_event, depth: int = 2, timers=None):
         self._q: "queuelib.Queue" = queuelib.Queue(maxsize=depth)
         self._stop = stop_event
+        self._timers = timers
         self._thread = threading.Thread(
             target=self._pump, args=(iterator,), daemon=True)
         self._thread.start()
 
+    def _put(self, item) -> bool:
+        """Queue ``item`` unless a stop comes first."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=self._POLL_S)
+                return True
+            except queuelib.Full:
+                continue
+        return False
+
     def _pump(self, iterator):
         try:
             for item in iterator:
-                while True:
-                    if self._stop.is_set():
-                        return
-                    try:
-                        self._q.put(item, timeout=0.25)
-                        break
-                    except queuelib.Full:
-                        continue
-            self._q.put(self._DONE)
+                if not self._put(item):
+                    break
         except Exception as exc:  # surfaced on the consumer side
-            self._q.put(exc)
+            self._put(exc)
+            return
+        if not self._put(self._DONE):
+            # stopped: a consumer waiting on an empty queue ends now
+            try:
+                self._q.put_nowait(self._DONE)
+            except queuelib.Full:
+                pass
+
+    def _get(self):
+        while True:
+            try:
+                return self._q.get(timeout=self._POLL_S)
+            except queuelib.Empty:
+                if self._stop.is_set():
+                    return self._DONE
 
     def __iter__(self):
         while True:
-            item = self._q.get()
+            with (contextlib.nullcontext() if self._timers is None
+                  else self._timers.stage("decode_wait")):
+                item = self._get()
             if item is self._DONE:
                 return
             if isinstance(item, Exception):
@@ -251,7 +276,8 @@ def run_plan(plan: RenderPlan, *,
 
     timers = StageTimers()
     with maybe_trace("run_plan"), \
-            imagelib.AsyncImageWriter(workers=writer_workers) as writer:
+            imagelib.AsyncImageWriter(workers=writer_workers,
+                                      timers=timers) as writer:
         run = _run_video if plan.video_mode else _run_images
         run(plan, writer, report, stop_event, tick, backend, device, interp,
             jpeg_quality, overwrite, timers)
@@ -311,7 +337,8 @@ def _run_images(plan, writer, report, stop_event, tick, backend, device,
 
     # software pipeline: decode N+1 (thread) || warp N+1 (device queue)
     # || fetch+encode N (here + writer pool)
-    for source, jobs, src, exc in _Prefetcher(decode(work), stop_event):
+    for source, jobs, src, exc in _Prefetcher(decode(work), stop_event,
+                                              timers=timers):
         if stop_event.is_set():
             return
         if exc is not None:
@@ -422,7 +449,7 @@ def _run_video_sharded(plan, writer, report, stop_event, tick, interp,
 
     for idx, _t, rgb in _Prefetcher(
             timers.wrap_iter("decode", frame_iter), stop_event,
-            depth=n_batch + 1):
+            depth=n_batch + 1, timers=timers):
         if stop_event.is_set():
             return
         if plan.selected_frames is not None \

@@ -1,7 +1,9 @@
 """Per-stage timers for the streaming pipelines (the port's copy of
 :class:`StageTimers`): accumulated per-stage wall clock (decode / warp /
-fetch / encode) surfaced on the execution report; :func:`maybe_trace`, a
-``torch.profiler`` trace of a block when ``GS360X_TRACE_DIR`` is set, and
+fetch / encode) surfaced on the execution report, and every stage's
+interval in one process-wide ring (:func:`spans`); :func:`maybe_trace`, a
+``torch.profiler`` trace of a block when ``GS360X_TRACE_DIR`` is set, with
+the ring's spans of the block on the trace's clock, and
 :func:`read_trace`, its kernels and the device's busy time in it;
 :func:`cuda_ms`, the device time of a call taken with CUDA events; and
 :func:`device_ms`, the device time of a call without the host's, from a
@@ -16,12 +18,28 @@ import os
 import pathlib
 import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 import statistics
 from contextlib import contextmanager
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+
+
+# every stage's span, from every StageTimers of the process: (name, the
+# thread's native id, start, end, the thread's CPU seconds inside), start
+# and end on time.perf_counter. A traced window holds ~2,000 spans.
+SPAN_RING = 65536
+_SPANS: deque = deque(maxlen=SPAN_RING)
+
+
+def spans(since: Optional[float] = None) -> List[tuple]:
+    """The ring's spans, oldest first, that end after ``since`` (every one
+    it holds when None)."""
+    held = _SPANS.copy()  # one call: atomic against the appends
+    if since is None:
+        return list(held)
+    return [s for s in held if s[3] > since]
 
 
 class StageTimers:
@@ -29,7 +47,8 @@ class StageTimers:
 
     Stages run concurrently (decode in the prefetch thread, fetch/encode
     in the main thread), so per-stage sums can exceed the total wall
-    clock — that overlap is the point of the pipeline.
+    clock — that overlap is the point of the pipeline. Each stage's span
+    also goes to the process's ring (:func:`spans`).
     """
 
     def __init__(self) -> None:
@@ -40,12 +59,15 @@ class StageTimers:
     @contextmanager
     def stage(self, name: str):
         t0 = time.perf_counter()
+        cpu0 = time.thread_time()
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            _SPANS.append((name, threading.get_native_id(), t0, t1,
+                           time.thread_time() - cpu0))
             with self._lock:
-                self.totals[name] += dt
+                self.totals[name] += t1 - t0
                 self.counts[name] += 1
 
     def wrap_iter(self, name: str, iterator) -> Iterator:
@@ -67,6 +89,9 @@ class StageTimers:
         return " | ".join(parts) if parts else "no stages recorded"
 
 
+SPAN_CAT = "gs360x_span"
+
+
 @contextmanager
 def maybe_trace(label: str = "gs360x"):
     """A ``torch.profiler`` trace of the block, active only when
@@ -75,7 +100,9 @@ def maybe_trace(label: str = "gs360x"):
     launched them, under a ``label`` annotation that spans the block. On
     exit the TensorBoard trace (``*.pt.trace.json``) is written under
     ``<GS360X_TRACE_DIR>/<label>/``, the directory the JAX package's
-    ``jax.profiler`` trace goes to."""
+    ``jax.profiler`` trace goes to, and the ring's spans that ended in the
+    block are added to it (:func:`_merge_spans`): the decode, loop and
+    writer threads' stages on one timeline with the kernels and copies."""
     trace_dir = os.environ.get("GS360X_TRACE_DIR")
     if not trace_dir:
         yield
@@ -83,13 +110,52 @@ def maybe_trace(label: str = "gs360x"):
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 tensorboard_trace_handler)
 
+    out_dir = pathlib.Path(trace_dir, label)
+    export = tensorboard_trace_handler(str(out_dir))
+    written: List[pathlib.Path] = []
+
+    def on_trace_ready(prof) -> None:
+        before = set(out_dir.glob("*.pt.trace.json"))
+        export(prof)
+        written.extend(sorted(set(out_dir.glob("*.pt.trace.json")) - before))
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, acc_events=True, on_trace_ready=
-                 tensorboard_trace_handler(os.path.join(trace_dir, label))):
+    with profile(activities=activities, acc_events=True,
+                 on_trace_ready=on_trace_ready):
+        # read just before the annotation opens: its timestamp is taken as
+        # the call starts, and a profile's first annotation then takes ~1
+        # ms more before it returns
+        anchor = time.perf_counter()
         with record_function(label):
             yield
+    for path in written:
+        _merge_spans(path, label, anchor, spans(since=anchor))
+
+
+def _merge_spans(path, label: str, anchor: float, held: List[tuple]) -> None:
+    """Add ``held`` spans (:func:`spans`' tuples) to the Chrome trace at
+    ``path`` as ``"ph": "X"`` events of category ``gs360x_span``, each on
+    its thread's row (``tid``, the native id the profiler's host events
+    carry), with ``args.cpu_ms``. A span starting ``t0`` lands at the
+    ``label`` annotation's ``ts`` + (``t0`` − ``anchor``) µs, ``anchor``
+    being ``time.perf_counter()`` just before the annotation opened."""
+    path = pathlib.Path(path)
+    trace = json.loads(path.read_text())
+    events = trace["traceEvents"]
+    ann = [e for e in events if e.get("cat") == "user_annotation"
+           and e.get("name") == label]
+    if len(ann) != 1:
+        raise ValueError(f"_merge_spans: {len(ann)} {label!r} annotations")
+    origin, pid = float(ann[0]["ts"]), ann[0].get("pid", os.getpid())
+    events.extend({"ph": "X", "cat": SPAN_CAT, "name": name, "pid": pid,
+                   "tid": tid, "ts": origin + (t0 - anchor) * 1e6,
+                   "dur": (t1 - t0) * 1e6, "args": {"cpu_ms": cpu * 1e3}}
+                  for name, tid, t0, t1, cpu in held)
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(json.dumps(trace))
+    os.replace(tmp, path)
 
 
 def read_trace(trace_dir, label: str = "run_plan") -> dict:
@@ -210,5 +276,5 @@ def device_ms(fn: Callable[[], object]) -> Tuple[float, int]:
     return statistics.median(times), kernels // DEVICE_REPS
 
 
-__all__ = ["StageTimers", "maybe_trace", "read_trace", "cuda_ms",
+__all__ = ["StageTimers", "spans", "maybe_trace", "read_trace", "cuda_ms",
            "device_ms"]

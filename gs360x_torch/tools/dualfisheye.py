@@ -61,7 +61,7 @@ from gs360x_torch.io.image import (AsyncImageWriter, from_float01, read_image,
 from gs360x_torch.kernels import _build, remap_cuda, warp_cuda
 from gs360x_torch.rig.presets import parse_sensor_dimensions
 from gs360x_torch.runtime.executor import _quantize_device, upload_rows
-from gs360x_torch.runtime.profiling import StageTimers
+from gs360x_torch.runtime.profiling import StageTimers, maybe_trace
 from gs360x_torch.runtime.throttle import AdaptiveLimiter, MemoryMonitor
 from gs360x_torch.templates import default_osmo360_calibration_path
 
@@ -782,12 +782,14 @@ def _main(argv=None) -> int:
             print(f"[INFO] sensor {sid}: undistort zoom="
                   f"{remap_cache[sid].undistort_zoom:.4f}")
 
+    timers = StageTimers()
     map_cache: Dict[Tuple[str, str], dict] = {}
     if not args.no_perspective:
         for key in sorted({(r[3], r[4]) for r in resolved}):
-            map_cache[key] = build_perspective_spec_maps(
-                sensor_map, key[0], key[1], specs, args.lens_x_yaw_deg,
-                args.lens_y_yaw_deg, args.lens_fov_deg)
+            with timers.stage("map_build"):
+                map_cache[key] = build_perspective_spec_maps(
+                    sensor_map, key[0], key[1], specs, args.lens_x_yaw_deg,
+                    args.lens_y_yaw_deg, args.lens_fov_deg)
             chosen = {v: m["lens_key"] for v, m in map_cache[key].items()}
             print(f"[INFO] lens choice {key}: {chosen}")
 
@@ -811,7 +813,6 @@ def _main(argv=None) -> int:
 
     fill = args.mask_value / 255.0
     report = {"pairs": [], "processed": 0, "failed": 0}
-    timers = StageTimers()
     # the LUT's table goes to the device once per run
     lut_table = (colorlib.lut_table(input_lut, device)
                  if input_lut is not None else None)
@@ -860,7 +861,8 @@ def _main(argv=None) -> int:
                     mask_y = read_image(my_p)[..., 0]
         return base, xp, yp, sid_x, sid_y, img_x, img_y, mask_x, mask_y
 
-    with AsyncImageWriter(workers=8) as writer, \
+    with maybe_trace("dualfisheye"), \
+            AsyncImageWriter(workers=8, timers=timers) as writer, \
             MemoryMonitor(limiter, high=high,
                           low=max(0.0, high - 0.10)), \
             cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
@@ -880,8 +882,9 @@ def _main(argv=None) -> int:
             submit_next()
             pi += 1
             try:
-                (base, xp, yp, sid_x, sid_y,
-                 img_x, img_y, mask_x, mask_y) = fut.result()
+                with timers.stage("decode_wait"):
+                    (base, xp, yp, sid_x, sid_y,
+                     img_x, img_y, mask_x, mask_y) = fut.result()
 
                 outputs = []
                 # each lens image goes to the device, planar, once (and

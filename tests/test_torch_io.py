@@ -310,8 +310,8 @@ def test_calibration_template_matches_jax_package(tmp_path, monkeypatch):
 # ---- runtime helpers --------------------------------------------------------
 
 def test_stage_timers_match_jax_package():
-    assert tprof.__all__ == ["StageTimers", "maybe_trace", "read_trace",
-                             "cuda_ms", "device_ms"]
+    assert tprof.__all__ == ["StageTimers", "spans", "maybe_trace",
+                             "read_trace", "cuda_ms", "device_ms"]
     for cls in (jprof.StageTimers, tprof.StageTimers):
         timers = cls()
         assert timers.report() == "no stages recorded"

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from gs360x.kernels import warp_pallas as wp
 from gs360x.kernels.warp_pallas import PallasFallback
 from gs360x.runtime import mesh as jmesh
 from gs360x.io import video as vio
@@ -51,6 +52,18 @@ ZEROS = np.zeros(2)
 VIEW = dict(width=64, height=64, hfov_deg=90.0, vfov_deg=90.0)
 F32_TOL = 5e-5
 LSB_TOL = {None: F32_TOL, 8: 1, 16: 257}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_jax_device_tables():
+    """The JAX meshes here hold one CPU device; ``tests/test_warp.py``
+    runs the same sharded Pallas warp over conftest's 8. The kernel's
+    device-table caches keep arrays made under this module's mesh, which
+    fail that test when both modules run in one process."""
+    yield
+    for cache in (wp._YAW_DEV_CACHE, wp._WIDE2_DEV_CACHE,
+                  wp._WIDE3_DEV_CACHE):
+        cache.clear()
 
 
 def _frames(seed, n=2, h=128, w=256, dtype=np.uint8):
