@@ -1019,6 +1019,14 @@ def _launches(planarize: int = 0, warp: int = 0, remap: int = 0) -> dict:
             "micro_ops": 0}
 
 
+def _texel_decodes(before: dict) -> tuple:
+    """(requested, served) ``read_image(..., texels=True)`` calls since
+    ``before`` (an ``imagelib.texel_decode_counts()``)."""
+    now = imagelib.texel_decode_counts()
+    return (now["requested"] - before["requested"],
+            now["served"] - before["served"])
+
+
 def phase_perspcut(dev, src_dir: pathlib.Path, frames: dict, tmp,
                    preset: str, size=None) -> dict:
     out_dir = tmp / f"out_{preset}"
@@ -1031,19 +1039,22 @@ def phase_perspcut(dev, src_dir: pathlib.Path, frames: dict, tmp,
                                 out_dir)
 
     _reset_counters()
+    decodes = imagelib.texel_decode_counts()
     t0 = time.perf_counter()
     rc = perspcut.main(args)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, plain = _counters()
+    decodes = _texel_decodes(decodes)
     if rc != 0:
         raise AssertionError(f"perspcut --preset {preset} exited {rc}")
-    # one planarize and one warp per (view group, frame)
-    want = _launches(planarize=E2E_FRAMES * len(groups),
-                     warp=E2E_FRAMES * len(groups))
-    if launches != want:
+    # each 8-bit RGB frame decodes to Pillow's RGBX block, uploaded as the
+    # warp's texels: one warp per (view group, frame), no planarize
+    want = _launches(warp=E2E_FRAMES * len(groups))
+    if launches != want or decodes != (E2E_FRAMES, E2E_FRAMES):
         raise AssertionError(f"{preset}: kernel launches {launches}, "
-                             f"expected {want}")
+                             f"expected {want}; texel decodes (asked, "
+                             f"served) {decodes}")
     if any(plain.values()):
         raise AssertionError(f"{preset}: plain versions ran on the main "
                              f"path: {plain}")
@@ -1088,8 +1099,9 @@ def phase_perspcut(dev, src_dir: pathlib.Path, frames: dict, tmp,
         extra = f" | view centers within {centers:.2f} LSB"
     log(f"[e2e] perspcut --preset {preset}, {E2E_FRAMES} 8K frames, "
         f"{len(written)} outputs: wall {wall_s:.3f}s | launches {launches} "
-        f"plain {plain} | frame 1 vs plain warp on the card: max {worst} "
-        f"LSB, {share:.5%} > 1 LSB{extra}")
+        f"plain {plain} | texel decodes {decodes[1]} of {decodes[0]} | "
+        f"frame 1 vs plain warp on the card: max {worst} LSB, {share:.5%} "
+        f"> 1 LSB{extra}")
     return {"launches": launches, "wall_s": wall_s}
 
 
@@ -1200,6 +1212,7 @@ def phase_dualfisheye(dev, tmp, remap: dict) -> dict:
     setup_s = time.perf_counter() - t0
 
     _reset_counters()
+    decodes = imagelib.texel_decode_counts()
     t0 = time.perf_counter()
     rc = dualfisheye.main([
         "--input-dir", str(in_dir), "--output-dir", str(out_dir),
@@ -1209,15 +1222,18 @@ def phase_dualfisheye(dev, tmp, remap: dict) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, plain = _counters()
+    decodes = _texel_decodes(decodes)
     report = json.loads((tmp / "report.json").read_text())
     if rc != 0 or report["failed"] != 0 or report["processed"] != 2:
         raise AssertionError(f"dualfisheye exited {rc}, report {report}")
-    # per pair: 2 lens planarizes; 2 undistorts + 2 lens view groups,
-    # + 2 mask groups for the pair with masks
-    want = _launches(planarize=4, remap=10)
-    if launches != want:
+    # per pair: each lens decodes to Pillow's RGBX block, the remaps'
+    # texels (no planarize); 2 undistorts + 2 lens view groups, + 2 mask
+    # groups for the pair with masks
+    want = _launches(remap=10)
+    if launches != want or decodes != (4, 4):
         raise AssertionError(f"dualfisheye launches {launches}, expected "
-                             f"{want}")
+                             f"{want}; texel decodes (asked, served) "
+                             f"{decodes}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the main path: {plain}")
     views = sorted((out_dir / "perspective" / "images").iterdir())
@@ -1272,8 +1288,8 @@ def phase_dualfisheye(dev, tmp, remap: dict) -> dict:
     log(f"[e2e] dualfisheye 2 pairs {FISH}², default calibration, "
         f"{len(unds)} undistorted + {len(views)} views + {len(masks)} masks:"
         f" wall {wall_s:.3f}s (set-up {setup_s:.2f}s) | launches {launches}"
-        f" plain {plain} | pair 1 vs plain remap on the card: max {worst} "
-        f"LSB, masks equal")
+        f" plain {plain} | texel decodes {decodes[1]} of {decodes[0]} | "
+        f"pair 1 vs plain remap on the card: max {worst} LSB, masks equal")
     return {"launches": launches, "wall_s": wall_s, "in_dir": in_dir,
             "mask_dir": mask_dir, "out_dir": out_dir, "images": images}
 
@@ -1872,6 +1888,7 @@ def phase_dualfisheye_lut(dev, tmp, remap: dict, dfe: dict) -> dict:
     write_cube(cube, LUT_SIZE, 5)
     out_dir = tmp / "dfe_lut"
     _reset_counters()
+    decodes = imagelib.texel_decode_counts()
     t0 = time.perf_counter()
     rc = dualfisheye.main([
         "--input-dir", str(dfe["in_dir"]), "--output-dir", str(out_dir),
@@ -1882,14 +1899,17 @@ def phase_dualfisheye_lut(dev, tmp, remap: dict, dfe: dict) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, plain = _counters()
+    decodes = _texel_decodes(decodes)
     report = json.loads((tmp / "report_lut.json").read_text())
     if rc != 0 or report["failed"] != 0 or report["processed"] != 2:
         raise AssertionError(f"dualfisheye --input-lut exited {rc}, "
                              f"report {report}")
+    # the LUT reads the packed decode: a lens planarize each, no texels
     want = _launches(planarize=4, remap=10)
-    if launches != want:
+    if launches != want or decodes != (0, 0):
         raise AssertionError(f"dualfisheye --input-lut launches {launches}, "
-                             f"expected {want}")
+                             f"expected {want}; texel decodes (asked, "
+                             f"served) {decodes}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the main path: {plain}")
 
@@ -1977,6 +1997,7 @@ def phase_ms360xml(dev, src_dir: pathlib.Path, frames: dict, tmp) -> dict:
                                 cut_dir, ext="jpg")
 
     _reset_counters()
+    decodes = imagelib.texel_decode_counts()
     t0 = time.perf_counter()
     rc = ms360xml.main([str(xml), "--format", "metashape", "--persp-cut",
                         "--cut-input", str(src_dir), "--cut-out",
@@ -1984,14 +2005,16 @@ def phase_ms360xml(dev, src_dir: pathlib.Path, frames: dict, tmp) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, plain = _counters()
+    decodes = _texel_decodes(decodes)
     if rc != 0:
         raise AssertionError(f"ms360xml --persp-cut exited {rc}")
     n_views = len(plan.jobs)
-    want = _launches(planarize=E2E_FRAMES * len(groups),
-                     warp=E2E_FRAMES * len(groups))
-    if launches != want:
+    # the cut's frames decode to RGBX texels: no planarize
+    want = _launches(warp=E2E_FRAMES * len(groups))
+    if launches != want or decodes != (E2E_FRAMES, E2E_FRAMES):
         raise AssertionError(f"ms360xml: kernel launches {launches}, "
-                             f"expected {want}")
+                             f"expected {want}; texel decodes (asked, "
+                             f"served) {decodes}")
     if any(plain.values()):
         raise AssertionError(f"ms360xml: plain versions ran on the main "
                              f"path: {plain}")

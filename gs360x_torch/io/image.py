@@ -15,8 +15,11 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import ctypes
 import pathlib
 import threading
+import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -60,8 +63,53 @@ def from_float01(img: np.ndarray, bit_depth: int = 8) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 
-def read_image(path) -> np.ndarray:
-    """Read an image as (H, W, 3) uint8 or uint16 RGB."""
+_TEXEL_LOCK = threading.Lock()
+_TEXEL_COUNTS = {"requested": 0, "served": 0}
+# the newest texels=True calls: (start on time.perf_counter, served)
+_TEXEL_CALLS: deque = deque(maxlen=65536)
+
+
+def texel_decode_counts(start: Optional[float] = None,
+                        end: Optional[float] = None) -> dict:
+    """``{"requested", "served"}``: the ``read_image(..., texels=True)``
+    calls of this process, and those that returned Pillow's own RGBX;
+    given ``start`` and ``end`` (``time.perf_counter``), only the calls of
+    the newest 65536 that started in [start, end)."""
+    with _TEXEL_LOCK:
+        if start is None:
+            return dict(_TEXEL_COUNTS)
+        held = [served for t, served in _TEXEL_CALLS if start <= t < end]
+    return {"requested": len(held), "served": sum(held)}
+
+
+def is_texel_decode(arr) -> bool:
+    """Whether ``arr`` is what ``read_image(..., texels=True)`` serves for
+    an 8-bit RGB file: Pillow's block as (H, W, 4) u8 RGBX, X = 255 (no
+    other 4-channel array is taken for texels)."""
+    return isinstance(getattr(arr, "base", None), _PillowBlock)
+
+
+def read_image(path, texels: bool = False) -> np.ndarray:
+    """Read an image as (H, W, 3) uint8 or uint16 RGB.
+
+    ``texels=True``: an 8-bit RGB file decodes into one memory block of
+    Pillow's and comes back as that block, (H, W, 4) uint8 RGBX with X =
+    255 (the texels the kernels read, without the pack to RGB); its
+    ``[..., :3]`` is what ``read_image(path)`` returns. Any other file, or
+    a Pillow without the block allocator or the Arrow export, returns
+    what ``read_image(path)`` does."""
+    t0 = time.perf_counter()
+    arr = _read_image(path, texels)
+    if texels:
+        served = arr.shape[-1] == 4
+        with _TEXEL_LOCK:
+            _TEXEL_COUNTS["requested"] += 1
+            _TEXEL_COUNTS["served"] += served
+            _TEXEL_CALLS.append((t0, served))
+    return arr
+
+
+def _read_image(path, texels: bool) -> np.ndarray:
     p16 = _read_png16_rgb(path)
     if p16 is not None:
         return p16
@@ -71,7 +119,100 @@ def read_image(path) -> np.ndarray:
             return np.repeat(arr[..., None], 3, axis=-1)
         if im.mode != "RGB":
             im = im.convert("RGB")
+        elif texels:
+            rgbx = _decode_rgbx(im)
+            if rgbx is not None:
+                return rgbx
         return np.asarray(im)
+
+
+class _PillowBlock:
+    """Owns one decoded image's block (and its Arrow export) for as long
+    as the array over it lives: that array's ``base``."""
+
+    def __init__(self, core, capsules, ptr: int, shape: tuple):
+        self._core, self._capsules = core, capsules
+        self.__array_interface__ = {
+            "shape": shape, "typestr": "|u1", "data": (ptr, False),
+            "version": 3}
+
+
+def _arrow_export(core) -> tuple:
+    """The Arrow C data interface's (schema, array) capsules of ``core``
+    (Pillow 11.2 on: a single-block image only)."""
+    return core.__arrow_c_schema__(), core.__arrow_c_array__()
+
+
+def _decode_rgbx(im) -> Optional[np.ndarray]:
+    """Decode RGB ``im`` into one block and return that block as (H, W, 4)
+    u8 RGBX, or None where this Pillow cannot hand its block out."""
+    new_block = getattr(Image.core, "new_block", None)
+    if new_block is None:
+        return None
+    # load() keeps an image of the right mode and size it already has
+    im.im = new_block(im.mode, im.size)
+    im.load()
+    core = im.im
+    try:
+        if not core.isblock():
+            return None
+        capsules = _arrow_export(core)
+        w, h = im.size
+        ptr = _arrow_rgbx_data(*capsules, h * w)
+    except (AttributeError, ValueError):
+        return None
+    if ptr is None:
+        return None
+    return np.asarray(_PillowBlock(core, capsules, ptr, (h, w, 4)))
+
+
+class _ArrowSchema(ctypes.Structure):
+    pass
+
+
+_ArrowSchema._fields_ = [
+    ("format", ctypes.c_char_p), ("name", ctypes.c_char_p),
+    ("metadata", ctypes.c_char_p), ("flags", ctypes.c_int64),
+    ("n_children", ctypes.c_int64),
+    ("children", ctypes.POINTER(ctypes.POINTER(_ArrowSchema))),
+    ("dictionary", ctypes.POINTER(_ArrowSchema)),
+    ("release", ctypes.c_void_p), ("private_data", ctypes.c_void_p)]
+
+
+class _ArrowArray(ctypes.Structure):
+    pass
+
+
+_ArrowArray._fields_ = [
+    ("length", ctypes.c_int64), ("null_count", ctypes.c_int64),
+    ("offset", ctypes.c_int64), ("n_buffers", ctypes.c_int64),
+    ("n_children", ctypes.c_int64),
+    ("buffers", ctypes.POINTER(ctypes.c_void_p)),
+    ("children", ctypes.POINTER(ctypes.POINTER(_ArrowArray))),
+    ("dictionary", ctypes.POINTER(_ArrowArray)),
+    ("release", ctypes.c_void_p), ("private_data", ctypes.c_void_p)]
+
+
+_capsule = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object,
+                            ctypes.c_char_p)(("PyCapsule_GetPointer",
+                                              ctypes.pythonapi))
+
+
+def _arrow_rgbx_data(schema, array, n_pixels: int) -> Optional[int]:
+    """The address of the pixels an exported RGB image holds, if the
+    export is ``n_pixels`` lists of 4 u8 (``+w:4`` over ``C``), else
+    None."""
+    s = _ArrowSchema.from_address(_capsule(schema, b"arrow_schema"))
+    a = _ArrowArray.from_address(_capsule(array, b"arrow_array"))
+    if s.format != b"+w:4" or s.n_children != 1 \
+            or s.children[0].contents.format != b"C" \
+            or a.length != n_pixels or a.n_children != 1:
+        return None
+    child = a.children[0].contents
+    if child.n_buffers != 2 or not child.buffers[1] \
+            or child.length < 4 * (a.offset + n_pixels):
+        return None
+    return child.buffers[1] + child.offset + 4 * a.offset
 
 
 def _read_png16_rgb(path):

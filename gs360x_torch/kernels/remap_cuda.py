@@ -41,6 +41,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gs360x_torch.io import image as imagelib
 from gs360x_torch.kernels import _build
 from gs360x_torch.kernels import warp as twin
 from gs360x_torch.kernels import warp_cuda
@@ -121,12 +122,16 @@ def remap_source(src, src_h: int, src_w: int,
                  device: Optional[torch.device] = None) -> torch.Tensor:
     """The source in the layout ``remap.cu`` reads with the fewest loads:
     (src_h, src_w, 4) RGBX texels for a u8 RGB image given interleaved
-    ((H, W, 3) or (H, W·3) rows, numpy or torch; texels pass through), else
-    :func:`source_planes` (f32 and u16 sources, masks, ready planes)."""
+    ((H, W, 3) or (H, W·3) rows, numpy or torch; texels pass through, a
+    texel decode (``read_image(..., texels=True)``) to ``device`` as it
+    is), else :func:`source_planes` (f32 and u16 sources, masks, ready
+    planes)."""
     shape = tuple(src.shape)
     if isinstance(src, torch.Tensor) and warp_cuda.is_texels(src) \
             and shape[:2] == (src_h, src_w):
         return src
+    if imagelib.is_texel_decode(src) and shape[:2] == (src_h, src_w):
+        return _to_device(src, device)
     if src.dtype in (np.uint8, torch.uint8) \
             and shape in ((src_h, src_w, 3), (src_h, src_w * 3)):
         if isinstance(src, np.ndarray):

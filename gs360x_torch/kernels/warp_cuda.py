@@ -334,7 +334,10 @@ def _check_view_args(projection: str, interp: str) -> str:
 
 
 def _as_rows(src: torch.Tensor) -> torch.Tensor:
-    """Accept (H, W, 3) frames or pre-flattened (H, W·3) rows."""
+    """Accept (H, W, 3) frames, (H, W, 4) RGBX texels (their X dropped) or
+    pre-flattened (H, W·3) rows."""
+    if is_texels(src):
+        src = src[..., :3]
     if src.dim() == 3:
         h, w, c = src.shape
         return src.reshape(h, w * c)
@@ -346,11 +349,11 @@ def _batch_rows(src: torch.Tensor) -> tuple:
     was a batch. One frame is (H, W·3) rows or an (H, W, 3) frame; a batch
     is (B, H, W·3) rows or (B, H, W, 3) frames. A 3-D tensor whose last
     axis is 3 is a frame: as rows it would be one pixel wide, which no warp
-    takes."""
+    takes; so are (H, W, 4) u8 texels, whose rows no third divides."""
     if src.dim() == 2:
         return src[None], False
     if src.dim() == 3:
-        if src.shape[2] == 3:
+        if src.shape[2] == 3 or is_texels(src):
             return _as_rows(src)[None], False
         return src, True
     if src.dim() == 4 and src.shape[3] == 3:
@@ -408,8 +411,8 @@ def warp_equirect_to_views_cuda(src_rows, yaws, pitches, rolls, *,
     batch, in one kernel launch.
 
     Mirrors :func:`gs360x.kernels.warp_pallas.warp_equirect_to_views_pallas`:
-    ``src_rows`` is (H, W·3) (or (H, W, 3)) u8/u16/f32, angles are host
-    values in degrees; returns (V, 3, height, width) when ``planar`` else
+    ``src_rows`` is (H, W·3) (or (H, W, 3)) u8/u16/f32 or (H, W, 4) u8
+    RGBX texels (:func:`is_texels`), angles are host values in degrees; returns (V, 3, height, width) when ``planar`` else
     (V, height, width, 3). A batch, (B, H, W·3) rows or (B, H, W, 3)
     frames (the frame axis of
     :func:`gs360x.runtime.mesh.warp_frames_sharded_pallas`), returns
@@ -423,8 +426,9 @@ def warp_equirect_to_views_cuda(src_rows, yaws, pitches, rolls, *,
 
     CUDA tensors: one ``planarize.cu`` launch over all the rows (texels for
     u8 frames, scaled f32 planes (3, B·H, W) otherwise) then one
-    ``warp_equirect.cu`` launch for every frame and view. CPU tensors: the
-    plain version of each frame, stacked, quantized by
+    ``warp_equirect.cu`` launch for every frame and view; texels go to
+    :func:`warp_texels` as they are, with no ``planarize.cu`` launch. CPU
+    tensors: the plain version of each frame, stacked, quantized by
     :func:`quantize_plain`.
     """
     interp = _check_view_args(projection, interp)
@@ -432,6 +436,12 @@ def warp_equirect_to_views_cuda(src_rows, yaws, pitches, rolls, *,
     yaws = [float(y) for y in np.asarray(yaws, np.float64).reshape(-1)]
     pitches = [float(p) for p in np.asarray(pitches, np.float64).reshape(-1)]
     rolls = [float(r) for r in np.asarray(rolls, np.float64).reshape(-1)]
+    kw = dict(width=width, height=height, hfov_deg=hfov_deg,
+              vfov_deg=vfov_deg, projection=projection, interp=interp,
+              out_dtype=out_dtype)
+    if is_texels(src_rows) and src_rows.device.type != "cpu":
+        out = warp_texels(src_rows, yaws, pitches, rolls, **kw)
+        return out if planar else out.permute(0, 2, 3, 1)
     rows, batched = _batch_rows(src_rows)
     if rows.shape[2] % 3:
         raise ValueError(f"expected (H, W*3) rows or an (H, W, 3) frame, "
@@ -447,9 +457,6 @@ def warp_equirect_to_views_cuda(src_rows, yaws, pitches, rolls, *,
     _require_cuda(rows, "warp_equirect_to_views_cuda")
     if rows.dtype not in _KIND:
         raise ValueError(f"unsupported source dtype {rows.dtype}")
-    kw = dict(width=width, height=height, hfov_deg=hfov_deg,
-              vfov_deg=vfov_deg, projection=projection, interp=interp,
-              out_dtype=out_dtype)
     all_rows = rows.reshape(n_frames * h, w3)
     if rows.dtype == torch.uint8:
         # texels of raw bytes: the kernel applies 1/255 once; (B·H, W, 4)

@@ -171,13 +171,15 @@ def _quantize_device(arr: torch.Tensor, bit_depth: int) -> torch.Tensor:
 
 def upload_rows(frame: np.ndarray, device: torch.device) -> torch.Tensor:
     """A decoded (H, W, 3) host frame on ``device`` as (H, W·3) rows in its
-    own dtype: one host→device copy of the frame's bytes."""
+    own dtype, a texel decode (:func:`imagelib.is_texel_decode`) as its
+    (H, W, 4) RGBX texels: one host→device copy of the frame's bytes."""
     h, w = frame.shape[:2]
+    if not imagelib.is_texel_decode(frame):
+        frame = np.ascontiguousarray(frame).reshape(h, w * 3)
     with warnings.catch_warnings():
         # decoders hand out read-only arrays; nothing here writes to them
         warnings.filterwarnings("ignore", message=".*not writable.*")
-        return torch.from_numpy(
-            np.ascontiguousarray(frame).reshape(h, w * 3)).to(device)
+        return torch.from_numpy(frame).to(device)
 
 
 def _view_groups(views) -> Dict[tuple, List[int]]:
@@ -205,9 +207,11 @@ def _warp_frame_views(frame: np.ndarray, views, *, interp: str,
     the group's batched planar (V, 3, h, w) device result shared across
     its views (fetched once by :class:`_ViewFetcher`; the channel
     interleave happens in the encode threads). The frame goes to the
-    device once, as (H, W·3) rows in its own dtype. The kernel's own
-    store quantizes (the plain twin's views, ``--backend xla``, go through
-    :func:`_quantize_device`). Video mode takes :func:`_warp_frames_batch`.
+    device once (:func:`upload_rows`), as (H, W·3) rows in its own dtype
+    or, decoded with ``read_image(..., texels=True)``, as the RGBX texels
+    the kernel reads. The kernel's own store quantizes (the plain twin's
+    views, ``--backend xla``, go through :func:`_quantize_device`). Video
+    mode takes :func:`_warp_frames_batch`.
     """
     results: List = [None] * len(views)
     rows = upload_rows(frame, device)
@@ -286,7 +290,9 @@ def run_plan(plan: RenderPlan, *,
     report.seconds = time.time() - t0
     report.stage_seconds = dict(timers.totals)
     if stats and not quiet:
-        print(f"[STATS] {timers.report()} | wall {report.seconds:.2f}s")
+        texels = imagelib.texel_decode_counts()
+        print(f"[STATS] {timers.report()} | wall {report.seconds:.2f}s | "
+              f"texel decodes {texels['served']} of {texels['requested']}")
     return report
 
 
@@ -315,7 +321,7 @@ def _run_images(plan, writer, report, stop_event, tick, backend, device,
         for source, jobs in items:
             try:
                 with timers.stage("decode"):
-                    img = imagelib.read_image(source)
+                    img = imagelib.read_image(source, texels=True)
             except Exception as exc:
                 yield source, jobs, None, exc
                 continue

@@ -57,7 +57,7 @@ from gs360x_torch.io.formats import colmap_text
 from gs360x_torch.io.formats import metashape as msxml
 from gs360x_torch.io.formats.model import ColmapModel, Image, Point3
 from gs360x_torch.io.image import (AsyncImageWriter, from_float01, read_image,
-                                   to_float01)
+                                   texel_decode_counts, to_float01)
 from gs360x_torch.kernels import _build, remap_cuda, warp_cuda
 from gs360x_torch.rig.presets import parse_sensor_dimensions
 from gs360x_torch.runtime.executor import _quantize_device, upload_rows
@@ -471,7 +471,8 @@ def prepare_input_planes(img: np.ndarray, input_lut, lut_output_color_space:
     which returns the same values as (H, W, 3) floats on the host.
 
     Without a LUT: :func:`remap_cuda.remap_source` (a u8 image becomes RGBX
-    texels of its bytes; a u16 one f32 planes).
+    texels of its bytes, an RGBX decode goes as it is; a u16 one f32
+    planes).
     With one: (3, H, W) f32 planes scaled to [0, 1] by ``planarize.cu``,
     the trilinear LUT (``table``: :func:`colorlib.lut_table` on
     ``device``), then Rec.709 → sRGB when ``lut_output_color_space`` is
@@ -846,11 +847,15 @@ def _main(argv=None) -> int:
     else:
         high = 1.01  # throttling disabled
 
+    # Pillow's own RGBX goes to the card as texels, unless the host reads
+    # the lens image or the LUT path takes it
+    want_texels = input_lut is None and not args.save_color_corrected_output
+
     def decode_pair(item):
         base, xp, yp, sid_x, sid_y = item
         with limiter, timers.stage("decode"):
-            img_x = read_image(xp)
-            img_y = read_image(yp)
+            img_x = read_image(xp, texels=want_texels)
+            img_y = read_image(yp, texels=want_texels)
             mask_x = mask_y = None
             if mask_dir is not None:
                 mx_p = mask_dir / xp.name
@@ -972,7 +977,9 @@ def _main(argv=None) -> int:
         pathlib.Path(args.report_json).write_text(json.dumps(report,
                                                              indent=2))
     if args.stats:
-        print(f"[STATS] {timers.report()}")
+        texels = texel_decode_counts()
+        print(f"[STATS] {timers.report()} | texel decodes "
+              f"{texels['served']} of {texels['requested']}")
     print(f"[OK] processed={report['processed']} failed={report['failed']}")
     return 0 if report["failed"] == 0 else 2
 

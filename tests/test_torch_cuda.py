@@ -852,6 +852,68 @@ def test_maybe_trace_holds_the_warp_launch(dev, tmp_path, monkeypatch):
     assert 0 < got["busy_us"] <= got["window_us"]
 
 
+def test_pillow_rgbx_decode_is_the_texel_route_bitwise(dev, tmp_path):
+    """An 8K frame and a 3840² lens decoded as Pillow's RGBX block (X =
+    255, ``read_image(..., texels=True)``) and uploaded as they are:
+    perspcut's ``default`` views (``executor._warp_frame_views``, u8
+    store) and the 10 SFM10 remaps bitwise those of the packed (H, W, 3)
+    decode through ``texelize_rows`` (X = 0), with one texel pass fewer."""
+    import pathlib
+    from PIL import Image
+    from gs360x_torch import templates
+    from gs360x_torch.io import image as imagelib
+    from gs360x_torch.rig.presets import PerspCutConfig, build_view_plan
+    from gs360x_torch.runtime import executor
+    from gs360x_torch.tools import dualfisheye as df
+
+    rng = np.random.default_rng(19)
+    frame = rng.integers(0, 256, (3840, 7680, 3), dtype=np.uint8)
+    Image.fromarray(frame).save(tmp_path / "f.jpg", quality=95,
+                                subsampling=0)
+    rgbx = imagelib.read_image(tmp_path / "f.jpg", texels=True)
+    rgb = imagelib.read_image(tmp_path / "f.jpg")
+    assert rgbx.shape == (3840, 7680, 4) and (rgbx[..., 3] == 255).all()
+    views = build_view_plan(PerspCutConfig(preset="default"),
+                            [pathlib.Path("f.jpg")],
+                            pathlib.Path(".")).unique_views()
+    runs = []
+    for src in (rgbx, rgb):
+        before = dict(warp_cuda.LAUNCHES)
+        outs = executor._warp_frame_views(
+            src, views, interp="bicubic", backend="auto", device=dev,
+            quantize_bits=8)
+        runs.append([out[j].cpu() for out, j in outs])
+        runs[-1].append({k: warp_cuda.LAUNCHES[k] - before[k]
+                         for k in before})
+    assert runs[0][-1] == {"planarize": 0, "warp": 1}
+    assert runs[1][-1] == {"planarize": 1, "warp": 1}
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][:-1],
+                                                 runs[1][:-1]))
+
+    lens = rng.integers(0, 256, (3840, 3840, 3), dtype=np.uint8)
+    Image.fromarray(lens).save(tmp_path / "l.jpg", quality=95,
+                               subsampling=0)
+    rgbx = imagelib.read_image(tmp_path / "l.jpg", texels=True)
+    rgb = imagelib.read_image(tmp_path / "l.jpg")
+    assert rgbx.shape == (3840, 3840, 4)
+    calib_path = templates.write_osmo360_default_calibration(
+        tmp_path / "calib.xml")
+    calib = next(iter(df.load_metashape_calibration(calib_path)[0]
+                      .values()))
+    maps = []
+    for spec in df.build_sfm10_specs(256, 14.0, "36 36", 40.0, 40.0):
+        mx, my, valid = df.build_direct_perspective_map(
+            calib, spec["yaw_deg"], spec["pitch_deg"], spec["hfov_deg"],
+            spec["vfov_deg"], 256, 256, 190.0)
+        maps.append((mx, my, valid))
+    batch = remap_cuda.PreparedRemapBatch(maps, src_w=3840, src_h=3840,
+                                          interp="catmull-rom", device=dev)
+    got = [batch(remap_cuda.remap_source(src, 3840, 3840, dev),
+                 out_dtype=torch.uint8).cpu() for src in (rgbx, rgb)]
+    assert got[0].shape == (10, 3, 256, 256)
+    assert torch.equal(got[0], got[1])
+
+
 @pytest.fixture(scope="module")
 def cloud_200k():
     """200,000 points: noisy planes and a sphere with 3% outliers."""

@@ -23,6 +23,7 @@ from gs360x.io import image as im
 from gs360x.core import color as jcolor
 from gs360x.tools import dualfisheye as jdf
 from gs360x_torch.core import color as tcolor
+from gs360x_torch.io import image as tim
 from gs360x_torch.kernels import remap_cuda, warp_cuda
 from gs360x_torch.tools import dualfisheye as tdf
 from test_dualfisheye import CALIB_XML, make_calib, synth_fisheye
@@ -162,13 +163,15 @@ def test_cli_matches_jax(calib_xml, tmp_path):
                               str(tmp_path / "jax.json")]) == 0
     remap_cuda.reset_counters()
     warp_cuda.reset_counters()
+    served = tim.texel_decode_counts()["served"]
     assert tdf.main(common + ["--output-dir", str(got_out), "--report-json",
                               str(tmp_path / "torch.json"),
                               "--device", "cpu"]) == 0
     # one remap per lens undistort, per lens view group, per mask group;
-    # one planarize per lens image
+    # each lens image decodes to Pillow's RGBX texels, so no planarize
     assert remap_cuda.PLAIN_CALLS["remap"] == 6
-    assert warp_cuda.PLAIN_CALLS["planarize"] == 2
+    assert warp_cuda.PLAIN_CALLS["planarize"] == 0
+    assert tim.texel_decode_counts()["served"] == served + 2
     assert remap_cuda.LAUNCHES["remap"] == 0
     assert json.loads((tmp_path / "torch.json").read_text()) == \
         json.loads((tmp_path / "jax.json").read_text())
@@ -408,6 +411,46 @@ def test_lut_cli_matches_jax(calib_xml, tmp_path, cube, flags):
     files = _assert_outputs_match(ref_out, got_out)
     n_color = 2 if "--save-color-corrected-output" in flags else 0
     assert len(files) == 2 + 10 + 10 + n_color
+
+
+@pytest.mark.parametrize("lut", [False, True])
+def test_cli_writes_what_the_packed_decode_writes(calib_xml, tmp_path,
+                                                  monkeypatch, cube, lut):
+    """JPEG lens pairs with masks and the undistorted fisheyes: the files
+    of the texel decode byte-equal to those with the packed decode forced;
+    with ``--dlogm-lut`` no texels are asked for."""
+    sensors, _ = jdf.load_metashape_calibration(calib_xml)
+    in_dir, mask_dir = _pair_dir(tmp_path, calib_xml, masks=True)
+    for lens, sid in (("X", "0"), ("Y", "1")):
+        (in_dir / f"frame_0001_{lens}.png").unlink()
+        tim.write_image(in_dir / f"frame_0001_{lens}.jpg",
+                        synth_fisheye(sensors[sid]), jpeg_quality=95)
+        mask = mask_dir / f"frame_0001_{lens}.png"
+        tim.write_image(mask.with_suffix(".jpg"), tim.read_image(mask))
+    flags = (["--input-color-profile", "osmo360-dlogm", "--dlogm-lut",
+              str(cube)] if lut else [])
+    common = ["--input-dir", str(in_dir), "--camera-xml", str(calib_xml),
+              "--perspective-size", "64", "--save-fisheye-output",
+              "--perspective-ext", ".png", "--mask-input-dir", str(mask_dir),
+              "--device", "cpu"] + flags
+    inner = tdf.read_image
+    outs = {}
+    for route in ("texels", "packed"):
+        if route == "packed":
+            monkeypatch.setattr(tdf, "read_image",
+                                lambda path, texels=False: inner(path))
+        before = tim.texel_decode_counts()
+        assert tdf.main(common + ["--output-dir",
+                                  str(tmp_path / route)]) == 0
+        after = tim.texel_decode_counts()
+        asked = after["requested"] - before["requested"]
+        served = after["served"] - before["served"]
+        assert (asked, served) == ((2, 2) if route == "texels" and not lut
+                                   else (0, 0))
+        outs[route] = {p.relative_to(tmp_path / route): p.read_bytes()
+                       for p in (tmp_path / route).rglob("*.*")}
+    assert len(outs["texels"]) == 2 + 10 + 10
+    assert outs["texels"] == outs["packed"]
 
 
 def test_lut_errors_match_jax(calib_xml, tmp_path, capsys):

@@ -228,9 +228,9 @@ def test_run_plan_stops_while_the_loop_waits(pano_dir, tmp_path,
                                              monkeypatch):
     inner = tim.read_image
 
-    def slow_read(path):
+    def slow_read(path, **kw):
         time.sleep(0.4)
-        return inner(path)
+        return inner(path, **kw)
     monkeypatch.setattr(tim, "read_image", slow_read)
     names = [pano_dir / f"pano_{k % 3:04d}.png" for k in range(20)]
     links = tmp_path / "frames"
