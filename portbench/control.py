@@ -4,13 +4,14 @@ place, must come out as not correct.
 
     python3 portbench/control.py --workload <cell> --seeds 1,2,3 [--cpu]
 
-For each seed it makes the cell's distinct inputs as a run does, computes
-every (distinct input, view) the cell's outputs can be, once in float64
-(the reference) and once in bfloat16 (the control), sends the control's
-views through the encoder settings the tool writes with, and prints the
-numbers the check compares, one JSON line a seed, beside the cell's
-limits. The benchmark's own runs never run this. It runs the program not
-at all, so it needs no card; on a card it runs where the check runs.
+For each seed it makes the cell's distinct inputs as a run does (the
+driver's ``inputs``), computes every (distinct input, view) the cell's
+outputs can be, once in float64 (the reference) and once in bfloat16 (the
+control), sends the control's views through the encoder settings the tool
+writes with, and prints the numbers the check compares, one JSON line a
+seed, beside the cell's limits. The benchmark's own runs never run this.
+It runs the program not at all, so it needs no card; on a card it runs
+where the check runs.
 """
 
 import argparse
@@ -27,7 +28,6 @@ sys.path.insert(0, str(ROOT))
 def readings(spec, name: str, seed: int, device, work_root) -> dict:
     """The control's numbers of one seed."""
     import torch
-    from portbench import scenes
     from portbench.reference import compare
 
     cfg, traffic = spec.config(name), spec.workload(name)
@@ -37,14 +37,7 @@ def readings(spec, name: str, seed: int, device, work_root) -> dict:
     work.mkdir(parents=True)
     try:
         n = int(traffic["distinct"])
-        if cfg["entry"] == "perspcut":
-            shape = (cfg["frame"]["height"], cfg["frame"]["width"])
-        else:
-            shape = (cfg["calibration"]["width"],)
-            if traffic.get("lut"):
-                scenes.write_cube(driver.lut_path(work), scenes.cube_table(
-                    seed, int(traffic["lut"]["size"])))
-        distinct = scenes.make_inputs(seed, shape, traffic, work / "inputs")
+        distinct = driver.inputs(cfg, traffic, seed, work)
         keys = [(d, v) for d in range(n) for v in cfg["views"]["layout"]]
         t = time.perf_counter()
         ref = driver.reference(cfg, distinct, keys, torch.float64, device,

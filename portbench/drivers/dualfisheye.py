@@ -48,10 +48,24 @@ def write_calibration(calib: dict, path: pathlib.Path) -> pathlib.Path:
 
 
 STATS = re.compile(r"([\w+]+) ([0-9.]+)s/(\d+)")
+# the remap launch's return value is the views as the cell produces them
+PRODUCES = ("gs360x_torch.kernels.remap_cuda", "remap_planes")
 
 
 def lut_path(work_dir: pathlib.Path) -> pathlib.Path:
     return work_dir / "lut.cube"
+
+
+def inputs(cfg: dict, traffic: dict, seed: int,
+           work_dir: pathlib.Path) -> list:
+    """The traffic's distinct lens pairs, as JPEG files under
+    ``work_dir / "inputs"`` (X and Y of each pair in turn), and, where the
+    traffic names a LUT, its seeded ``.cube`` at ``lut_path(work_dir)``."""
+    if traffic.get("lut"):
+        scenes.write_cube(lut_path(work_dir), scenes.cube_table(
+            seed, int(traffic["lut"]["size"])))
+    return scenes.make_inputs(seed, (cfg["calibration"]["width"],), traffic,
+                              work_dir / "inputs")
 
 
 def reference(cfg: dict, distinct, keys, dtype: torch.dtype,
@@ -88,8 +102,7 @@ def run(cell: harness.Cell, bench: harness.Bench) -> harness.Outcome:
     calib = cfg["calibration"]
     layout = cfg["views"]["layout"]
     t = time.perf_counter()
-    distinct = scenes.make_inputs(cell.seed, (calib["width"],), traffic,
-                                  wd / "inputs")
+    distinct = inputs(cfg, traffic, cell.seed, wd)
     bench.notes["inputs_s"] = round(time.perf_counter() - t, 6)
     bench.notes["input_bytes"] = [p.stat().st_size for p in distinct]
     n_warm = int(traffic["warmup_pairs"])
@@ -105,8 +118,6 @@ def run(cell: harness.Cell, bench: harness.Bench) -> harness.Outcome:
     lut = None
     if traffic.get("lut"):
         lut = lut_path(wd)
-        scenes.write_cube(lut, scenes.cube_table(cell.seed,
-                                                 int(traffic["lut"]["size"])))
         argv += ["--input-lut", str(lut)]
     if cfg["program_calibration"] == "xml":
         argv += ["--camera-xml",
@@ -130,17 +141,7 @@ def run(cell: harness.Cell, bench: harness.Bench) -> harness.Outcome:
         inner_write(*args, **kwargs)
         written.append(time.perf_counter())
     bench.patch(imagelib, "write_image", counted_write)
-    inner_maps = dualfisheye.build_perspective_spec_maps
-
-    def timed_maps(*args, **kwargs):
-        t = time.perf_counter()
-        try:
-            return inner_maps(*args, **kwargs)
-        finally:
-            bench.notes["map_build_s"] = round(
-                bench.notes.get("map_build_s", 0.0)
-                + time.perf_counter() - t, 6)
-    bench.patch(dualfisheye, "build_perspective_spec_maps", timed_maps)
+    # host spans, by which the breakdown's idle gaps are named
     bench.wrap(dualfisheye, "read_image", "decode")
     bench.wrap(dualfisheye, "prepare_input_planes", "upload")
     bench.wrap(dualfisheye._LensViews, "render", "remap+fetch")

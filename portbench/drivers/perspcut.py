@@ -9,10 +9,9 @@ call: it starts at the call and ends when the call returns, by which time
 the writer pool has drained. The plan lists ``frames_per_s_sizing ×
 --seconds`` frames, so the window lasts about ``--seconds`` at the rate
 the traffic file was sized at; a faster program finishes the same frames
-sooner. (``run_plan``'s ``stop_event`` cannot end the window: set while
-the loop waits on the prefetch thread's decode, it leaves ``run_plan``
-waiting for ever.) ``views_per_s`` is ``ExecutionReport.ok`` over the
-window.
+sooner. The fixed plan, not ``run_plan``'s ``stop_event``, ends the
+window, so that every run does the same work. ``views_per_s`` is
+``ExecutionReport.ok`` over the window.
 """
 
 from __future__ import annotations
@@ -26,6 +25,9 @@ import torch
 
 from portbench import harness, scenes, work
 from portbench.reference import compare, equirect
+
+# the warp launch's return value is the views as the cell produces them
+PRODUCES = ("gs360x_torch.kernels.warp_cuda", "warp_equirect_to_views_cuda")
 
 
 def _workers(jobs: str) -> int:
@@ -52,6 +54,15 @@ def reference(cfg: dict, distinct, keys, dtype: torch.dtype,
     return refs
 
 
+def inputs(cfg: dict, traffic: dict, seed: int,
+           work_dir: pathlib.Path) -> list:
+    """The traffic's distinct 8K frames, as JPEG files under
+    ``work_dir / "inputs"``."""
+    frame = cfg["frame"]
+    return scenes.make_inputs(seed, (frame["height"], frame["width"]),
+                              traffic, work_dir / "inputs")
+
+
 def run(cell: harness.Cell, bench: harness.Bench) -> harness.Outcome:
     from gs360x_torch.io import image as imagelib
     from gs360x_torch.kernels import _build
@@ -60,10 +71,8 @@ def run(cell: harness.Cell, bench: harness.Bench) -> harness.Outcome:
     from gs360x_torch.tools import perspcut
 
     cfg, traffic, wd = cell.config, cell.traffic, cell.work
-    frame = cfg["frame"]
     t = time.perf_counter()
-    distinct = scenes.make_inputs(cell.seed, (frame["height"], frame["width"]),
-                                  traffic, wd / "inputs")
+    distinct = inputs(cfg, traffic, cell.seed, wd)
     bench.notes["inputs_s"] = round(time.perf_counter() - t, 6)
     bench.notes["input_bytes"] = [p.stat().st_size for p in distinct]
     n_warm = int(traffic["warmup_frames"])
@@ -95,6 +104,8 @@ def run(cell: harness.Cell, bench: harness.Bench) -> harness.Outcome:
     if cell.traced:
         bench.notes["warp_bound"] = work.warp_launch(cfg, cell.device)
 
+    # host spans: the readers count frames by ``decode`` and ``dispatch``,
+    # and the breakdown's idle gaps are named by all four
     bench.wrap(imagelib, "read_image", "decode")
     bench.wrap(executor, "_warp_frame_views", "dispatch")
     bench.wrap(executor._ViewFetcher, "__call__", "fetch")

@@ -9,12 +9,26 @@ names in ``BENCHMARK.json``:
 - ``configs/<config>.json``: the deployment (shapes, the tool's flags, the
   tables the reference works from) and ``entry``, the tool it drives;
 - ``drivers/<entry>.py``: the code that drives that tool's entry point;
-- ``metrics/<metric>.py``: one per-layer metric's reader.
+- ``metrics/<metric>.py``: one per-layer metric's reader;
+- ``tests/tiny/<config>.py``: the configuration and its traffic at the
+  size the CPU tests run.
 
-A driver's ``run(cell, bench)`` makes the inputs, warms up, calls
-``bench.window_start()`` and ``bench.window_end()`` around the timed call,
-and returns an :class:`Outcome`. A reader's ``read(readings)`` returns the
-metric's value, or None where it finds nothing to read.
+A driver has four names. ``inputs(config, traffic, seed, work)`` writes a
+run's distinct inputs (and whatever else the traffic asks to be made, such
+as a LUT) under ``work`` and returns their paths; a run and the control
+both make them through it. ``run(cell, bench)`` makes the inputs, warms
+up, calls ``bench.window_start()`` and ``bench.window_end()`` around the
+timed call, and returns an :class:`Outcome`. ``reference(config, distinct,
+keys, dtype, device, traffic, work)`` is the plain reference's view of each
+key. ``PRODUCES`` is (module, function) of the program's function whose
+return value is the answer as the cell produces it, where the CPU tests
+plant a fault. A reader's ``read(readings)`` returns the metric's value,
+or None where it finds nothing to read.
+
+An end-to-end metric whose ``source`` is ``device_trace`` has a reader
+too, ``metrics/<metric>.py``: a cell that reports one has its window
+profiled in every run, traced or not, and the reader takes the metric
+from that trace.
 """
 
 from __future__ import annotations
@@ -49,8 +63,8 @@ def load_json(path: pathlib.Path) -> dict:
 
 
 def load_module(path: pathlib.Path):
-    """A driver or reader, by file (names may hold dots)."""
-    name = "portbench_" + re.sub(r"\W", "_", str(path.relative_to(HERE)))
+    """A driver, reader or tiny file, by file (names may hold dots)."""
+    name = "portbench_" + re.sub(r"\W", "_", "/".join(path.parts[-2:]))
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -86,7 +100,9 @@ class Outcome:
 
 
 class Spec:
-    """``BENCHMARK.json`` and the files its names lead to."""
+    """``BENCHMARK.json`` and the files its names lead to, under
+    ``data_dir``: the checkout's ``portbench/``, or a tree the CPU tests
+    make of the same files."""
 
     def __init__(self, data: dict, data_dir: pathlib.Path = HERE):
         self.data, self.data_dir = data, data_dir
@@ -104,7 +120,8 @@ class Spec:
                          / f"{self.cells[cell]['config']}.json")
 
     def driver(self, config: dict):
-        return load_module(HERE / "drivers" / f"{config['entry']}.py")
+        return load_module(self.data_dir / "drivers"
+                           / f"{config['entry']}.py")
 
     def end_to_end(self, cell: str) -> List[dict]:
         return [m for m in self.data["end_to_end"]
@@ -117,7 +134,7 @@ class Spec:
                     else m["moves"] in moved)]
 
     def reader(self, metric: str):
-        return load_module(HERE / "metrics" / f"{metric}.py")
+        return load_module(self.data_dir / "metrics" / f"{metric}.py")
 
 
 class LineWatch(io.TextIOBase):
@@ -147,14 +164,16 @@ class Bench:
 
     Host spans are (kind, start, end) on ``time.perf_counter``, recorded by
     wrappers the driver installs with :meth:`wrap` (traced runs only) while
-    the window is open. A traced run's window is also one
-    ``torch.profiler`` session, opened when the window starts, around a
-    ``portbench.window`` annotation whose start is ``anchor`` on the host
-    clock."""
+    the window is open. A profiled run's window (every traced run, and
+    every run of a cell with an end-to-end metric from the device trace)
+    is also one ``torch.profiler`` session, opened when the window starts,
+    around a ``portbench.window`` annotation whose start is ``anchor`` on
+    the host clock."""
 
     def __init__(self, device: torch.device, traced: bool,
-                 work: pathlib.Path):
+                 work: pathlib.Path, profiled: Optional[bool] = None):
         self.device, self.traced, self.work = device, traced, work
+        self.profiled = traced if profiled is None else profiled
         self.start: Optional[float] = None
         self.end: Optional[float] = None
         self.spans: List[tuple] = []
@@ -215,7 +234,7 @@ class Bench:
     def window_start(self) -> None:
         if self.start is not None:
             return
-        if self.traced:
+        if self.profiled:
             from torch.profiler import profile, record_function
             self._prof = profile(activities=self._activities())
             self._prof.__enter__()
@@ -231,7 +250,7 @@ class Bench:
         # per-run cost of the same work, which sets the rates' spread
         self.notes["process_cpu_s"] = round(time.process_time() - self._cpu0,
                                             3)
-        if self.traced and self._prof is not None:
+        if self.profiled and self._prof is not None:
             self._ann.__exit__(None, None, None)
             self._prof.__exit__(None, None, None)
             path = self.work / "window.pt.trace.json"
@@ -313,11 +332,14 @@ def run_cell(spec: Spec, name: str, *, seed: int, seconds: float,
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     cell = Cell(name, config, traffic, seed, seconds, traced, work, device)
-    bench = Bench(device, traced, work)
+    end_to_end = spec.end_to_end(name)
+    profiled = traced or any(m["source"] == "device_trace"
+                             for m in end_to_end)
+    bench = Bench(device, traced, work, profiled)
     if device.type == "cuda":
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(device)
-    if traced:
+    if profiled:
         bench.warm_profiler()
     driver = spec.driver(config)
     try:
@@ -352,8 +374,17 @@ def run_cell(spec: Spec, name: str, *, seed: int, seconds: float,
                                                        bench.anchor)}
     else:
         values = dict(outcome.e2e, setup_s=setup_s)
-        for metric in spec.end_to_end(name):
-            metrics[metric["name"]] = {"value": values[metric["name"]],
+        readings = Readings(outcome, bench, {}, bench.trace)
+        for metric in end_to_end:
+            value = values.get(metric["name"])
+            if metric["source"] == "device_trace":
+                value = spec.reader(metric["name"]).read(readings)
+            if value is None:
+                # a trace of the CPU holds no kernel to read
+                if device.type == "cuda":
+                    raise RuntimeError(f"{name}: no {metric['name']} read")
+                continue
+            metrics[metric["name"]] = {"value": value,
                                        "unit": metric["unit"]}
 
     # the reference runs once the peak is read and the program's state is

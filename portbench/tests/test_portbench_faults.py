@@ -12,29 +12,26 @@ import pytest
 import torch
 
 from portbench import harness
+from portbench.tests import cpu
 
 CELLS = [w["name"] for w in harness.Spec.load().data["workloads"]]
-SEED = 2 ** 34 + 21
-
-
-def _run(spec, cell, tmp_path, traced=False):
-    return harness.run_cell(spec, cell, seed=SEED, seconds=1.0,
-                            traced=traced, device=torch.device("cpu"),
-                            t0=time.perf_counter(),
-                            work_root=tmp_path / "work")
+SEED = cpu.SEED
 
 
 @pytest.mark.parametrize("traced", [False, True])
 @pytest.mark.parametrize("cell", CELLS)
 def test_sound_run_is_correct(cell, traced, tiny_spec, tmp_path):
-    out = _run(tiny_spec, cell, tmp_path, traced)
+    out = cpu.run_tiny(tiny_spec, cell, tmp_path / "work", traced)
     assert out["correct"] is True, out["check"]
     assert out["attempted"] > 0 and out["failed"] == 0
     names = {m["name"] for m in (tiny_spec.per_layer(cell) if traced
                                  else tiny_spec.end_to_end(cell))}
     assert set(out["metrics"]) <= names
     if not traced:
-        assert set(out["metrics"]) == names
+        # the CPU's trace has no kernel: a device-trace metric is left out
+        assert set(out["metrics"]) == {
+            m["name"] for m in tiny_spec.end_to_end(cell)
+            if m["source"] != "device_trace"}
         assert all(m["value"] > 0 for m in out["metrics"].values())
     assert list(out)[-1] == "check"
     assert not (tmp_path / "work" / cell).exists()
@@ -42,15 +39,8 @@ def test_sound_run_is_correct(cell, traced, tiny_spec, tmp_path):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_half_the_outputs_left_out(cell, tiny_spec, tmp_path, monkeypatch):
-    from gs360x_torch.io import image as imagelib
-    inner, calls = imagelib.write_image, []
-
-    def every_other(*args, **kwargs):
-        calls.append(1)
-        if len(calls) % 2:
-            inner(*args, **kwargs)
-    monkeypatch.setattr(imagelib, "write_image", every_other)
-    out = _run(tiny_spec, cell, tmp_path)
+    cpu.leave_half_out(monkeypatch)
+    out = cpu.run_tiny(tiny_spec, cell, tmp_path / "work")
     assert out["correct"] is False
     assert out["check"]["missing"][0] > 0
 
@@ -58,15 +48,10 @@ def test_half_the_outputs_left_out(cell, tiny_spec, tmp_path, monkeypatch):
 @pytest.mark.parametrize("cell", CELLS)
 def test_answer_altered_where_produced(cell, tiny_spec, tmp_path,
                                        monkeypatch):
-    """Every view mirrored as the resampling launch produces it."""
-    from gs360x_torch.kernels import remap_cuda, warp_cuda
-    owner, name = ((warp_cuda, "warp_equirect_to_views_cuda")
-                   if cell.startswith("perspcut")
-                   else (remap_cuda, "remap_planes"))
-    inner = getattr(owner, name)
-    monkeypatch.setattr(owner, name,
-                        lambda *a, **k: inner(*a, **k).flip(-1))
-    out = _run(tiny_spec, cell, tmp_path)
+    """Every view mirrored as the function the cell's driver names in
+    ``PRODUCES`` returns it."""
+    cpu.mirror_where_produced(tiny_spec, cell, monkeypatch)
+    out = cpu.run_tiny(tiny_spec, cell, tmp_path / "work")
     assert out["correct"] is False
     assert out["check"]["mae_lsb"][0] > out["check"]["mae_lsb"][1]
 
@@ -74,7 +59,7 @@ def test_answer_altered_where_produced(cell, tiny_spec, tmp_path,
 def test_jax_loaded_refuses_the_run(tiny_spec, tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "jax", object())
     with pytest.raises(RuntimeError, match="JAX"):
-        _run(tiny_spec, CELLS[0], tmp_path)
+        cpu.run_tiny(tiny_spec, CELLS[0], tmp_path / "work")
 
 
 def test_no_card_no_result(capsys, monkeypatch):

@@ -7,6 +7,7 @@ import re
 import pytest
 
 from portbench import harness
+from portbench.tests import cpu
 
 ROOT = harness.ROOT
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -84,23 +85,22 @@ def test_cell_resolves(cell):
     """A cell's traffic, configuration, driver and readers by name; it
     reports setup_s, another end-to-end metric and a per-layer metric,
     and each reader it lists has a ``read``."""
-    spec = harness.Spec.load()
-    entry = spec.cells[cell]
-    assert entry["chips"] == 1
-    assert 1 <= len(entry["why"]) <= 200
-    traffic = spec.workload(cell)
-    assert traffic["traffic"] == entry["traffic"]
-    config = spec.config(cell)
-    assert config["name"] == entry["config"]
-    assert callable(spec.driver(config).run)
-    e2e = {m["name"] for m in spec.end_to_end(cell)}
-    assert "setup_s" in e2e and len(e2e) >= 2
-    layers = spec.per_layer(cell)
-    assert layers
-    for metric in layers:
-        assert callable(spec.reader(metric["name"]).read)
-        assert metric["moves"] in e2e
-    assert set(traffic["limits"]) == {"missing", "mae_lsb", "far_pct"}
+    cpu.check_cell_resolves(harness.Spec.load(), cell)
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
+def test_tiny_file(config):
+    """Every configuration brings its CPU test size."""
+    cpu.check_tiny_file(cpu.TINY, config)
+
+
+@pytest.mark.parametrize("entry", sorted({
+    json.loads((ROOT / c["file"]).read_text())["entry"]
+    for c in SPEC["configs"]}))
+def test_driver(entry):
+    """Every driver a configuration names has ``run``, ``inputs``,
+    ``reference`` and a ``PRODUCES`` that imports and resolves."""
+    cpu.check_driver(harness.Spec.load().driver({"entry": entry}))
 
 
 @pytest.mark.parametrize("config", SPEC["configs"], ids=lambda c: c["name"])
@@ -136,5 +136,9 @@ def test_paths_hold_only_the_benchmark():
 
 
 def test_per_layer_readers_exist():
+    """A reader for every per-layer metric and every end-to-end metric
+    taken from the device trace, and no other."""
     readers = {p.stem for p in (ROOT / "portbench" / "metrics").glob("*.py")}
-    assert readers == {m["name"] for m in SPEC["per_layer"]}
+    assert readers == {m["name"] for m in SPEC["per_layer"]} | {
+        m["name"] for m in SPEC["end_to_end"]
+        if m["source"] == "device_trace"}

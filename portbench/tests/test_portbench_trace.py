@@ -1,11 +1,15 @@
 """The traced window's arithmetic (``read_trace``'s union of device
-intervals, frozen) on a hand-built trace."""
+intervals, frozen) on a hand-built trace, and the profile an end-to-end
+metric from the device trace asks of every run."""
 
+import copy
 import json
+import shutil
 
 import pytest
 
-from portbench import trace
+from portbench import harness, trace
+from portbench.tests import cpu
 
 
 def _events():
@@ -58,3 +62,37 @@ def test_labelled_gaps():
 def test_one_window_annotation():
     with pytest.raises(ValueError):
         trace.Trace(_events()[1:])
+
+
+def test_kernel_ms_per_pair():
+    """Every kernel of the window (the clipped one whole), none of its
+    copies, over the pairs remapped: one remap launch is half a pair."""
+    reader = harness.load_module(harness.HERE / "metrics"
+                                 / "kernel_ms_per_pair.py")
+    r = harness.Readings(None, None, {}, trace.Trace(_events()))
+    assert reader.read(r) == pytest.approx((20 + 10 + 5 + 2) / 0.5 / 1e3)
+    assert reader.read(harness.Readings(None, None, {}, None)) is None
+
+
+def test_device_trace_end_to_end_profiles_every_run(tmp_path):
+    """An end-to-end metric from the device trace is read by its reader
+    from a profile of the window in an untraced run too; the CPU's trace,
+    with no kernel, leaves a kernel metric out."""
+    src = tmp_path / "src"
+    for sub in ("configs", "workloads", "drivers", "metrics"):
+        shutil.copytree(harness.HERE / sub, src / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    (src / "metrics" / "window_probe_us.py").write_text(
+        "def read(r):\n    return r.trace.window_us\n")
+    data = copy.deepcopy(harness.Spec.load().data)
+    cell = next(w["name"] for w in data["workloads"]
+                if w["config"] == "perspcut-8k-default")
+    data["end_to_end"].insert(0, {
+        "name": "window_probe_us", "unit": "us", "better": "lower",
+        "bound": 0.01, "source": "device_trace", "workloads": [cell]})
+    spec = harness.Spec(data, cpu.tiny_spec_dir(data, tmp_path / "spec",
+                                                src))
+    out = cpu.run_tiny(spec, cell, tmp_path / "work")
+    assert out["correct"] is True, out["check"]
+    assert out["metrics"]["window_probe_us"]["value"] > 0
+    assert "busy_s" not in out["device"] and "breakdown" not in out
