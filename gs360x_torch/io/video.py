@@ -24,6 +24,9 @@ import pathlib
 import shutil
 import struct
 import subprocess
+import threading
+import time
+from collections import deque
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import Iterator, List, Optional, Sequence, Tuple
@@ -244,29 +247,57 @@ def write_mjpeg_avi(path, frames: Sequence[np.ndarray], fps: float = 30.0,
         f.write(b"RIFF" + struct.pack("<I", len(riff_payload)) + riff_payload)
 
 
+_OPEN_LOCK = threading.Lock()
+_OPEN_COUNTS = {"opens": 0, "bytes": 0}
+# the newest MJPEG-AVI opens: (start on time.perf_counter, bytes read)
+_OPEN_CALLS: deque = deque(maxlen=65536)
+
+
+def open_counts(start: Optional[float] = None,
+                end: Optional[float] = None) -> dict:
+    """``{"opens", "bytes"}``: the MJPEG-AVI clips this process opened
+    (:class:`MJPEGAVIReader` reads the whole file into memory at each
+    open) and the bytes those opens read; given ``start`` and ``end``
+    (``time.perf_counter``), only the opens of the newest 65536 that
+    started in [start, end)."""
+    with _OPEN_LOCK:
+        if start is None:
+            return dict(_OPEN_COUNTS)
+        held = [n for t, n in _OPEN_CALLS if start <= t < end]
+    return {"opens": len(held), "bytes": sum(held)}
+
+
 class MJPEGAVIReader:
     def __init__(self, path):
         from PIL import Image  # noqa: F401 (decode dependency)
-        self.path = pathlib.Path(path)
-        raw = self.path.read_bytes()
-        if raw[:4] != b"RIFF" or raw[8:12] != b"AVI ":
-            raise ValueError(f"{path}: not an AVI")
-        self._raw = raw
-        self.fps = 30.0
-        self.width = self.height = 0
-        self._offsets: List[Tuple[int, int]] = []
         from gs360x_torch import native
+        from gs360x_torch.runtime.profiling import span
 
-        if native.HAS_NATIVE:
-            try:
-                offs, sizes, info = native.avi_scan(raw)
-                self._offsets = list(zip(offs.tolist(), sizes.tolist()))
-                self.width, self.height = info["width"], info["height"]
-                self.fps = info["fps"] or 30.0
-                return
-            except (ValueError, RuntimeError):
-                self._offsets = []
-        self._scan(raw)
+        self.path = pathlib.Path(path)
+        t0 = time.perf_counter()
+        # the read and the index scan: a ``video_open`` span
+        with span("video_open"):
+            raw = self.path.read_bytes()
+            with _OPEN_LOCK:
+                _OPEN_COUNTS["opens"] += 1
+                _OPEN_COUNTS["bytes"] += len(raw)
+                _OPEN_CALLS.append((t0, len(raw)))
+            if raw[:4] != b"RIFF" or raw[8:12] != b"AVI ":
+                raise ValueError(f"{path}: not an AVI")
+            self._raw = raw
+            self.fps = 30.0
+            self.width = self.height = 0
+            self._offsets: List[Tuple[int, int]] = []
+            if native.HAS_NATIVE:
+                try:
+                    offs, sizes, info = native.avi_scan(raw)
+                    self._offsets = list(zip(offs.tolist(), sizes.tolist()))
+                    self.width, self.height = info["width"], info["height"]
+                    self.fps = info["fps"] or 30.0
+                    return
+                except (ValueError, RuntimeError):
+                    self._offsets = []
+            self._scan(raw)
 
     def _scan(self, raw: bytes) -> None:
         pos = 12

@@ -31,6 +31,7 @@ import sys
 import threading
 import time
 import warnings
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -39,7 +40,7 @@ import torch
 
 from gs360x_torch.io import image as imagelib
 from gs360x_torch.io import video as videolib
-from gs360x_torch.runtime.profiling import StageTimers, maybe_trace
+from gs360x_torch.runtime.profiling import StageTimers, maybe_trace, span
 from gs360x_torch.kernels import warp_cuda
 from gs360x_torch.rig.spec import RenderPlan
 from gs360x_torch.runtime import mesh as meshlib
@@ -50,6 +51,22 @@ PROGRESS_INTERVAL = 5
 # 200-frame 8K clip its wall matched 1 frame a launch within the spread of
 # runs in turns (video_batch_ab.py; PERF.md, the batched video path)
 CARD_FRAMES_PER_LAUNCH = 4
+
+_WARPED_LOCK = threading.Lock()
+_WARPED_TOTAL = [0]
+# video mode's newest batches: (start on time.perf_counter, frames warped)
+_WARPED_BATCHES: deque = deque(maxlen=65536)
+
+
+def video_frames_warped(start: Optional[float] = None,
+                        end: Optional[float] = None) -> int:
+    """The frames video mode's batches warped in this process (the mesh's
+    pad not counted); given ``start`` and ``end`` (``time.perf_counter``),
+    only those of the newest 65536 batches that started in [start, end)."""
+    with _WARPED_LOCK:
+        if start is None:
+            return _WARPED_TOTAL[0]
+        return sum(n for t, n in _WARPED_BATCHES if start <= t < end)
 
 
 @dataclass
@@ -291,8 +308,14 @@ def run_plan(plan: RenderPlan, *,
     report.stage_seconds = dict(timers.totals)
     if stats and not quiet:
         texels = imagelib.texel_decode_counts()
+        opens = ""
+        if plan.video_mode:
+            counts = videolib.open_counts()
+            opens = (f" | video opens {counts['opens']}, "
+                     f"{counts['bytes']} bytes")
         print(f"[STATS] {timers.report()} | wall {report.seconds:.2f}s | "
-              f"texel decodes {texels['served']} of {texels['requested']}")
+              f"texel decodes {texels['served']} of {texels['requested']}"
+              + opens)
     return report
 
 
@@ -377,11 +400,18 @@ def _warp_frames_batch(frames, views, *, interp, keep_rec709,
     device. Returns, for each frame, ``[(block, (frame in block, view in
     group), planar), ...]`` in view order: each (group, device) block is
     shared by its frames and views, so :class:`_ViewFetcher` copies it to
-    the host once, and the mesh's pad is sliced off before any copy."""
+    the host once, and the mesh's pad is sliced off before any copy. The
+    stack and the pad are a ``batch_stack`` span, the copies to the
+    devices a ``batch_upload`` span, and the frames count in
+    :func:`video_frames_warped`."""
+    t0 = time.perf_counter()
     results: List[List] = [[None] * len(views) for _ in frames]
-    # one frame goes up as it is: np.stack would copy it first
-    stacked = np.stack(frames) if len(frames) > 1 else frames[0][None]
-    batch = meshlib.shard_frames(mesh, meshlib.pad_to_mesh(mesh, stacked))
+    with span("batch_stack"):
+        # one frame goes up as it is: np.stack would copy it first
+        stacked = np.stack(frames) if len(frames) > 1 else frames[0][None]
+        padded = meshlib.pad_to_mesh(mesh, stacked)
+    with span("batch_upload"):
+        batch = meshlib.shard_frames(mesh, padded)
     warp = (meshlib.warp_frames_sharded if backend == "xla"
             else meshlib.warp_frames_sharded_cuda)
     for (projection, vw, vh, hfov, vfov), idxs in _view_groups(views).items():
@@ -395,6 +425,9 @@ def _warp_frames_batch(frames, views, *, interp, keep_rec709,
                 for j, i in enumerate(idxs):
                     results[f][i] = (block, (local, j), backend != "xla")
                 f += 1
+    with _WARPED_LOCK:
+        _WARPED_TOTAL[0] += len(frames)
+        _WARPED_BATCHES.append((t0, len(frames)))
     return results
 
 

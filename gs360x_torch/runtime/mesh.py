@@ -31,6 +31,7 @@ from gs360x_torch.core import color as colorlib
 from gs360x_torch.kernels import sharpness as sharp
 from gs360x_torch.kernels import warp as twin
 from gs360x_torch.kernels import warp_cuda
+from gs360x_torch.runtime.profiling import span
 
 DATA_AXIS = "data"
 
@@ -175,7 +176,8 @@ def warp_frames_sharded_cuda(mesh: Mesh, frames_rows, yaws, pitches, rolls,
     does not divide over the mesh is padded with copies of its last frame,
     and the pad is dropped from the result. With ``keep_rec709`` None the
     kernel's store quantizes to ``quantize_bits``; otherwise the f32 views
-    go through ``video_color_move_planar`` and the plain quantize.
+    go through ``video_color_move_planar`` and the plain quantize, inside
+    a ``color_quantize`` span (:func:`profiling.span`).
     ``nearest`` runs bilinear. Returns the planar (b, V, 3, height, width)
     block of each device, on it, in batch order."""
     if isinstance(frames_rows, list):   # already sharded: no pad
@@ -195,10 +197,15 @@ def warp_frames_sharded_cuda(mesh: Mesh, frames_rows, yaws, pitches, rolls,
             block, yaws, pitches, rolls, width=width, height=height,
             hfov_deg=hfov_deg, vfov_deg=vfov_deg, projection=projection,
             interp=interp, planar=True, **store)
-        if keep_rec709 is not None:
-            out = colorlib.video_color_move_planar(out,
-                                                   keep_rec709=keep_rec709)
-        blocks.append(out if fused else _quantize(out, quantize_bits))
+        if not fused:
+            # the colour move and the plain quantize: a ``color_quantize``
+            # span (their launches, not their device time)
+            with span("color_quantize"):
+                if keep_rec709 is not None:
+                    out = colorlib.video_color_move_planar(
+                        out, keep_rec709=keep_rec709)
+                out = _quantize(out, quantize_bits)
+        blocks.append(out)
     return drop_tail(blocks, batch)
 
 

@@ -1,7 +1,8 @@
 """Per-stage timers for the streaming pipelines (the port's copy of
 :class:`StageTimers`): accumulated per-stage wall clock (decode / warp /
 fetch / encode) surfaced on the execution report, and every stage's
-interval in one process-wide ring (:func:`spans`); :func:`maybe_trace`, a
+interval in one process-wide ring (:func:`spans`; :func:`span` puts an
+interval there without timers); :func:`maybe_trace`, a
 ``torch.profiler`` trace of a block when ``GS360X_TRACE_DIR`` is set, with
 the ring's spans of the block on the trace's clock, and
 :func:`read_trace`, its kernels and the device's busy time in it;
@@ -40,6 +41,21 @@ def spans(since: Optional[float] = None) -> List[tuple]:
     if since is None:
         return list(held)
     return [s for s in held if s[3] > since]
+
+
+@contextmanager
+def span(name: str):
+    """One interval of the block in the ring (:func:`spans`), as a
+    :class:`StageTimers` stage records it, for code that keeps no timers
+    (a video reader's open, a batch's stack and upload, the colour
+    move)."""
+    t0 = time.perf_counter()
+    cpu0 = time.thread_time()
+    try:
+        yield
+    finally:
+        _SPANS.append((name, threading.get_native_id(), t0,
+                       time.perf_counter(), time.thread_time() - cpu0))
 
 
 class StageTimers:
