@@ -19,11 +19,13 @@ import ctypes
 import pathlib
 import threading
 import time
-from collections import deque
+from operator import add
 from typing import Optional
 
 import numpy as np
 from PIL import Image
+
+from gs360x_torch.runtime.profiling import WindowCounter
 
 IMAGE_EXTS = {".tif", ".tiff", ".jpg", ".jpeg", ".png"}
 
@@ -63,10 +65,8 @@ def from_float01(img: np.ndarray, bit_depth: int = 8) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 
-_TEXEL_LOCK = threading.Lock()
-_TEXEL_COUNTS = {"requested": 0, "served": 0}
-# the newest texels=True calls: (start on time.perf_counter, served)
-_TEXEL_CALLS: deque = deque(maxlen=65536)
+# the texels=True calls: (start on time.perf_counter, 1, served)
+_TEXELS = WindowCounter(requested=add, served=add)
 
 
 def texel_decode_counts(start: Optional[float] = None,
@@ -75,11 +75,7 @@ def texel_decode_counts(start: Optional[float] = None,
     calls of this process, and those that returned Pillow's own RGBX;
     given ``start`` and ``end`` (``time.perf_counter``), only the calls of
     the newest 65536 that started in [start, end)."""
-    with _TEXEL_LOCK:
-        if start is None:
-            return dict(_TEXEL_COUNTS)
-        held = [served for t, served in _TEXEL_CALLS if start <= t < end]
-    return {"requested": len(held), "served": sum(held)}
+    return _TEXELS.read(start, end)
 
 
 def is_texel_decode(arr) -> bool:
@@ -101,11 +97,7 @@ def read_image(path, texels: bool = False) -> np.ndarray:
     t0 = time.perf_counter()
     arr = _read_image(path, texels)
     if texels:
-        served = arr.shape[-1] == 4
-        with _TEXEL_LOCK:
-            _TEXEL_COUNTS["requested"] += 1
-            _TEXEL_COUNTS["served"] += served
-            _TEXEL_CALLS.append((t0, served))
+        _TEXELS.add(t0, requested=1, served=arr.shape[-1] == 4)
     return arr
 
 

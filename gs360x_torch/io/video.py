@@ -24,14 +24,15 @@ import pathlib
 import shutil
 import struct
 import subprocess
-import threading
 import time
-from collections import deque
 from dataclasses import dataclass
 from fractions import Fraction
+from operator import add
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from gs360x_torch.runtime.profiling import WindowCounter, span
 
 Frame = Tuple[int, float, np.ndarray]
 
@@ -247,10 +248,8 @@ def write_mjpeg_avi(path, frames: Sequence[np.ndarray], fps: float = 30.0,
         f.write(b"RIFF" + struct.pack("<I", len(riff_payload)) + riff_payload)
 
 
-_OPEN_LOCK = threading.Lock()
-_OPEN_COUNTS = {"opens": 0, "bytes": 0}
-# the newest MJPEG-AVI opens: (start on time.perf_counter, bytes read)
-_OPEN_CALLS: deque = deque(maxlen=65536)
+# the MJPEG-AVI opens: (start on time.perf_counter, 1, bytes read)
+_OPENS = WindowCounter(opens=add, bytes=add)
 
 
 def open_counts(start: Optional[float] = None,
@@ -260,28 +259,20 @@ def open_counts(start: Optional[float] = None,
     open) and the bytes those opens read; given ``start`` and ``end``
     (``time.perf_counter``), only the opens of the newest 65536 that
     started in [start, end)."""
-    with _OPEN_LOCK:
-        if start is None:
-            return dict(_OPEN_COUNTS)
-        held = [n for t, n in _OPEN_CALLS if start <= t < end]
-    return {"opens": len(held), "bytes": sum(held)}
+    return _OPENS.read(start, end)
 
 
 class MJPEGAVIReader:
     def __init__(self, path):
         from PIL import Image  # noqa: F401 (decode dependency)
         from gs360x_torch import native
-        from gs360x_torch.runtime.profiling import span
 
         self.path = pathlib.Path(path)
         t0 = time.perf_counter()
         # the read and the index scan: a ``video_open`` span
         with span("video_open"):
             raw = self.path.read_bytes()
-            with _OPEN_LOCK:
-                _OPEN_COUNTS["opens"] += 1
-                _OPEN_COUNTS["bytes"] += len(raw)
-                _OPEN_CALLS.append((t0, len(raw)))
+            _OPENS.add(t0, opens=1, bytes=len(raw))
             if raw[:4] != b"RIFF" or raw[8:12] != b"AVI ":
                 raise ValueError(f"{path}: not an AVI")
             self._raw = raw

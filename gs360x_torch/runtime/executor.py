@@ -1,13 +1,16 @@
 """RenderPlan executor (port of :mod:`gs360x.runtime.executor`).
 
-Image mode decodes each frame once, on a pool of threads that hands the
-frames out in order, uploads it to the device once as (H, W·3) rows,
-warps all views of a view group in one launch, quantizes in
-the warp kernel's own store, fetches once per (group, frame) and streams
-the encodes through the async writer pool. Video mode batches frames over
-a data mesh (:mod:`gs360x_torch.runtime.mesh`): on a CUDA device 4 frames
-a batch over every visible card (at least one a card), on the CPU 1; one
-upload a batch, one warp launch a (group, batch, device) for every frame
+Both modes decode ahead of the loop on the port's one decode-ahead stage
+(:class:`gs360x_torch.runtime.prefetch.Prefetcher`). Image mode decodes
+each frame once, on a pool of threads that hands the frames out in order,
+uploads it to the device once as Pillow's own RGBX texels
+(:func:`upload_rows`), warps all views of a view group in one launch,
+quantizes in the warp kernel's own store, fetches once per (group, frame)
+and streams the encodes through the async writer pool. Video mode, on
+one decode thread, batches frames over a data mesh
+(:mod:`gs360x_torch.runtime.mesh`): on a CUDA device 4 frames a batch
+over every visible card (at least one a card), on the CPU 1; one upload a
+batch, one warp launch a (group, batch, device) for every frame
 × view, the colour move and the quantize on the device, one fetch a
 (group, batch, device). Progress (≥5 %% steps), cooperative stop via an
 Event and the overwrite guard behave as in the JAX executor.
@@ -25,16 +28,14 @@ CUDA device: ``--backend xla`` is the only way to the plain twin there.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import pathlib
-import queue as queuelib
 import sys
 import threading
 import time
 import warnings
-from collections import deque
 from dataclasses import dataclass, field
+from operator import add
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -42,7 +43,9 @@ import torch
 
 from gs360x_torch.io import image as imagelib
 from gs360x_torch.io import video as videolib
-from gs360x_torch.runtime.profiling import StageTimers, maybe_trace, span
+from gs360x_torch.runtime.prefetch import Prefetcher, decode_overlap
+from gs360x_torch.runtime.profiling import (StageTimers, WindowCounter,
+                                            maybe_trace, span)
 from gs360x_torch.kernels import warp_cuda
 from gs360x_torch.rig.spec import RenderPlan
 from gs360x_torch.runtime import mesh as meshlib
@@ -54,16 +57,8 @@ PROGRESS_INTERVAL = 5
 # runs in turns (video_batch_ab.py; PERF.md, the batched video path)
 CARD_FRAMES_PER_LAUNCH = 4
 
-_WARPED_LOCK = threading.Lock()
-_WARPED_TOTAL = [0]
-# video mode's newest batches: (start on time.perf_counter, frames warped)
-_WARPED_BATCHES: deque = deque(maxlen=65536)
-
-_DECODE_LOCK = threading.Lock()
-_DECODE_TOTAL = {"decodes": 0, "overlapped": 0, "width": 0}
-# image mode's newest decodes: (start on time.perf_counter, overlapped,
-# the pool's width)
-_DECODES: deque = deque(maxlen=65536)
+# video mode's batches: (start on time.perf_counter, frames warped)
+_WARPED = WindowCounter(frames=add)
 
 
 def video_frames_warped(start: Optional[float] = None,
@@ -71,10 +66,7 @@ def video_frames_warped(start: Optional[float] = None,
     """The frames video mode's batches warped in this process (the mesh's
     pad not counted); given ``start`` and ``end`` (``time.perf_counter``),
     only those of the newest 65536 batches that started in [start, end)."""
-    with _WARPED_LOCK:
-        if start is None:
-            return _WARPED_TOTAL[0]
-        return sum(n for t, n in _WARPED_BATCHES if start <= t < end)
+    return _WARPED.read(start, end)["frames"]
 
 
 @dataclass
@@ -119,166 +111,12 @@ class ProgressPrinter:
             self.stream.flush()
 
 
-class _Prefetcher:
-    """Background decode: overlaps host decode/IO of the next items with
-    device work on the current one.
-
-    Given an iterator, one thread runs it (its ``next()`` decodes) and
-    queues up to ``depth`` items. Given a sequence of items and a per-item
-    ``decode``, ``width`` threads run ``decode`` on up to ``width`` items
-    at once and hand the results out in submission order; at most
-    ``width + depth`` items are taken and not yet passed by the consumer,
-    the one it holds included, and an exception ``decode`` raises reaches
-    the consumer at its item. Iteration ends once ``stop_event`` is set,
-    also while the consumer waits on a decode; the threads then finish the
-    item they are on and end, as they do once the consumer stops early.
-    With ``timers``, each wait is a ``decode_wait`` stage."""
-
-    _DONE = object()
-    _POLL_S = 0.25
-
-    def __init__(self, items, stop_event, depth: int = 2, timers=None, *,
-                 decode: Optional[Callable] = None, width: int = 1):
-        self._stop = stop_event
-        self._closed = threading.Event()
-        self._timers = timers
-        if decode is None:
-            self._q: "queuelib.Queue" = queuelib.Queue(maxsize=depth)
-            self._slots = None
-            self._thread = threading.Thread(
-                target=self._pump, args=(items,), daemon=True)
-            threads = [self._thread]
-        else:
-            self._items, self._decode, self._width = items, decode, width
-            self._slots = threading.Semaphore(width + depth)
-            self._cond = threading.Condition()
-            self._results: Dict[int, object] = {}
-            self._taken = self._given = self._running = 0
-            threads = [threading.Thread(target=self._work, daemon=True)
-                       for _ in range(width)]
-        self._threads = threads
-        for t in threads:
-            t.start()
-
-    def _halted(self) -> bool:
-        return self._stop.is_set() or self._closed.is_set()
-
-    def _put(self, item) -> bool:
-        """Queue ``item`` unless a stop comes first."""
-        while not self._halted():
-            try:
-                self._q.put(item, timeout=self._POLL_S)
-                return True
-            except queuelib.Full:
-                continue
-        return False
-
-    def _pump(self, iterator):
-        try:
-            for item in iterator:
-                if not self._put(item):
-                    break
-        except Exception as exc:  # surfaced on the consumer side
-            self._put(exc)
-            return
-        if not self._put(self._DONE):
-            # stopped: a consumer waiting on an empty queue ends now
-            try:
-                self._q.put_nowait(self._DONE)
-            except queuelib.Full:
-                pass
-
-    def _work(self):
-        """One pool thread: take the next item once a slot is free,
-        decode it, file the result under its index."""
-        while True:
-            while not self._slots.acquire(timeout=self._POLL_S):
-                if self._halted():
-                    return
-            with self._cond:
-                k = self._taken
-                if k == len(self._items) or self._halted():
-                    self._slots.release()
-                    return
-                self._taken += 1
-                overlapped = self._running > 0
-                self._running += 1
-            _count_decode(time.perf_counter(), overlapped, self._width)
-            try:
-                result = self._decode(self._items[k])
-            except Exception as exc:  # surfaced on the consumer side
-                result = exc
-            with self._cond:
-                self._running -= 1
-                self._results[k] = result
-                self._cond.notify_all()
-
-    def _get(self):
-        if self._slots is not None:
-            return self._next_result()
-        while True:
-            try:
-                return self._q.get(timeout=self._POLL_S)
-            except queuelib.Empty:
-                if self._stop.is_set():
-                    return self._DONE
-
-    def _next_result(self):
-        """The pool's result for the next index in submission order."""
-        with self._cond:
-            while self._given not in self._results:
-                if self._given == len(self._items) or self._stop.is_set():
-                    return self._DONE
-                self._cond.wait(self._POLL_S)
-            self._given += 1
-            return self._results.pop(self._given - 1)
-
-    def __iter__(self):
-        try:
-            while True:
-                with (contextlib.nullcontext() if self._timers is None
-                      else self._timers.stage("decode_wait")):
-                    item = self._get()
-                if item is self._DONE:
-                    return
-                if isinstance(item, Exception):
-                    raise item
-                yield item
-                if self._slots is not None:
-                    self._slots.release()   # the consumer is past it
-        finally:
-            self._closed.set()
-
-
 def _decode_width() -> int:
     """Image mode's decode threads: one a core, at most 8. They share the
     cores with the encoders, one a core at ``-j auto``: on the 8 cores of
     an H100's host, where decode is ~40% of an 8K frame's CPU time, 6 or 8
     threads ran ~15-20% more frames a second than 4 (PERF.md)."""
     return min(8, os.cpu_count() or 1)
-
-
-def _count_decode(start: float, overlapped: bool, width: int) -> None:
-    with _DECODE_LOCK:
-        _DECODE_TOTAL["decodes"] += 1
-        _DECODE_TOTAL["overlapped"] += overlapped
-        _DECODE_TOTAL["width"] = max(_DECODE_TOTAL["width"], width)
-        _DECODES.append((start, overlapped, width))
-
-
-def decode_overlap(start: Optional[float] = None,
-                   end: Optional[float] = None) -> dict:
-    """``{"decodes", "overlapped", "width"}``: image mode's decodes in this
-    process, those that started while another decode of the same pool was
-    running, and the widest pool that ran them (0: none); given ``start``
-    and ``end`` (``time.perf_counter``), only those of the newest 65536
-    that started in [start, end)."""
-    with _DECODE_LOCK:
-        if start is None:
-            return dict(_DECODE_TOTAL)
-        held = [(o, w) for t, o, w in _DECODES if start <= t < end]
-    return {"decodes": len(held), "overlapped": sum(o for o, _ in held),
-            "width": max((w for _, w in held), default=0)}
 
 
 def _quantize_dtype(bit_depth: int) -> torch.dtype:
@@ -476,9 +314,9 @@ def _run_images(plan, writer, report, stop_event, tick, backend, device,
 
     # software pipeline: decode N+1.. (a pool of threads, in order) ||
     # warp N+1 (device queue) || fetch+encode N (here + writer pool)
-    for source, jobs, src, exc in _Prefetcher(work, stop_event,
-                                              timers=timers, decode=decode,
-                                              width=_decode_width()):
+    for source, jobs, src, exc in Prefetcher(work, stop_event,
+                                             timers=timers, decode=decode,
+                                             width=_decode_width()):
         if stop_event.is_set():
             return
         if exc is not None:
@@ -536,9 +374,7 @@ def _warp_frames_batch(frames, views, *, interp, keep_rec709,
                 for j, i in enumerate(idxs):
                     results[f][i] = (block, (local, j), backend != "xla")
                 f += 1
-    with _WARPED_LOCK:
-        _WARPED_TOTAL[0] += len(frames)
-        _WARPED_BATCHES.append((t0, len(frames)))
+    _WARPED.add(t0, frames=len(frames))
     return results
 
 
@@ -597,9 +433,10 @@ def _run_video_sharded(plan, writer, report, stop_event, tick, interp,
         pending = (batch_idx, results)
         batch_idx, batch_rgb = [], []
 
-    for idx, _t, rgb in _Prefetcher(
+    # one thread decodes: n_batch + 3 frames taken and not yet passed
+    for idx, _t, rgb in Prefetcher(
             timers.wrap_iter("decode", frame_iter), stop_event,
-            depth=n_batch + 1, timers=timers):
+            depth=n_batch + 2, timers=timers):
         if stop_event.is_set():
             return
         if plan.selected_frames is not None \

@@ -2,7 +2,9 @@
 :class:`StageTimers`): accumulated per-stage wall clock (decode / warp /
 fetch / encode) surfaced on the execution report, and every stage's
 interval in one process-wide ring (:func:`spans`; :func:`span` puts an
-interval there without timers); :func:`maybe_trace`, a
+interval there without timers); :class:`WindowCounter`, the counts of one
+kind of event with the newest events' starts, read whole or by window;
+:func:`maybe_trace`, a
 ``torch.profiler`` trace of a block when ``GS360X_TRACE_DIR`` is set, with
 the ring's spans of the block on the trace's clock, and
 :func:`read_trace`, its kernels and the device's busy time in it;
@@ -14,6 +16,7 @@ CUDA graph's replay.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import os
 import pathlib
@@ -29,7 +32,8 @@ import torch
 
 # every stage's span, from every StageTimers of the process: (name, the
 # thread's native id, start, end, the thread's CPU seconds inside), start
-# and end on time.perf_counter. A traced window holds ~2,000 spans.
+# and end on time.perf_counter. A traced window holds ~2,000 spans. A
+# WindowCounter holds as many events.
 SPAN_RING = 65536
 _SPANS: deque = deque(maxlen=SPAN_RING)
 
@@ -41,6 +45,43 @@ def spans(since: Optional[float] = None) -> List[tuple]:
     if since is None:
         return list(held)
     return [s for s in held if s[3] > since]
+
+
+class WindowCounter:
+    """The counts of one kind of event in this process: their totals, and
+    the newest ``SPAN_RING`` events, each with its start on
+    ``time.perf_counter``, under one lock. ``combine`` names each count and
+    how two of its values make one (``operator.add`` sums, ``max`` keeps
+    the largest); counts start at 0."""
+
+    def __init__(self, **combine: Callable[[int, int], int]) -> None:
+        self._names = tuple(combine)
+        self._combine = tuple(combine.values())
+        self._zero = (0,) * len(combine)
+        self._lock = threading.Lock()
+        self._totals = self._zero
+        self._events: deque = deque(maxlen=SPAN_RING)
+
+    def _fold(self, acc: tuple, row: tuple) -> tuple:
+        return tuple(f(a, v) for f, a, v in zip(self._combine, acc, row))
+
+    def add(self, start: float, **values: int) -> None:
+        """One event that started at ``start``, with its value of every
+        count."""
+        row = tuple(values[name] for name in self._names)
+        with self._lock:
+            self._totals = self._fold(self._totals, row)
+            self._events.append((start, row))
+
+    def read(self, start: Optional[float] = None,
+             end: Optional[float] = None) -> dict:
+        """The totals by name; given ``start`` and ``end``, the counts of
+        the held events that started in [start, end)."""
+        with self._lock:
+            rows = ([self._totals] if start is None else
+                    [row for t, row in self._events if start <= t < end])
+        return dict(zip(self._names,
+                        functools.reduce(self._fold, rows, self._zero)))
 
 
 @contextmanager

@@ -34,14 +34,13 @@ launch nothing.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures as cf
 import json
 import math
 import os
 import pathlib
 import sys
+import threading
 import xml.etree.ElementTree as ET
-from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -61,6 +60,7 @@ from gs360x_torch.io.image import (AsyncImageWriter, from_float01, read_image,
 from gs360x_torch.kernels import _build, remap_cuda, warp_cuda
 from gs360x_torch.rig.presets import parse_sensor_dimensions
 from gs360x_torch.runtime.executor import _quantize_device, upload_rows
+from gs360x_torch.runtime.prefetch import Prefetcher
 from gs360x_torch.runtime.profiling import StageTimers, maybe_trace
 from gs360x_torch.runtime.throttle import AdaptiveLimiter, MemoryMonitor
 from gs360x_torch.templates import default_osmo360_calibration_path
@@ -838,8 +838,9 @@ def _main(argv=None) -> int:
                     device)
 
     # memory-adaptive prefetch of pair decodes (reference's throttled
-    # worker loop): a bounded window of decode tasks runs ahead of the
-    # device loop, shrinking under memory pressure.
+    # worker loop): n_workers decode threads, n_workers + 1 pairs taken and
+    # not yet passed by the device loop, fewer decodes at once under
+    # memory pressure.
     n_workers = args.workers or min(4, os.cpu_count() or 1)
     limiter = AdaptiveLimiter(n_workers)
     if args.memory_throttle_percent:
@@ -852,44 +853,38 @@ def _main(argv=None) -> int:
     want_texels = input_lut is None and not args.save_color_corrected_output
 
     def decode_pair(item):
-        base, xp, yp, sid_x, sid_y = item
-        with limiter, timers.stage("decode"):
-            img_x = read_image(xp, texels=want_texels)
-            img_y = read_image(yp, texels=want_texels)
-            mask_x = mask_y = None
-            if mask_dir is not None:
-                mx_p = mask_dir / xp.name
-                my_p = mask_dir / yp.name
-                if mx_p.exists():
-                    mask_x = read_image(mx_p)[..., 0]
-                if my_p.exists():
-                    mask_y = read_image(my_p)[..., 0]
-        return base, xp, yp, sid_x, sid_y, img_x, img_y, mask_x, mask_y
+        """The pair and its lens images and masks, or the exception their
+        decode raised: that pair's own failure."""
+        xp, yp = item[1:3]
+        try:
+            with limiter, timers.stage("decode"):
+                img_x = read_image(xp, texels=want_texels)
+                img_y = read_image(yp, texels=want_texels)
+                mask_x = mask_y = None
+                if mask_dir is not None:
+                    mx_p = mask_dir / xp.name
+                    my_p = mask_dir / yp.name
+                    if mx_p.exists():
+                        mask_x = read_image(mx_p)[..., 0]
+                    if my_p.exists():
+                        mask_y = read_image(my_p)[..., 0]
+        except Exception as exc:
+            return item, exc
+        return item, (img_x, img_y, mask_x, mask_y)
 
     with maybe_trace("dualfisheye"), \
             AsyncImageWriter(workers=8, timers=timers) as writer, \
             MemoryMonitor(limiter, high=high,
-                          low=max(0.0, high - 0.10)), \
-            cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
-        pending = deque()
-        items = iter(resolved)
-
-        def submit_next():
-            item = next(items, None)
-            if item is not None:
-                pending.append(pool.submit(decode_pair, item))
-
-        for _ in range(n_workers):
-            submit_next()
-        pi = 0
-        while pending:
-            fut = pending.popleft()
-            submit_next()
-            pi += 1
+                          low=max(0.0, high - 0.10)):
+        decoded = Prefetcher(resolved, threading.Event(), depth=1,
+                             timers=timers, decode=decode_pair,
+                             width=n_workers)
+        for pi, ((base, xp, yp, sid_x, sid_y), images) in enumerate(
+                decoded, 1):
             try:
-                with timers.stage("decode_wait"):
-                    (base, xp, yp, sid_x, sid_y,
-                     img_x, img_y, mask_x, mask_y) = fut.result()
+                if isinstance(images, Exception):
+                    raise images
+                img_x, img_y, mask_x, mask_y = images
 
                 outputs = []
                 # each lens image goes to the device, planar, once (and

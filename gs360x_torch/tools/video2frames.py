@@ -38,8 +38,8 @@ from gs360x_torch.core import color as colorlib
 from gs360x_torch.device import DEVICE_CHOICES, resolve_device
 from gs360x_torch.kernels import remap_cuda, warp_cuda
 from gs360x_torch.kernels import warp as twin
-from gs360x_torch.runtime.executor import (_Prefetcher, _quantize_device,
-                                           upload_rows)
+from gs360x_torch.runtime.executor import _quantize_device, upload_rows
+from gs360x_torch.runtime.prefetch import Prefetcher
 
 FISHEYE_INPUT_FOV_DEG = 190.0
 
@@ -253,8 +253,9 @@ def _main(argv=None) -> int:
         try:
             frames = decoded_frames(in_path, fps=args.fps, start=args.start,
                                     end=args.end, stream=stream)
-            for idx, _t, rgb in _Prefetcher(timers.wrap_iter("decode", frames),
-                                            stop):
+            # one thread decodes: 4 frames taken and not yet passed
+            for idx, _t, rgb in Prefetcher(timers.wrap_iter("decode", frames),
+                                           stop, depth=3):
                 with timers.stage("dispatch"):
                     frame = frame_to_device(
                         rgb, device=device, keep_rec709=args.keep_rec709,

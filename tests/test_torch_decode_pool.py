@@ -1,12 +1,15 @@
-"""Image mode's decode pool (``executor._Prefetcher`` given items and a
-per-item ``decode``): results in submission order when decodes finish out
-of order, a failed item as that item's failure with the items after it
-still coming, the stop while the loop waits ending the loop and every pool
-thread, at most ``width`` decodes at once and ``width + depth`` items held,
-the ``decode_overlap`` counter and its window, the benchmark's reader of
-it, the iterator form as before; and ``run_plan``'s image mode on a pool
-of three against one, byte for byte, with ``read_image`` wrapped on the
-module as the benchmark wraps it."""
+"""The port's one decode-ahead stage (``runtime/prefetch.Prefetcher``)
+and image mode's pool on it: results in submission order when decodes
+finish out of order, a failed item as that item's failure with the items
+after it still coming, the stop while the loop waits ending the loop and
+every thread, at most ``width`` decodes at once and ``width + depth``
+items held, the ``decode_overlap`` counter and its window, the
+benchmark's reader of it, a width-1 stage over an iterator whose
+``next()`` decodes (video mode, Video2Frames); ``run_plan``'s image mode
+on a pool of three against one, byte for byte, with ``read_image``
+wrapped on the module as the benchmark wraps it; and dualfisheye's pair
+loop on one decode thread and on two, byte for byte, a corrupt lens file
+that pair's own failure."""
 
 import json
 import math
@@ -16,6 +19,7 @@ import random
 import sys
 import threading
 import time
+from operator import add
 from types import SimpleNamespace
 
 import numpy as np
@@ -24,8 +28,9 @@ import torch
 
 from gs360x_torch.io import image as tim
 from gs360x_torch.rig.presets import build_view_plan
-from gs360x_torch.runtime import executor
+from gs360x_torch.runtime import executor, prefetch
 from gs360x_torch.runtime import profiling as tprof
+from gs360x_torch.runtime.prefetch import Prefetcher
 from gs360x_torch.tools import perspcut
 
 torch.set_num_threads(1)
@@ -58,8 +63,8 @@ def test_results_come_in_submission_order(seed):
     def decode(k):
         time.sleep(delays[k])
         return k * 10
-    pre = executor._Prefetcher(list(range(24)), threading.Event(),
-                               decode=decode, width=4)
+    pre = Prefetcher(list(range(24)), threading.Event(),
+                     decode=decode, width=4)
     assert _drain(pre) == [k * 10 for k in range(24)]
     assert _join_all(pre) == []
 
@@ -74,8 +79,8 @@ def test_a_failed_item_stays_that_items_failure():
         if k == 3:
             return k, ValueError("bad frame 3")
         return k, None
-    pre = executor._Prefetcher(list(range(8)), threading.Event(),
-                               decode=returned, width=3)
+    pre = Prefetcher(list(range(8)), threading.Event(),
+                     decode=returned, width=3)
     got = _drain(pre)
     assert [k for k, _ in got] == list(range(8))
     assert [str(e) for _, e in got if e is not None] == ["bad frame 3"]
@@ -85,8 +90,8 @@ def test_a_failed_item_stays_that_items_failure():
             raise ValueError("bad frame 3")
         return k
     got = []
-    pre = executor._Prefetcher(list(range(8)), threading.Event(),
-                               decode=raised, width=3)
+    pre = Prefetcher(list(range(8)), threading.Event(),
+                     decode=raised, width=3)
     with pytest.raises(ValueError, match="bad frame 3"):
         for item in pre:
             got.append(item)
@@ -112,8 +117,8 @@ def test_no_more_than_width_decodes_and_width_plus_depth_held(width, depth):
         with lock:
             state["running"] -= 1
         return k
-    pre = executor._Prefetcher(list(range(30)), threading.Event(),
-                               depth=depth, decode=decode, width=width)
+    pre = Prefetcher(list(range(30)), threading.Event(),
+                     depth=depth, decode=decode, width=width)
     got = []
     for item in pre:
         got.append(item)
@@ -136,9 +141,9 @@ def test_more_threads_than_cores_lose_nothing():
     sys.setswitchinterval(1e-6)
     try:
         t0 = time.perf_counter()
-        pre = executor._Prefetcher(list(range(3000)), threading.Event(),
-                                   depth=3, decode=lambda k: k + 1,
-                                   width=width)
+        pre = Prefetcher(list(range(3000)), threading.Event(),
+                         depth=3, decode=lambda k: k + 1,
+                         width=width)
         got = _drain(pre)
         t1 = time.perf_counter()
     finally:
@@ -157,7 +162,7 @@ def test_pool_stops_while_the_loop_waits():
     def slow(k):
         time.sleep(0.4)
         return k
-    pre = executor._Prefetcher(list(range(40)), stop, decode=slow, width=3)
+    pre = Prefetcher(list(range(40)), stop, decode=slow, width=3)
     got = []
 
     def consume():
@@ -188,7 +193,7 @@ def test_decode_overlap_counts_the_window():
         return k
     t0 = time.perf_counter()
     earlier = executor.decode_overlap(t0 - 100.0, t0)
-    assert _drain(executor._Prefetcher(
+    assert _drain(Prefetcher(
         list(range(9)), threading.Event(), decode=together,
         width=3)) == list(range(9))
     t1 = time.perf_counter()
@@ -202,8 +207,8 @@ def test_decode_overlap_counts_the_window():
 
     # one thread never overlaps itself
     t2 = time.perf_counter()
-    _drain(executor._Prefetcher(list(range(5)), threading.Event(),
-                                decode=lambda k: k, width=1))
+    _drain(Prefetcher(list(range(5)), threading.Event(),
+                      decode=lambda k: k, width=1))
     assert executor.decode_overlap(t2, time.perf_counter()) == {
         "decodes": 5, "overlapped": 0, "width": 1}
 
@@ -223,12 +228,16 @@ def test_the_overlap_reader_reads_the_window(monkeypatch):
     bench.end); None with none there, or without the counter."""
     r = SimpleNamespace(bench=SimpleNamespace(start=100.0, end=101.0))
     reader = _reader()
-    monkeypatch.setattr(executor, "_DECODES", [
-        (99.5, True, 4), (100.0, False, 4), (100.2, True, 4),
-        (100.6, True, 4), (100.9, False, 4), (101.0, True, 4)])
+
+    def counter(*decodes):
+        fed = tprof.WindowCounter(decodes=add, overlapped=add, width=max)
+        for t, overlapped in decodes:
+            fed.add(t, decodes=1, overlapped=overlapped, width=4)
+        monkeypatch.setattr(prefetch, "_DECODES", fed)
+    counter((99.5, True), (100.0, False), (100.2, True), (100.6, True),
+            (100.9, False), (101.0, True))
     assert reader.read(r) == pytest.approx(50.0, rel=1e-12)
-    monkeypatch.setattr(executor, "_DECODES", [(99.5, True, 4),
-                                               (101.0, True, 4)])
+    counter((99.5, True), (101.0, True))
     assert reader.read(r) is None
     monkeypatch.delattr(executor, "decode_overlap")
     assert reader.read(r) is None
@@ -242,7 +251,7 @@ def test_the_overlap_reader_is_the_image_cells_metric():
     assert entry == dict(texel, name=READER)
 
 
-# --- the iterator form -------------------------------------------------------
+# --- a width-1 stage over an iterator ----------------------------------------
 
 def _frames(n, fail_at=None):
     for k in range(n):
@@ -252,34 +261,56 @@ def _frames(n, fail_at=None):
 
 
 def test_iterator_form_as_before():
-    """One thread runs the iterator, its items come as it yields them, an
-    exception it raises reaches the consumer after the items before it,
-    and each wait is one ``decode_wait``."""
+    """Width 1 over an iterator: one thread runs it, its items come as it
+    yields them, an exception it raises reaches the consumer after the
+    items before it, and each wait is one ``decode_wait``."""
     timers = tprof.StageTimers()
     since = time.perf_counter()
-    pre = executor._Prefetcher(_frames(6), threading.Event(), timers=timers)
-    assert pre._threads == [pre._thread]
+    pre = Prefetcher(_frames(6), threading.Event(), timers=timers)
+    assert len(pre._threads) == 1
     assert list(pre) == list(range(6))
     assert timers.counts == {"decode_wait": 7}
     assert [s[0] for s in tprof.spans(since)] == ["decode_wait"] * 7
 
     got = []
-    pre = executor._Prefetcher(_frames(6, fail_at=4), threading.Event())
+    pre = Prefetcher(_frames(6, fail_at=4), threading.Event())
     with pytest.raises(ValueError, match="bad frame 4"):
         for item in pre:
             got.append(item)
     assert got == [0, 1, 2, 3]
-    pre._thread.join(timeout=3.0)
-    assert not pre._thread.is_alive()
+    assert _join_all(pre) == []
 
 
 def test_iterator_form_ends_once_the_consumer_stops_early():
-    pre = executor._Prefetcher(_frames(1000), threading.Event())
+    pre = Prefetcher(_frames(1000), threading.Event())
     for item in pre:
         if item == 2:
             break
-    pre._thread.join(timeout=3.0)
-    assert not pre._thread.is_alive()
+    assert _join_all(pre) == []
+
+
+@pytest.mark.parametrize("depth", [1, 3, 6])
+def test_iterator_form_takes_depth_plus_one_ahead(depth):
+    """Width 1 over an iterator takes ``depth + 1`` items ahead of a slow
+    loop, the one it holds included: what the old queue form of depth − 1
+    held (its queue, the item its pump held, the loop's)."""
+    lock = threading.Lock()
+    state = {"taken": 0, "passed": 0, "most": 0}
+
+    def source():
+        for k in range(12):
+            with lock:
+                state["taken"] += 1
+                state["most"] = max(state["most"],
+                                    state["taken"] - state["passed"])
+            yield k
+    pre = Prefetcher(source(), threading.Event(), depth=depth)
+    for _ in pre:
+        time.sleep(0.02)
+        with lock:
+            state["passed"] += 1
+    assert state["most"] == depth + 1
+    assert _join_all(pre) == []
 
 
 # --- run_plan's image mode on the pool ---------------------------------------
@@ -393,3 +424,66 @@ def test_run_plan_prints_the_overlap_on_stats(frame_dir, tmp_path, capsys):
     assert line.endswith(
         f"| decodes overlapped {totals['overlapped']} of "
         f"{totals['decodes']}, width {totals['width']}")
+
+
+# --- dualfisheye's pair loop on the stage ------------------------------------
+
+PAIRS = 4
+
+
+@pytest.fixture(scope="module")
+def lens_dir(tmp_path_factory):
+    from test_dualfisheye import CALIB_XML
+    d = tmp_path_factory.mktemp("lenses")
+    (d / "calib.xml").write_text(CALIB_XML)
+    (d / "pairs").mkdir()
+    for k in range(PAIRS):
+        for lens in "XY":
+            tim.write_image(d / "pairs" / f"s{k:04d}_{lens}.jpg",
+                            np.roll(_pano(0.3 * k, 512, 512), 37 * k, 1))
+    return d
+
+
+@pytest.mark.parametrize("corrupt", [None, 1])
+def test_dualfisheye_on_a_pool_writes_what_one_thread_writes(
+        lens_dir, tmp_path, capsys, corrupt):
+    """``--workers 1`` and ``--workers 2`` write the same bytes and print
+    the same lines, the pairs in order; a corrupt lens file fails its own
+    pair, named on its ``[WARN]`` and progress lines, and every other pair
+    is written."""
+    from gs360x_torch.tools import dualfisheye as tdf
+    src = tmp_path / "pairs"
+    src.mkdir()
+    for p in sorted((lens_dir / "pairs").iterdir()):
+        (src / p.name).write_bytes(p.read_bytes())
+    if corrupt is not None:
+        (src / f"s{corrupt:04d}_Y.jpg").write_bytes(b"not a jpeg")
+    runs = {}
+    for workers in (1, 2):
+        code = tdf.main(["-i", str(src), "-o", str(tmp_path / f"w{workers}"),
+                         "--camera-xml", str(lens_dir / "calib.xml"),
+                         "--perspective-size", "32", "--workers",
+                         str(workers), "--device", "cpu"])
+        cap = capsys.readouterr()
+        runs[workers] = (code, cap.out, cap.err)
+    assert runs[1] == runs[2]
+    code, out, err = runs[1]
+    bases = [f"s{k:04d}" for k in range(PAIRS)]
+    progress = [ln for ln in out.splitlines() if ln.endswith(tuple(bases))
+                and ln.startswith("[")]
+    assert progress == [f"[{k + 1}/{PAIRS}] {b}" for k, b in enumerate(bases)]
+    failed = [] if corrupt is None else [bases[corrupt]]
+    assert code == (2 if failed else 0)
+    assert out.splitlines()[-1] == \
+        f"[OK] processed={PAIRS - len(failed)} failed={len(failed)}"
+    assert [ln.split(" failed:")[0] for ln in err.splitlines()
+            if ln.startswith("[WARN]")] == [f"[WARN] pair {b}" for b in failed]
+    views = sorted(p.relative_to(tmp_path / "w1")
+                   for p in (tmp_path / "w1").rglob("*") if p.is_file())
+    assert views == sorted(p.relative_to(tmp_path / "w2")
+                           for p in (tmp_path / "w2").rglob("*")
+                           if p.is_file())
+    assert {v.name.split("_")[0] for v in views} == set(bases) - set(failed)
+    for v in views:
+        assert (tmp_path / "w1" / v).read_bytes() == \
+            (tmp_path / "w2" / v).read_bytes(), v

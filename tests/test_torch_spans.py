@@ -5,10 +5,11 @@ loop's ``decode_wait``, ``warp_dispatch``, ``fetch`` and ``writer_block``,
 the writer threads' ``encode`` in a CPU ``run_plan``; ``decode_wait``,
 ``upload``, ``remap+fetch``, ``writer_block``, ``encode`` and ``map_build``
 in a CPU ``dualfisheye.main`` — with ``[STATS]`` still parsed by the
-regex ``portbench`` reads it with; the writer and the prefetcher without
-timers as before; the trace ``maybe_trace`` writes holding the spans on the
-profiler's own clock; the prefetcher's stop while the loop waits on a
-decode; and the benchmark's readers of the spans on synthetic readings."""
+regex ``portbench`` reads it with; the window counter beside the ring;
+the writer and the prefetcher without timers as before; the trace
+``maybe_trace`` writes holding the spans on the profiler's own clock; the
+prefetcher's stop while the loop waits on a decode; and the benchmark's
+readers of the spans on synthetic readings."""
 
 import json
 import math
@@ -26,6 +27,7 @@ from gs360x_torch.io import image as tim
 from gs360x_torch.rig.presets import build_view_plan
 from gs360x_torch.runtime import executor
 from gs360x_torch.runtime import profiling as tprof
+from gs360x_torch.runtime.prefetch import Prefetcher
 from gs360x_torch.tools import dualfisheye as tdf
 from gs360x_torch.tools import perspcut
 from test_dualfisheye import CALIB_XML
@@ -137,8 +139,9 @@ def test_dualfisheye_spans_come_from_their_threads(pair_dir, tmp_path,
     writers = {tid for tid, *_ in spans["encode"]}
     assert len(decoders) == 1 and main not in decoders
     assert writers and not writers & (decoders | {main})
+    # 2 pairs; the loop's last wait is the one that ends it
     counts = {name: len(v) for name, v in spans.items()}
-    assert counts == {"map_build": 1, "decode": 2, "decode_wait": 2,
+    assert counts == {"map_build": 1, "decode": 2, "decode_wait": 3,
                       "upload": 2, "remap+fetch": 4, "writer_block": 20,
                       "encode": 20}
     # the lines portbench reads as before, the new stages in [STATS]
@@ -164,6 +167,36 @@ def test_ring_stays_bounded():
     last = held[-1]
     assert tprof.spans(last[3]) == [] and tprof.spans(since) == held
     assert tprof.spans(held[-2][3]) == [last]
+
+
+def test_window_counter_totals_window_and_bound():
+    """The totals of every event, the counts of the held events that
+    started in [start, end) (a sum and a max), and a ring of the newest
+    ``SPAN_RING`` events; the totals keep the events the ring dropped."""
+    from operator import add
+    counter = tprof.WindowCounter(n=add, size=add, widest=max)
+    assert counter.read() == {"n": 0, "size": 0, "widest": 0}
+    assert counter.read(0.0, 1.0) == {"n": 0, "size": 0, "widest": 0}
+    for k in range(tprof.SPAN_RING + 10):
+        counter.add(float(k), n=1, size=k, widest=k % 7)
+    total = tprof.SPAN_RING + 10
+    assert counter.read() == {"n": total, "size": total * (total - 1) // 2,
+                              "widest": 6}
+    # the ring holds the newest SPAN_RING: events 10.. onwards
+    assert counter.read(0.0, 10.0) == {"n": 0, "size": 0, "widest": 0}
+    assert counter.read(0.0, 11.0) == {"n": 1, "size": 10, "widest": 3}
+    # [start, end): the event at ``end`` is not in the window
+    assert counter.read(20.0, 23.0) == {"n": 3, "size": 63, "widest": 6}
+    assert counter.read(20.0, 20.0) == {"n": 0, "size": 0, "widest": 0}
+    assert counter.read(total - 1.0, total + 5.0) == {
+        "n": 1, "size": total - 1, "widest": (total - 1) % 7}
+    # bools count as 0 and 1, and the counts come back as ints
+    flags = tprof.WindowCounter(hits=add)
+    flags.add(1.0, hits=True)
+    flags.add(2.0, hits=False)
+    assert [type(v) for v in (flags.read()["hits"],
+                              flags.read(0.0, 3.0)["hits"])] == [int, int]
+    assert flags.read() == flags.read(0.0, 3.0) == {"hits": 1}
 
 
 # --- the writer and the prefetcher without timers ---------------------------
@@ -193,8 +226,8 @@ def test_writer_without_timers_records_nothing(tmp_path, timed):
 def test_prefetcher_without_timers_records_nothing(timed):
     timers = tprof.StageTimers() if timed else None
     since = time.perf_counter()
-    items = list(executor._Prefetcher(iter(range(7)), threading.Event(),
-                                      timers=timers))
+    items = list(Prefetcher(iter(range(7)), threading.Event(),
+                            timers=timers))
     assert items == list(range(7))
     got = {name: len(v) for name, v in _by_name(tprof.spans(since)).items()}
     assert got == ({"decode_wait": 8} if timed else {})
@@ -210,7 +243,7 @@ def _slow_source(n, seconds):
 
 def test_prefetcher_stops_while_the_loop_waits():
     stop = threading.Event()
-    pre = executor._Prefetcher(_slow_source(20, 0.4), stop)
+    pre = Prefetcher(_slow_source(20, 0.4), stop)
     got = []
 
     def consume():
@@ -222,8 +255,9 @@ def test_prefetcher_stops_while_the_loop_waits():
     worker.join(timeout=3.0)
     assert not worker.is_alive(), "the prefetcher did not stop"
     assert time.perf_counter() - t < 3.0 and 1 <= len(got) < 20
-    pre._thread.join(timeout=3.0)
-    assert not pre._thread.is_alive()   # the pump ended on the stop too
+    (thread,) = pre._threads
+    thread.join(timeout=3.0)
+    assert not thread.is_alive()   # the decode thread ended on the stop too
 
 
 def test_run_plan_stops_while_the_loop_waits(pano_dir, tmp_path,

@@ -279,14 +279,22 @@ def test_the_texel_readers_read_the_window(monkeypatch):
     counter."""
     from types import SimpleNamespace
     from portbench import harness
+    from operator import add
+    from gs360x_torch.runtime.profiling import WindowCounter
     r = SimpleNamespace(bench=SimpleNamespace(start=100.0, end=101.0))
     calls = [(99.5, False), (100.0, True), (100.6, True), (100.9, False),
              (101.0, False)]
+
+    def counter(held):
+        fed = WindowCounter(requested=add, served=add)
+        for t, served in held:
+            fed.add(t, requested=1, served=served)
+        monkeypatch.setattr(tim, "_TEXELS", fed)
     for name in ("texel_decode_pct.perspcut", "texel_decode_pct.dualfisheye"):
         reader = harness.load_module(harness.HERE / "metrics" / f"{name}.py")
-        monkeypatch.setattr(tim, "_TEXEL_CALLS", list(calls))
+        counter(calls)
         assert reader.read(r) == pytest.approx(200.0 / 3.0, rel=1e-12)
-        monkeypatch.setattr(tim, "_TEXEL_CALLS", calls[:1] + calls[-1:])
+        counter(calls[:1] + calls[-1:])
         assert reader.read(r) is None
         monkeypatch.delattr(tim, "texel_decode_counts")
         assert reader.read(r) is None
