@@ -9,7 +9,10 @@ video IO is a backend registry:
 * **y4m**: pure-Python YUV4MPEG2 reader/writer (C444/C420, 8-bit) — the
   always-available path for tests/benchmarks and pipeline development.
 * **mjpeg-avi**: pure-Python RIFF/AVI demuxer+muxer with JPEG frames
-  (PIL codecs) — compressed clips without external binaries.
+  (PIL codecs) — compressed clips without external binaries. The demux
+  hands out each frame's JPEG bytes and :func:`decode_jpeg_frame` decodes
+  one, so a clip's frames may decode on several threads
+  (:func:`source_frames`).
 
 All readers yield ``(frame_index, t_seconds, HxWx3 uint8)`` and support
 ``fps`` resampling (pick nearest source frame per output tick, like
@@ -28,10 +31,12 @@ import time
 from dataclasses import dataclass
 from fractions import Fraction
 from operator import add
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import (Callable, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
+from gs360x_torch.io import image as imagelib
 from gs360x_torch.runtime.profiling import WindowCounter, span
 
 Frame = Tuple[int, float, np.ndarray]
@@ -328,12 +333,66 @@ class MJPEGAVIReader:
         return VideoInfo(self.width, self.height, self.fps, n,
                          n / self.fps if self.fps else None, pix_fmt="yuvj444p")
 
-    def frames(self) -> Iterator[np.ndarray]:
-        from PIL import Image
-
+    def payloads(self) -> Iterator[memoryview]:
+        """Each frame's JPEG bytes, in order, over the clip read at the
+        open: the demux alone, nothing decoded."""
+        raw = memoryview(self._raw)
         for off, size in self._offsets:
-            with Image.open(_io.BytesIO(self._raw[off:off + size])) as im:
-                yield np.asarray(im.convert("RGB"))
+            yield raw[off:off + size]
+
+    def frames(self) -> Iterator[np.ndarray]:
+        for payload in self.payloads():
+            yield decode_jpeg_frame(payload)
+
+
+# the kernel library's pack where the host has a card, else False; decided
+# at the first pack
+_LIBRARY_PACK = None
+
+
+def _pack_rgb(rgbx: np.ndarray) -> np.ndarray:
+    """Pillow's (H, W, 4) RGBX block packed to a fresh (H, W, 3) u8 frame
+    in one pass that runs without the GIL: the kernel library's host loop
+    (``csrc/pack_rgb.cu``, called through ctypes) where the host has a card,
+    else numpy's strided copy."""
+    global _LIBRARY_PACK
+    if _LIBRARY_PACK is None:
+        import torch
+
+        if torch.cuda.is_available():
+            from gs360x_torch.kernels import _build
+
+            _LIBRARY_PACK = _build.load().gs360x_pack_rgb
+        else:
+            _LIBRARY_PACK = False
+    if rgbx.dtype != np.uint8 or rgbx.ndim != 3 or rgbx.shape[2] != 4 \
+            or not rgbx.flags.c_contiguous:
+        raise ValueError(f"not an RGBX block: {rgbx.dtype} {rgbx.shape}")
+    h, w = rgbx.shape[:2]
+    out = np.empty((h, w, 3), np.uint8)
+    if _LIBRARY_PACK:
+        _LIBRARY_PACK(rgbx.ctypes.data, out.ctypes.data, h * w)
+    else:
+        np.copyto(out, rgbx[..., :3])
+    return out
+
+
+def decode_jpeg_frame(data) -> np.ndarray:
+    """One MJPEG frame's bytes decoded to a C-contiguous (H, W, 3) u8 RGB
+    frame, the bytes of ``np.asarray(Image.open(...).convert("RGB"))``.
+    An 8-bit RGB JPEG decodes into Pillow's own block
+    (:func:`imagelib._decode_rgbx`), packed by :func:`_pack_rgb`: the GIL
+    is held only to open the frame and export the block, so frames decode
+    in parallel on threads. Any other JPEG, or a Pillow without the block
+    allocator, goes through ``convert("RGB")``."""
+    from PIL import Image
+
+    with Image.open(_io.BytesIO(data)) as im:
+        if im.mode == "RGB":
+            rgbx = imagelib._decode_rgbx(im)
+            if rgbx is not None:
+                return _pack_rgb(rgbx)
+        return np.asarray(im.convert("RGB"))
 
 
 # --------------------------------------------------------------------------
@@ -438,44 +497,84 @@ def probe_video(path) -> VideoInfo:
     return open_video(path).info()
 
 
-def iter_frames(path, *, fps: Optional[float] = None,
-                start: Optional[float] = None, end: Optional[float] = None,
-                stream: Optional[int] = None) -> Iterator[Frame]:
-    """Yield (output_index, t_seconds, rgb) resampled to ``fps``.
-
-    Resampling matches ffmpeg's fps filter: output tick k at time k/fps maps
-    to the most recent source frame.
-    """
-    reader = open_video(path, stream=stream)
-    info = reader.info()
-    if isinstance(reader, FFmpegReader):
-        out_fps = fps or info.fps
-        for i, frame in enumerate(reader.frames(fps=fps, start=start, end=end)):
-            yield i, (start or 0.0) + i / out_fps, frame
-        return
-
-    src_fps = info.fps or 30.0
+def pick_frames(sources: Iterable, src_fps: float,
+                fps: Optional[float] = None, start: Optional[float] = None,
+                end: Optional[float] = None) -> Iterator[tuple]:
+    """The source frames ``sources`` (in order, at ``src_fps``) as
+    ffmpeg's fps filter takes them: ``(source, ticks)`` for each source
+    frame that an output tick takes, ``ticks`` its ``[(output index, t
+    seconds), ...]``; frames no tick takes are passed over unyielded.
+    Without ``fps`` each source frame in [start, end] is one tick at its
+    own time. With it, output tick k at time start + k/fps takes the most
+    recent source frame, ``round(tick · src_fps)``: one source frame may
+    be taken by several ticks (``fps`` above the clip's rate), once, with
+    all of them, or by none (below it)."""
     t0 = start or 0.0
-    out_idx = 0
-    if fps is None or fps <= 0:
-        for i, frame in enumerate(reader.frames()):
+    k = 0
+    for i, source in enumerate(sources):
+        ticks = []
+        if fps is None or fps <= 0:
             t = i / src_fps
             if t < t0 - 1e-9:
                 continue
             if end is not None and t > end + 1e-9:
                 return
-            yield out_idx, t, frame
-            out_idx += 1
-        return
+            ticks.append((k, t))
+            k += 1
+        else:
+            while True:
+                tick = t0 + k / fps
+                if end is not None and tick > end + 1e-9:
+                    if ticks:
+                        yield source, ticks
+                    return
+                if int(round(tick * src_fps)) > i:
+                    break  # the tick belongs to a later source frame
+                ticks.append((k, tick))
+                k += 1
+        if ticks:
+            yield source, ticks
 
-    # output tick k at time t0 + k/fps maps to the nearest source frame
-    for i, frame in enumerate(reader.frames()):
-        while True:
-            tick = t0 + out_idx / fps
-            if end is not None and tick > end + 1e-9:
-                return
-            target = int(round(tick * src_fps))
-            if target > i:
-                break  # tick belongs to a later source frame
-            yield out_idx, tick, frame
-            out_idx += 1
+
+def source_frames(path, *, fps: Optional[float] = None,
+                  start: Optional[float] = None, end: Optional[float] = None,
+                  stream: Optional[int] = None
+                  ) -> Tuple[Iterator[tuple], Optional[Callable]]:
+    """Open the clip now; ``(groups, decode)``: ``groups`` yields ``(item,
+    ticks)`` for each source frame that an output tick takes
+    (:func:`pick_frames`; the ffmpeg pipe resamples itself, a tick a
+    frame), ``decode`` turns an item into its (H, W, 3) frame. An MJPEG-AVI
+    clip's items are each frame's JPEG bytes and ``decode`` is
+    :func:`decode_jpeg_frame`, so frames may decode on several threads and
+    a frame no tick takes is never decoded. A stream read in order (Y4M,
+    the ffmpeg pipe) decodes in each ``next()`` of ``groups``: its items
+    are the frames and ``decode`` is None."""
+    reader = open_video(path, stream=stream)
+    info = reader.info()
+    if isinstance(reader, FFmpegReader):
+        out_fps = fps or info.fps
+        frames = reader.frames(fps=fps, start=start, end=end)
+        return (((frame, [(i, (start or 0.0) + i / out_fps)])
+                 for i, frame in enumerate(frames)), None)
+    src_fps = info.fps or 30.0
+    if isinstance(reader, MJPEGAVIReader):
+        return (pick_frames(reader.payloads(), src_fps, fps, start, end),
+                decode_jpeg_frame)
+    return pick_frames(reader.frames(), src_fps, fps, start, end), None
+
+
+def iter_frames(path, *, fps: Optional[float] = None,
+                start: Optional[float] = None, end: Optional[float] = None,
+                stream: Optional[int] = None) -> Iterator[Frame]:
+    """Yield (output_index, t_seconds, rgb) resampled to ``fps``.
+
+    Resampling matches ffmpeg's fps filter (:func:`pick_frames`): output
+    tick k at time k/fps maps to the most recent source frame, decoded
+    once however many ticks take it.
+    """
+    groups, decode = source_frames(path, fps=fps, start=start, end=end,
+                                   stream=stream)
+    for item, ticks in groups:
+        frame = item if decode is None else decode(item)
+        for k, t in ticks:
+            yield k, t, frame

@@ -88,6 +88,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gs360x_micro_op.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i32,
                                     i32, vp]
     lib.gs360x_micro_op.restype = i32
+    lib.gs360x_pack_rgb.argtypes = [vp, vp, i64]
+    lib.gs360x_pack_rgb.restype = None
     lib.gs360x_cuda_error_string.argtypes = [i32]
     lib.gs360x_cuda_error_string.restype = ctypes.c_char_p
 

@@ -6,8 +6,9 @@ each frame once, on a pool of threads that hands the frames out in order,
 uploads it to the device once as Pillow's own RGBX texels
 (:func:`upload_rows`), warps all views of a view group in one launch,
 quantizes in the warp kernel's own store, fetches once per (group, frame)
-and streams the encodes through the async writer pool. Video mode, on
-one decode thread, batches frames over a data mesh
+and streams the encodes through the async writer pool. Video mode decodes
+an MJPEG-AVI clip's frames on the same pool (a Y4M or ffmpeg stream on one
+thread, in its read order) and batches frames over a data mesh
 (:mod:`gs360x_torch.runtime.mesh`): on a CUDA device 4 frames a batch
 over every visible card (at least one a card), on the CPU 1; one upload a
 batch, one warp launch a (group, batch, device) for every frame
@@ -112,10 +113,11 @@ class ProgressPrinter:
 
 
 def _decode_width() -> int:
-    """Image mode's decode threads: one a core, at most 8. They share the
-    cores with the encoders, one a core at ``-j auto``: on the 8 cores of
-    an H100's host, where decode is ~40% of an 8K frame's CPU time, 6 or 8
-    threads ran ~15-20% more frames a second than 4 (PERF.md)."""
+    """The decode threads of image mode and of video mode on an MJPEG-AVI
+    clip: one a core, at most 8. They share the cores with the encoders,
+    one a core at ``-j auto``: on the 8 cores of an H100's host, where
+    decode is ~40% of an 8K frame's CPU time, 6 or 8 threads ran ~15-20%
+    more frames a second than 4 (PERF.md)."""
     return min(8, os.cpu_count() or 1)
 
 
@@ -254,14 +256,13 @@ def run_plan(plan: RenderPlan, *,
     report.stage_seconds = dict(timers.totals)
     if stats and not quiet:
         texels = imagelib.texel_decode_counts()
+        pool = decode_overlap()
+        mode = (f" | decodes overlapped {pool['overlapped']} of "
+                f"{pool['decodes']}, width {pool['width']}")
         if plan.video_mode:
             counts = videolib.open_counts()
             mode = (f" | video opens {counts['opens']}, "
-                    f"{counts['bytes']} bytes")
-        else:
-            pool = decode_overlap()
-            mode = (f" | decodes overlapped {pool['overlapped']} of "
-                    f"{pool['decodes']}, width {pool['width']}")
+                    f"{counts['bytes']} bytes" + mode)
         print(f"[STATS] {timers.report()} | wall {report.seconds:.2f}s | "
               f"texel decodes {texels['served']} of {texels['requested']}"
               + mode)
@@ -386,14 +387,22 @@ def _run_video_sharded(plan, writer, report, stop_event, tick, interp,
     view group goes through one launch a device. Batch k+1 is dispatched
     before batch k is fetched; every upload, launch and fetch stays on
     PyTorch's current stream, and each batch has its own outputs. Output
-    names keep the source's frame index."""
+    names keep the source's frame index. An MJPEG-AVI clip's frames decode
+    on :func:`_decode_width` threads, each source frame once however many
+    ticks take it; a Y4M or ffmpeg stream on one thread."""
     source = plan.jobs[0].source
     views = plan.unique_views()
     name_patterns = [plan.jobs[i].output_name for i in range(len(views))]
     qbits = 16 if plan.bit_depth > 8 else 8
-    frame_iter = videolib.iter_frames(source, fps=plan.fps,
-                                      start=plan.start_time,
-                                      end=plan.end_time)
+    groups, decode = videolib.source_frames(source, fps=plan.fps,
+                                            start=plan.start_time,
+                                            end=plan.end_time)
+    selected = plan.selected_frames
+    if selected is not None:
+        # CSV frame selection, the original numbering kept: a source frame
+        # none of whose ticks is selected is dropped before its decode
+        groups = ((item, kept) for item, ticks in groups
+                  if (kept := [tick for tick in ticks if tick[0] in selected]))
     done = 0
     total_est = report.total
     pending = None  # (idxs, results) on the devices, not yet fetched
@@ -433,19 +442,30 @@ def _run_video_sharded(plan, writer, report, stop_event, tick, interp,
         pending = (batch_idx, results)
         batch_idx, batch_rgb = [], []
 
-    # one thread decodes: n_batch + 3 frames taken and not yet passed
-    for idx, _t, rgb in Prefetcher(
-            timers.wrap_iter("decode", frame_iter), stop_event,
-            depth=n_batch + 2, timers=timers):
+    if decode is None:
+        # a stream read in order decodes in each next(): one thread
+        stage = Prefetcher(timers.wrap_iter("decode", groups), stop_event,
+                           depth=n_batch + 2, timers=timers)
+    else:
+        def decoded(group):
+            item, ticks = group
+            with timers.stage("decode"):
+                return decode(item), ticks
+
+        # MJPEG-AVI: each frame's JPEG on image mode's pool, in order
+        stage = Prefetcher(groups, stop_event, depth=n_batch + 2,
+                           timers=timers, decode=decoded,
+                           width=_decode_width())
+    # width + n_batch + 2 source frames taken and not yet passed
+    for rgb, ticks in stage:
         if stop_event.is_set():
             return
-        if plan.selected_frames is not None \
-                and idx not in plan.selected_frames:
-            continue  # CSV frame selection: original numbering preserved
-        batch_idx.append(idx)
-        batch_rgb.append(np.ascontiguousarray(rgb))
-        if len(batch_rgb) == n_batch:
-            flush()
+        rgb = np.ascontiguousarray(rgb)
+        for idx, _t in ticks:
+            batch_idx.append(idx)
+            batch_rgb.append(rgb)
+            if len(batch_rgb) == n_batch:
+                flush()
     flush()
     if pending is not None and not stop_event.is_set():
         drain(pending)

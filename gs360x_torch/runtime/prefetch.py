@@ -23,9 +23,10 @@ def decode_overlap(start: Optional[float] = None,
                    end: Optional[float] = None) -> dict:
     """``{"decodes", "overlapped", "width"}``: the decodes of every
     :class:`Prefetcher` in this process (one an item; where the items'
-    own ``next()`` decodes, as in video mode and Video2Frames, the width is
-    1 and none overlaps), those that started while another decode of the
-    same stage was running, and the widest stage that ran them (0: none);
+    own ``next()`` decodes, as in Video2Frames and video mode on a Y4M or
+    ffmpeg stream, the width is 1 and none overlaps), those that started
+    while another decode of the same stage was running, and the widest
+    stage that ran them (0: none);
     given ``start`` and ``end`` (``time.perf_counter``), only those of the
     newest 65536 that started in [start, end)."""
     return _DECODES.read(start, end)

@@ -23,7 +23,8 @@ grid-invariant and repeated blocks of the products, the composite, the
 SASS instructions ``SASS_CHECKS`` asks for; and MaskSeg's device
 steps against the CPU: the U-Net's logits with TF32 off (1e-3), the
 morphology bitwise, the blur (1e-6), the inpaint (1e-5) and
-``combined_mask``; the training step by
+``combined_mask``; video mode's host pack of an RGBX block (the kernel
+library's loop) bitwise numpy's; the training step by
 both conv routes against the CPU and over two replicas on the card
 against one; ``maybe_trace`` around a warp, its trace holding the
 launched kernels; and the voxel count and picks on a
@@ -912,6 +913,39 @@ def test_pillow_rgbx_decode_is_the_texel_route_bitwise(dev, tmp_path):
                  out_dtype=torch.uint8).cpu() for src in (rgbx, rgb)]
     assert got[0].shape == (10, 3, 256, 256)
     assert torch.equal(got[0], got[1])
+
+
+def test_library_pack_is_the_numpy_pack(dev, tmp_path, monkeypatch):
+    """The kernel library's host pack (``csrc/pack_rgb.cu``, video mode's
+    route on a host with a card) bitwise numpy's strided copy (the route
+    without one) on an 8K frame's RGBX block and on 1-9 pixels (the tail of
+    n % 4); ``decode_jpeg_frame`` takes it here and gives Pillow's
+    ``convert("RGB")``."""
+    from PIL import Image
+    from gs360x_torch.io import image as imagelib
+    from gs360x_torch.io import video as videolib
+    from gs360x_torch.kernels import _build
+
+    rng = np.random.default_rng(24)
+    frame = rng.integers(0, 256, (3840, 7680, 3), dtype=np.uint8)
+    path = tmp_path / "f.jpg"
+    Image.fromarray(frame).save(path, quality=95, subsampling=0)
+    with Image.open(path) as im:
+        rgbx = imagelib._decode_rgbx(im)
+    assert rgbx is not None and rgbx.shape == (3840, 7680, 4)
+    blocks = [rgbx] + [rng.integers(0, 256, (1, n, 4), dtype=np.uint8)
+                       for n in range(1, 10)]
+    for block in blocks:
+        monkeypatch.setattr(videolib, "_LIBRARY_PACK",
+                            _build.load().gs360x_pack_rgb)
+        got = videolib._pack_rgb(block)
+        monkeypatch.setattr(videolib, "_LIBRARY_PACK", False)
+        assert np.array_equal(got, videolib._pack_rgb(block))
+    monkeypatch.setattr(videolib, "_LIBRARY_PACK", None)
+    got = videolib.decode_jpeg_frame(path.read_bytes())
+    assert videolib._LIBRARY_PACK
+    with Image.open(path) as im:
+        assert np.array_equal(got, np.asarray(im.convert("RGB")))
 
 
 @pytest.fixture(scope="module")

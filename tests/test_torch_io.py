@@ -158,6 +158,22 @@ def test_iter_frames_matches_jax_package(tmp_path, kw):
         np.testing.assert_array_equal(gimg, rimg)
 
 
+@pytest.mark.parametrize("kw", [{}, {"fps": 2.0}, {"fps": 6.0},
+                                {"fps": 25.0},
+                                {"fps": 10.0, "start": 0.5, "end": 1.0},
+                                {"start": 0.35, "end": 1.2}])
+def test_mjpeg_iter_frames_matches_jax_package(tmp_path, kw):
+    """The MJPEG-AVI route (each taken frame's JPEG decoded once, through
+    Pillow's block) against the JAX package's, which decodes every frame."""
+    p = tmp_path / "v.avi"
+    jvio.write_mjpeg_avi(p, gradient_frames(20), fps=10.0)
+    ref, got = list(jvio.iter_frames(p, **kw)), list(tvio.iter_frames(p, **kw))
+    assert len(got) == len(ref) and ref
+    for (gi, gt, gimg), (ri, rt, rimg) in zip(got, ref):
+        assert (gi, gt) == (ri, rt)
+        np.testing.assert_array_equal(gimg, rimg)
+
+
 def test_yuv_conversions_match_jax_package():
     rgb = np.random.default_rng(3).integers(0, 256, (48, 64, 3), np.uint8)
     ref = jvio.rgb_to_yuv601(rgb)

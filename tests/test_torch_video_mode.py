@@ -15,6 +15,7 @@ import json
 import pathlib
 import threading
 import time
+from operator import add
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from gs360x_torch.io import video as videolib
 from gs360x_torch.rig.presets import build_view_plan
 from gs360x_torch.runtime import executor
 from gs360x_torch.runtime import mesh as meshlib
+from gs360x_torch.runtime import prefetch
 from gs360x_torch.runtime import profiling as tprof
 from gs360x_torch.tools import perspcut
 from portbench import avi, scenes
@@ -253,18 +255,21 @@ def test_video_spans_and_counters(clip, tmp_path, capsys, n_batch):
     total = videolib.open_counts()
     assert total["opens"] - total0["opens"] == opens
     assert executor.video_frames_warped(t0, t1) == FRAMES
-    # each open lies inside one decode span of the prefetch thread, or on
-    # the loop's thread before it
+    # one decode span a decoded frame, on the decode pool's threads; every
+    # open lies on the loop's thread, outside them
     decodes = held["decode"]
+    assert len(decodes) == FRAMES
     nested = [o for o in held["video_open"]
               if any(d[0] == o[0] and d[1] <= o[1] and o[2] <= d[2]
                      for d in decodes)]
-    assert len(nested) == 1
+    assert len(nested) == 0
     if n_batch == 1:
         stats = [ln for ln in capsys.readouterr().out.splitlines()
                  if ln.startswith("[STATS]")][-1]
+        pool = executor.decode_overlap()
         assert f"video opens {total['opens']}, {total['bytes']} bytes" \
-            in stats
+            f" | decodes overlapped {pool['overlapped']} of " \
+            f"{pool['decodes']}, width {pool['width']}" in stats
 
 
 def test_image_mode_runs_none_of_them(tmp_path):
@@ -316,7 +321,21 @@ READERS = {
     "mesh_warp_roofline": 100.0 * 8 * 9.0 / 80.0,
     # busy 0.88 ms of the 1 s window
     "device_idle_pct.video": 100.0 * (1 - 0.88e-3),
+    # 7 of the window's 8 frame decodes started beside another (DECODES)
+    "decode_overlap_pct.video": 100.0 * 7 / 8,
 }
+# (start, overlapped) of the stage's decodes: one before the window, the 8
+# frames of its two batches in it (the first alone), one at its end
+DECODES = ([(99.5, True), (100.2, False)]
+           + [(100.3 + 0.08 * k, True) for k in range(7)] + [(101.0, True)])
+
+
+def _feed(monkeypatch, decodes):
+    """``prefetch.decode_overlap``'s counter, holding ``decodes``."""
+    fed = tprof.WindowCounter(decodes=add, overlapped=add, width=max)
+    for t, overlapped in decodes:
+        fed.add(t, decodes=1, overlapped=overlapped, width=8)
+    monkeypatch.setattr(prefetch, "_DECODES", fed)
 
 
 def _readings():
@@ -358,6 +377,7 @@ def test_reader(name, monkeypatch):
     monkeypatch.setattr(tprof, "spans", lambda since=None: list(SYNTHETIC))
     monkeypatch.setattr(executor, "video_frames_warped",
                         lambda start=None, end=None: 8)
+    _feed(monkeypatch, DECODES)
     assert _reader(name).read(_readings()) == pytest.approx(READERS[name],
                                                             rel=1e-9)
 
@@ -365,14 +385,17 @@ def test_reader(name, monkeypatch):
 @pytest.mark.parametrize("name", sorted(set(READERS)
                                         - {"device_idle_pct.video"}))
 def test_reader_without_its_program(name, monkeypatch):
-    """No frame warped, or a program without the counter and the ring
-    (one older than these spans): None, never a raise."""
+    """No frame warped or decoded in the window, or a program without the
+    counters and the ring (one older than these spans): None, never a
+    raise."""
     reader = _reader(name)
     monkeypatch.setattr(tprof, "spans", lambda since=None: list(SYNTHETIC))
     monkeypatch.setattr(executor, "video_frames_warped",
                         lambda start=None, end=None: 0)
+    _feed(monkeypatch, [DECODES[0], DECODES[-1]])
     if name != "video_open_s":
         assert reader.read(_readings()) is None
     monkeypatch.delattr(executor, "video_frames_warped")
+    monkeypatch.delattr(executor, "decode_overlap")
     monkeypatch.delattr(tprof, "spans")
     assert reader.read(_readings()) is None
