@@ -423,7 +423,8 @@ class AsyncImageWriter:
     adaptive memory limiter plays, ``gs360_FrameSelector.py:65-193``).
     With ``timers`` (a :class:`~gs360x_torch.runtime.profiling.StageTimers`),
     that block is a ``writer_block`` stage of the submitting thread and
-    each write an ``encode`` stage of its writer thread.
+    each write a stage of its writer thread, named by ``submit``'s
+    ``stage`` (``encode`` unless said).
     """
 
     def __init__(self, workers: int = 4, max_pending: int = 32,
@@ -440,13 +441,14 @@ class AsyncImageWriter:
             return contextlib.nullcontext()
         return self._timers.stage(name)
 
-    def submit(self, path, img: np.ndarray, **kw) -> None:
+    def submit(self, path, img: np.ndarray, *, stage: str = "encode",
+               **kw) -> None:
         with self._stage("writer_block"):
             self._sem.acquire()
 
         def task():
             try:
-                with self._stage("encode"):
+                with self._stage(stage):
                     write_image(path, img, **kw)
             except Exception as exc:  # surfaced on close()
                 with self._lock:

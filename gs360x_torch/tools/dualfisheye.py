@@ -17,6 +17,12 @@ same maps with ``nearest``; the kernel's store quantizes the outputs
 (``rint(clip·255)`` u8), which are fetched once per launch.
 ``--device cpu`` runs the plain versions.
 
+``--mask-input-dir``: a lens image's mask is the file of its own name
+there, else ``<stem>.png``, the name MaskSeg's ``--mode mask`` writes (the
+JAX tool looks for the first only). A lens without either is written
+without masks, counted, and named in one ``[WARN]`` line at the end of
+the run.
+
 ``--input-lut`` (or ``--input-color-profile osmo360-dlogm`` with
 ``--dlogm-lut``) decodes each lens image on the device before the remaps:
 planarize to f32 planes (×1/255, or ×1/65535 for 16-bit), the trilinear
@@ -40,8 +46,10 @@ import os
 import pathlib
 import sys
 import threading
+import time
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass
+from operator import add
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,7 +69,8 @@ from gs360x_torch.kernels import _build, remap_cuda, warp_cuda
 from gs360x_torch.rig.presets import parse_sensor_dimensions
 from gs360x_torch.runtime.executor import _quantize_device, upload_rows
 from gs360x_torch.runtime.prefetch import Prefetcher
-from gs360x_torch.runtime.profiling import StageTimers, maybe_trace
+from gs360x_torch.runtime.profiling import (StageTimers, WindowCounter,
+                                             maybe_trace)
 from gs360x_torch.runtime.throttle import AdaptiveLimiter, MemoryMonitor
 from gs360x_torch.templates import default_osmo360_calibration_path
 
@@ -524,6 +533,37 @@ class _LensViews:
 
 
 # --------------------------------------------------------------------------
+# masks
+# --------------------------------------------------------------------------
+
+
+# each lens image's mask lookup: (start on time.perf_counter, 1, found)
+_MASKS = WindowCounter(looked_up=add, found=add)
+
+
+def mask_counts(start: Optional[float] = None,
+                end: Optional[float] = None) -> dict:
+    """``{"looked_up", "found"}``: the lens images of this process whose
+    mask was looked for under ``--mask-input-dir``, and those that had one;
+    given ``start`` and ``end`` (``time.perf_counter``), only the lookups
+    of the newest 65536 that started in [start, end)."""
+    return _MASKS.read(start, end)
+
+
+def find_mask(mask_dir: pathlib.Path, image: pathlib.Path
+              ) -> Optional[pathlib.Path]:
+    """The mask of lens image ``image`` under ``mask_dir``: the file of
+    its own name, else ``<stem>.png`` (MaskSeg's name), else None; each
+    call counted by :func:`mask_counts`."""
+    t0 = time.perf_counter()
+    found = next((p for p in (mask_dir / image.name,
+                              mask_dir / f"{image.stem}.png")
+                  if p.exists()), None)
+    _MASKS.add(t0, looked_up=1, found=found is not None)
+    return found
+
+
+# --------------------------------------------------------------------------
 # CLI
 # --------------------------------------------------------------------------
 
@@ -852,6 +892,13 @@ def _main(argv=None) -> int:
     # the lens image or the LUT path takes it
     want_texels = input_lut is None and not args.save_color_corrected_output
 
+    def read_mask(lens_path):
+        path = find_mask(mask_dir, lens_path) if mask_dir else None
+        if path is None:
+            return None
+        with timers.stage("mask_decode"):
+            return read_image(path)[..., 0]
+
     def decode_pair(item):
         """The pair and its lens images and masks, or the exception their
         decode raised: that pair's own failure."""
@@ -860,17 +907,12 @@ def _main(argv=None) -> int:
             with limiter, timers.stage("decode"):
                 img_x = read_image(xp, texels=want_texels)
                 img_y = read_image(yp, texels=want_texels)
-                mask_x = mask_y = None
-                if mask_dir is not None:
-                    mx_p = mask_dir / xp.name
-                    my_p = mask_dir / yp.name
-                    if mx_p.exists():
-                        mask_x = read_image(mx_p)[..., 0]
-                    if my_p.exists():
-                        mask_y = read_image(my_p)[..., 0]
+                mask_x, mask_y = read_mask(xp), read_mask(yp)
         except Exception as exc:
             return item, exc
         return item, (img_x, img_y, mask_x, mask_y)
+
+    masks_before = mask_counts()
 
     with maybe_trace("dualfisheye"), \
             AsyncImageWriter(workers=8, timers=timers) as writer, \
@@ -933,10 +975,10 @@ def _main(argv=None) -> int:
                         rendered.update(zip(group.view_ids, out))
                         src_mask = mask_x if lens == "X" else mask_y
                         if src_mask is not None:
-                            mplanes = remap_cuda.source_planes(
-                                src_mask, src_mask.shape[0],
-                                src_mask.shape[1], device)
-                            with timers.stage("remap+fetch"):
+                            with timers.stage("mask_remap+fetch"):
+                                mplanes = remap_cuda.source_planes(
+                                    src_mask, src_mask.shape[0],
+                                    src_mask.shape[1], device)
                                 mout = group.render(
                                     mplanes, src_mask.shape[:2], "nearest",
                                     0.0)
@@ -953,7 +995,7 @@ def _main(argv=None) -> int:
                             writer.submit(
                                 masks_dir / f"{base}_{vid}"
                                             f"{args.perspective_mask_ext}",
-                                masks[vid])
+                                masks[vid], stage="mask_encode")
                 report["pairs"].append({"base": base, "outputs": outputs})
                 report["processed"] += 1
             except Exception as exc:
@@ -971,10 +1013,17 @@ def _main(argv=None) -> int:
     if args.report_json:
         pathlib.Path(args.report_json).write_text(json.dumps(report,
                                                              indent=2))
+    masks_run = {k: v - masks_before[k] for k, v in mask_counts().items()}
+    if masks_run["found"] < masks_run["looked_up"]:
+        print(f"[WARN] {masks_run['looked_up'] - masks_run['found']} of "
+              f"{masks_run['looked_up']} lens image(s) had no mask in "
+              f"{mask_dir} (neither their own name nor <stem>.png); their "
+              "views were written without one", file=sys.stderr)
     if args.stats:
         texels = texel_decode_counts()
         print(f"[STATS] {timers.report()} | texel decodes "
-              f"{texels['served']} of {texels['requested']}")
+              f"{texels['served']} of {texels['requested']} | masks "
+              f"{masks_run['found']} of {masks_run['looked_up']}")
     print(f"[OK] processed={report['processed']} failed={report['failed']}")
     return 0 if report["failed"] == 0 else 2
 

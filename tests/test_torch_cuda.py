@@ -28,7 +28,9 @@ library's loop) bitwise numpy's; the training step by
 both conv routes against the CPU and over two replicas on the card
 against one; ``maybe_trace`` around a warp, its trace holding the
 launched kernels; and the voxel count and picks on a
-200,000-point cloud against the CPU and over two card runs. Marked
+200,000-point cloud against the CPU and over two card runs; and
+dualfisheye's mask co-warp at 3840² with the SFM10 maps against
+``portbench/reference/mask.py``. Marked
 ``cuda``: each test skips without a card. On a machine
 with one, run (the JAX-side conftest is not needed)::
 
@@ -991,3 +993,61 @@ def test_voxel_path_matches_cpu(dev, cloud_200k, rep):
         _differ, far = checks.centroid_pick_differences(
             cloud_200k, keys.numpy(), runs[0].numpy(), ref.numpy())
         assert far == 0
+
+
+def test_mask_cowarp_at_full_size_matches_the_plain_reference(dev, tmp_path):
+    """dualfisheye's mask co-warp at the benchmark cell's size: a seeded
+    3840² MaskSeg-style mask a lens (``portbench``'s masked driver) through
+    the SFM10 maps the tool builds, ``nearest`` over one u8 plane with the
+    u8 store, one launch a lens (``_LensViews.render`` as the pair loop
+    calls it): bitwise ``portbench/reference/mask.py`` over the same
+    float32 maps, and equal to it over its float64 maps but where a
+    coordinate lies within 0.1 px of a rounding tie (the tool builds its
+    maps in float32, up to 0.079 px from float64 at this size)."""
+    from gs360x_torch import templates
+    from gs360x_torch.tools import dualfisheye as df
+    from portbench import harness
+    from portbench.reference import fisheye
+    from portbench.reference import mask as maskref
+
+    driver = harness.load_module(harness.HERE / "drivers"
+                                 / "dualfisheye_masks.py")
+    cfg = harness.load_json(harness.HERE / "configs"
+                            / "dualfisheye-masks-osmo360-sfm10.json")
+    traffic = harness.load_json(
+        harness.HERE / "workloads"
+        / "dualfisheye-masks.osmo360-sfm10.png-masks.json")
+    params = dict(traffic["masks"], circle=traffic["scene"]["circle"])
+    sensors, _ = df.load_metashape_calibration(
+        templates.write_osmo360_default_calibration(tmp_path / "c.xml"))
+    sid = next(iter(sensors))
+    specs = df.build_sfm10_specs(1750, 14.0, "36 36", 40.0, 40.0)
+    maps = df.build_perspective_spec_maps(sensors, sid, sid, specs, 0.0,
+                                          180.0, 190.0)
+    ref64 = fisheye.view_maps(cfg, torch.float64, dev)
+    seen = set()
+    for k, lens in enumerate("XY"):
+        mask = driver.mask_image(25, k, 3840, params)
+        src = torch.from_numpy(mask)
+        ids = [s["view_id"] for s in specs
+               if maps[s["view_id"]]["lens_key"] == lens]
+        own = {v: tuple(torch.from_numpy(maps[v][key]).to(dev)
+                        for key in ("map_x", "map_y", "valid"))
+               for v in ids}
+        views = df._LensViews(ids, [tuple(maps[v][key] for key in
+                                          ("map_x", "map_y", "valid"))
+                                    for v in ids], dev)
+        before = remap_cuda.LAUNCHES["remap"]
+        got = views.render(remap_cuda.source_planes(mask, 3840, 3840, dev),
+                           (3840, 3840), "nearest", 0.0)
+        assert remap_cuda.LAUNCHES["remap"] == before + 1
+        assert got.shape == (len(ids), 1, 1750, 1750)
+        for i, v in enumerate(ids):
+            out = torch.from_numpy(got[i, 0]).to(dev)
+            assert torch.equal(out, maskref.cowarp(src, own[v])), v
+            _lens, *view_maps = ref64[v]
+            ref = maskref.cowarp(src, tuple(view_maps))
+            tie = maskref.near_tie(tuple(view_maps), 0.1)
+            assert torch.equal(out[~tie], ref[~tie]), v
+            seen |= set(out.unique().tolist())
+    assert seen == {0, 255}
