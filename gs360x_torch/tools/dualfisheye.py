@@ -17,6 +17,11 @@ same maps with ``nearest``; the kernel's store quantizes the outputs
 (``rint(clip·255)`` u8), which are fetched once per launch.
 ``--device cpu`` runs the plain versions.
 
+Decode: ``--workers`` W threads each take the next pair (W + 1 pairs taken
+and not yet passed to the device loop); each decodes lens X, and its
+mask, while a helper thread of its own decodes lens Y and Y's mask
+(:func:`lens_overlap` counts the pairs whose two lens decodes overlapped).
+
 ``--mask-input-dir``: a lens image's mask is the file of its own name
 there, else ``<stem>.png``, the name MaskSeg's ``--mode mask`` writes (the
 JAX tool looks for the first only). A lens without either is written
@@ -40,6 +45,7 @@ launch nothing.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import math
 import os
@@ -70,7 +76,7 @@ from gs360x_torch.rig.presets import parse_sensor_dimensions
 from gs360x_torch.runtime.executor import _quantize_device, upload_rows
 from gs360x_torch.runtime.prefetch import Prefetcher
 from gs360x_torch.runtime.profiling import (StageTimers, WindowCounter,
-                                             maybe_trace)
+                                             maybe_trace, span)
 from gs360x_torch.runtime.throttle import AdaptiveLimiter, MemoryMonitor
 from gs360x_torch.templates import default_osmo360_calibration_path
 
@@ -563,6 +569,21 @@ def find_mask(mask_dir: pathlib.Path, image: pathlib.Path
     return found
 
 
+# each pair's decode: (the earlier lens's start on time.perf_counter, 1,
+# whether the two lens decodes overlapped in time)
+_LENS_OVERLAP = WindowCounter(pairs=add, overlapped=add)
+
+
+def lens_overlap(start: Optional[float] = None,
+                 end: Optional[float] = None) -> dict:
+    """``{"pairs", "overlapped"}``: the lens pairs this process decoded,
+    and those whose two lens decodes (each lens image with its mask) ran
+    at the same time for a while; given ``start`` and ``end``
+    (``time.perf_counter``), only the pairs of the newest 65536 whose
+    decode started in [start, end)."""
+    return _LENS_OVERLAP.read(start, end)
+
+
 # --------------------------------------------------------------------------
 # CLI
 # --------------------------------------------------------------------------
@@ -879,8 +900,9 @@ def _main(argv=None) -> int:
 
     # memory-adaptive prefetch of pair decodes (reference's throttled
     # worker loop): n_workers decode threads, n_workers + 1 pairs taken and
-    # not yet passed by the device loop, fewer decodes at once under
-    # memory pressure.
+    # not yet passed by the device loop, fewer pairs decoded at once under
+    # memory pressure. Each decode thread has a helper for the pair's Y
+    # lens (lens_pool).
     n_workers = args.workers or min(4, os.cpu_count() or 1)
     limiter = AdaptiveLimiter(n_workers)
     if args.memory_throttle_percent:
@@ -899,25 +921,52 @@ def _main(argv=None) -> int:
         with timers.stage("mask_decode"):
             return read_image(path)[..., 0]
 
+    def decode_lens(path):
+        """Lens image ``path`` and then its mask, each as read or as the
+        exception its read raised (no mask read after a failed image), and
+        the decode's start and end on ``time.perf_counter``."""
+        t0 = time.perf_counter()
+        try:
+            img = read_image(path, texels=want_texels)
+        except Exception as exc:
+            return (exc, None), (t0, time.perf_counter())
+        try:
+            mask = read_mask(path)
+        except Exception as exc:
+            mask = exc
+        return (img, mask), (t0, time.perf_counter())
+
+    def decode_lens_y(path):
+        """The helper's lens: a ``decode`` span in the ring only, so that
+        ``[STATS]`` keeps one ``decode`` a pair."""
+        with span("decode"):
+            return decode_lens(path)
+
     def decode_pair(item):
-        """The pair and its lens images and masks, or the exception their
-        decode raised: that pair's own failure."""
+        """The pair and its lens images and masks, or the first exception
+        of X's image, Y's image, X's mask, Y's mask: that pair's own
+        failure. Lens Y decodes on a helper while this thread decodes X."""
         xp, yp = item[1:3]
         try:
             with limiter, timers.stage("decode"):
-                img_x = read_image(xp, texels=want_texels)
-                img_y = read_image(yp, texels=want_texels)
-                mask_x, mask_y = read_mask(xp), read_mask(yp)
+                lens_y = lens_pool.submit(decode_lens_y, yp)
+                (img_x, mask_x), (x0, x1) = decode_lens(xp)
+                (img_y, mask_y), (y0, y1) = lens_y.result()
         except Exception as exc:
             return item, exc
-        return item, (img_x, img_y, mask_x, mask_y)
+        _LENS_OVERLAP.add(min(x0, y0), pairs=1,
+                          overlapped=max(x0, y0) < min(x1, y1))
+        parts = (img_x, img_y, mask_x, mask_y)
+        return item, next((p for p in parts if isinstance(p, Exception)),
+                          parts)
 
-    masks_before = mask_counts()
+    masks_before, overlap_before = mask_counts(), lens_overlap()
 
     with maybe_trace("dualfisheye"), \
             AsyncImageWriter(workers=8, timers=timers) as writer, \
             MemoryMonitor(limiter, high=high,
-                          low=max(0.0, high - 0.10)):
+                          low=max(0.0, high - 0.10)), \
+            concurrent.futures.ThreadPoolExecutor(n_workers) as lens_pool:
         decoded = Prefetcher(resolved, threading.Event(), depth=1,
                              timers=timers, decode=decode_pair,
                              width=n_workers)
@@ -1014,6 +1063,8 @@ def _main(argv=None) -> int:
         pathlib.Path(args.report_json).write_text(json.dumps(report,
                                                              indent=2))
     masks_run = {k: v - masks_before[k] for k, v in mask_counts().items()}
+    overlap_run = {k: v - overlap_before[k]
+                   for k, v in lens_overlap().items()}
     if masks_run["found"] < masks_run["looked_up"]:
         print(f"[WARN] {masks_run['looked_up'] - masks_run['found']} of "
               f"{masks_run['looked_up']} lens image(s) had no mask in "
@@ -1023,7 +1074,8 @@ def _main(argv=None) -> int:
         texels = texel_decode_counts()
         print(f"[STATS] {timers.report()} | texel decodes "
               f"{texels['served']} of {texels['requested']} | masks "
-              f"{masks_run['found']} of {masks_run['looked_up']}")
+              f"{masks_run['found']} of {masks_run['looked_up']} | lens "
+              f"overlap {overlap_run['overlapped']} of {overlap_run['pairs']}")
     print(f"[OK] processed={report['processed']} failed={report['failed']}")
     return 0 if report["failed"] == 0 else 2
 

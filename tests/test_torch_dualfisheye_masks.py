@@ -15,6 +15,7 @@ maps over the cell's ``far_pct`` limit."""
 
 import json
 import pathlib
+import re
 import threading
 import time
 
@@ -160,10 +161,12 @@ def _by_name(held):
 
 
 def test_mask_spans_threads_counts_and_stats(tmp_path, capsys):
-    """2 pairs: a ``mask_decode`` a lens inside its pair's ``decode`` on the
-    decode thread, a ``mask_remap+fetch`` a lens on the loop, a
-    ``mask_encode`` a mask on the writers; the views' ``encode`` spans
-    count views only; ``[STATS]`` parses with the driver's regex."""
+    """2 pairs: a ``mask_decode`` a lens inside its lens's ``decode`` on
+    the thread that decodes the lens (the pair's on the decode thread, the
+    Y lens's ring-only one on its helper), a ``mask_remap+fetch`` a lens on
+    the loop, a ``mask_encode`` a mask on the writers; the views' ``encode``
+    spans count views only; ``[STATS]`` parses with the benchmark's regex, one
+    ``decode`` a pair in it."""
     *_, argv = _rig(tmp_path, 5)
     since = time.perf_counter()
     assert tdf.main(argv) == 0
@@ -174,7 +177,7 @@ def test_mask_spans_threads_counts_and_stats(tmp_path, capsys):
     assert {k: counts[k] for k in ("decode", "mask_decode", "upload",
                                    "remap+fetch", "mask_remap+fetch",
                                    "encode", "mask_encode")} == {
-        "decode": 2, "mask_decode": 4, "upload": 2, "remap+fetch": 4,
+        "decode": 4, "mask_decode": 4, "upload": 2, "remap+fetch": 4,
         "mask_remap+fetch": 4, "encode": 20, "mask_encode": 20}
     decoders = {tid for tid, *_ in spans["decode"]}
     assert {tid for tid, *_ in spans["mask_decode"]} == decoders
@@ -187,8 +190,8 @@ def test_mask_spans_threads_counts_and_stats(tmp_path, capsys):
     assert writers and not writers & (decoders | {main})
     line = [ln for ln in out.splitlines() if ln.startswith("[STATS]")][-1]
     stats = {name: int(n) for name, _s, n in DRIVER.STATS.findall(line)}
-    assert stats == counts
-    assert line.endswith("| masks 4 of 4")
+    assert stats == {**counts, "decode": 2}
+    assert re.search(r"\| masks 4 of 4 \| lens overlap [0-2] of 2$", line)
     images = tmp_path / "out" / "perspective" / "images"
     assert len(list(images.iterdir())) == counts["encode"]
 
@@ -238,7 +241,8 @@ def test_benchmark_lists_the_cell_and_its_metrics():
             if CELL in m.get("workloads", [])}
     assert mine == {"mask_decode_ms_per_pair", "mask_cowarp_pct",
                     "mask_remap_fetch_ms_per_pair",
-                    "mask_encode_ms_per_pair", "mask_remap_roofline"}
+                    "mask_encode_ms_per_pair", "mask_remap_roofline",
+                    "lens_overlap_pct.dualfisheye"}
     (rate,) = [m for m in spec["end_to_end"] if m["name"] == "pairs_per_s"]
     assert CELL in rate["workloads"]
 

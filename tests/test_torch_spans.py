@@ -4,9 +4,10 @@ thread that does the work — the prefetch thread's ``decode``, the feeding
 loop's ``decode_wait``, ``warp_dispatch``, ``fetch`` and ``writer_block``,
 the writer threads' ``encode`` in a CPU ``run_plan``; ``decode_wait``,
 ``upload``, ``remap+fetch``, ``writer_block``, ``encode`` and ``map_build``
-in a CPU ``dualfisheye.main`` — with ``[STATS]`` still parsed by the
-regex ``portbench`` reads it with; the window counter beside the ring;
-the writer and the prefetcher without timers as before; the trace
+in a CPU ``dualfisheye.main``, its pair ``decode`` on the stage's thread
+and its Y lens's ring-only ``decode`` on a helper — with ``[STATS]`` still
+parsed by the regex ``portbench`` reads it with; the window counter beside
+the ring; the writer and the prefetcher without timers as before; the trace
 ``maybe_trace`` writes holding the spans on the profiler's own clock; the
 prefetcher's stop while the loop waits on a decode; and the benchmark's
 readers of the spans on synthetic readings."""
@@ -137,19 +138,30 @@ def test_dualfisheye_spans_come_from_their_threads(pair_dir, tmp_path,
         assert {tid for tid, *_ in spans[name]} == {main}, name
     decoders = {tid for tid, *_ in spans["decode"]}
     writers = {tid for tid, *_ in spans["encode"]}
-    assert len(decoders) == 1 and main not in decoders
+    assert len(decoders) == 2 and main not in decoders
     assert writers and not writers & (decoders | {main})
-    # 2 pairs; the loop's last wait is the one that ends it
+    # 2 pairs; the loop's last wait is the one that ends it; a pair's
+    # decode on the stage's thread, its Y lens's in the ring only
     counts = {name: len(v) for name, v in spans.items()}
-    assert counts == {"map_build": 1, "decode": 2, "decode_wait": 3,
+    assert counts == {"map_build": 1, "decode": 4, "decode_wait": 3,
                       "upload": 2, "remap+fetch": 4, "writer_block": 20,
                       "encode": 20}
-    # the lines portbench reads as before, the new stages in [STATS]
+    # each thread decodes once a pair; each of the helper's lens decodes
+    # lies inside a pair decode of the stage's thread
+    by_thread = {tid: [(t0, t1) for d_tid, t0, t1, _ in spans["decode"]
+                       if d_tid == tid] for tid in decoders}
+    assert sorted(len(v) for v in by_thread.values()) == [2, 2]
+    stage, helper = sorted(
+        decoders, key=lambda tid: -max(t1 - t0 for t0, t1 in by_thread[tid]))
+    for h0, h1 in by_thread[helper]:
+        assert sum(s0 <= h0 <= h1 <= s1 for s0, s1 in by_thread[stage]) == 1
+    # the lines portbench reads as before, the new stages in [STATS], one
+    # decode a pair there
     lines = out.splitlines()
     assert "[1/2] s0000" in lines and "[2/2] s0001" in lines
     assert lines[-1] == "[OK] processed=2 failed=0"
     stats = _stats(out)
-    assert {k: n for k, (_s, n) in stats.items()} == counts
+    assert {k: n for k, (_s, n) in stats.items()} == {**counts, "decode": 2}
     t0, t1 = spans["map_build"][0][1:3]
     assert stats["map_build"][0] == pytest.approx(t1 - t0, abs=0.006)
 
