@@ -29,6 +29,8 @@ CUDA device: ``--backend xla`` is the only way to the plain twin there.
 
 from __future__ import annotations
 
+import functools
+import math
 import os
 import pathlib
 import sys
@@ -37,7 +39,7 @@ import time
 import warnings
 from dataclasses import dataclass, field
 from operator import add
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +50,7 @@ from gs360x_torch.runtime.prefetch import Prefetcher, decode_overlap
 from gs360x_torch.runtime.profiling import (StageTimers, WindowCounter,
                                             maybe_trace, span)
 from gs360x_torch.kernels import warp_cuda
+from gs360x_torch.kernels.warp import view_rotation
 from gs360x_torch.rig.spec import RenderPlan
 from gs360x_torch.runtime import mesh as meshlib
 
@@ -68,6 +71,49 @@ def video_frames_warped(start: Optional[float] = None,
     pad not counted); given ``start`` and ``end`` (``time.perf_counter``),
     only those of the newest 65536 batches that started in [start, end)."""
     return _WARPED.read(start, end)["frames"]
+
+
+# both modes' warps: (start on time.perf_counter, view-frames, those off the
+# horizon, those holding a pole), one event a warped frame or batch
+_VIEWS = WindowCounter(views=add, off_horizon=add, pole=add)
+
+
+def view_counts(start: Optional[float] = None,
+                end: Optional[float] = None) -> dict:
+    """``{"views", "off_horizon", "pole"}``: the view-frames (views ×
+    frames, the mesh's pad not counted) that both modes' warps carried in
+    this process, those pitched or rolled off the horizon, and those whose
+    frustum holds a pole (:func:`holds_pole`); given ``start`` and
+    ``end`` (``time.perf_counter``), only those of the newest 65536 warped
+    frames or batches that started in [start, end)."""
+    return _VIEWS.read(start, end)
+
+
+@functools.lru_cache(maxsize=1024)
+def holds_pole(view) -> bool:
+    """Whether ``view``'s frustum holds the zenith or the nadir, (0, ∓1, 0)
+    in the warp frame (y down): turned into the camera's frame by the
+    transpose of the view's rotation, a pole lies ahead and within both
+    half-FOV tangents of a perspective view, or within half the FOV of a
+    fisheye view's axis. Host arithmetic, once a view."""
+    r = view_rotation(*(torch.tensor(a, dtype=torch.float64) for a in (
+        view.yaw_deg, view.pitch_deg, view.roll_deg))).numpy()
+    half_h = math.radians(view.hfov_deg) / 2
+    half_v = math.radians(view.vfov_deg) / 2
+    for x, y, z in (r[1], -r[1]):        # Rᵀ (0, ±1, 0)
+        if view.projection == "perspective":
+            if z > 0 and abs(x) <= z * math.tan(half_h) \
+                    and abs(y) <= z * math.tan(half_v):
+                return True
+        elif math.acos(min(1.0, max(-1.0, z))) <= half_h:
+            return True
+    return False
+
+
+def _view_classes(views) -> Tuple[int, int]:
+    """(views off the horizon, views holding a pole) of ``views``."""
+    return (sum(v.pitch_deg != 0 or v.roll_deg != 0 for v in views),
+            sum(holds_pole(v) for v in views))
 
 
 @dataclass
@@ -176,8 +222,10 @@ def _warp_frame_views(frame: np.ndarray, views, *, interp: str,
     or, decoded with ``read_image(..., texels=True)``, as the RGBX texels
     the kernel reads. The kernel's own store quantizes (the plain twin's
     views, ``--backend xla``, go through :func:`_quantize_device`). Video
-    mode takes :func:`_warp_frames_batch`.
+    mode takes :func:`_warp_frames_batch`. The views count in
+    :func:`view_counts`.
     """
+    t0 = time.perf_counter()
     results: List = [None] * len(views)
     rows = upload_rows(frame, device)
 
@@ -195,6 +243,8 @@ def _warp_frame_views(frame: np.ndarray, views, *, interp: str,
             out = _quantize_device(out, quantize_bits)
         for j, i in enumerate(idxs):
             results[i] = (out, j)
+    off_horizon, pole = _view_classes(views)
+    _VIEWS.add(t0, views=len(views), off_horizon=off_horizon, pole=pole)
     return results
 
 
@@ -227,7 +277,7 @@ def run_plan(plan: RenderPlan, *,
              quiet: bool = False,
              stats: bool = False) -> ExecutionReport:
     """Execute a RenderPlan (image-dir or video mode) on ``device``."""
-    t0 = time.time()
+    t0, t_run = time.time(), time.perf_counter()
     stop_event = stop_event or threading.Event()
     report = ExecutionReport(total=plan.total if not plan.video_mode else 0)
     out_dir = plan.out_dir
@@ -257,6 +307,7 @@ def run_plan(plan: RenderPlan, *,
     if stats and not quiet:
         texels = imagelib.texel_decode_counts()
         pool = decode_overlap()
+        views = view_counts(t_run, time.perf_counter())
         mode = (f" | decodes overlapped {pool['overlapped']} of "
                 f"{pool['decodes']}, width {pool['width']}")
         if plan.video_mode:
@@ -264,8 +315,9 @@ def run_plan(plan: RenderPlan, *,
             mode = (f" | video opens {counts['opens']}, "
                     f"{counts['bytes']} bytes" + mode)
         print(f"[STATS] {timers.report()} | wall {report.seconds:.2f}s | "
-              f"texel decodes {texels['served']} of {texels['requested']}"
-              + mode)
+              f"texel decodes {texels['served']} of {texels['requested']} | "
+              f"views {views['views']} (off-horizon {views['off_horizon']}, "
+              f"pole {views['pole']})" + mode)
     return report
 
 
@@ -352,8 +404,8 @@ def _warp_frames_batch(frames, views, *, interp, keep_rec709,
     shared by its frames and views, so :class:`_ViewFetcher` copies it to
     the host once, and the mesh's pad is sliced off before any copy. The
     stack and the pad are a ``batch_stack`` span, the copies to the
-    devices a ``batch_upload`` span, and the frames count in
-    :func:`video_frames_warped`."""
+    devices a ``batch_upload`` span, the frames count in
+    :func:`video_frames_warped` and their views in :func:`view_counts`."""
     t0 = time.perf_counter()
     results: List[List] = [[None] * len(views) for _ in frames]
     with span("batch_stack"):
@@ -375,7 +427,11 @@ def _warp_frames_batch(frames, views, *, interp, keep_rec709,
                 for j, i in enumerate(idxs):
                     results[f][i] = (block, (local, j), backend != "xla")
                 f += 1
-    _WARPED.add(t0, frames=len(frames))
+    n = len(frames)
+    off_horizon, pole = _view_classes(views)
+    _WARPED.add(t0, frames=n)
+    _VIEWS.add(t0, views=n * len(views), off_horizon=n * off_horizon,
+               pole=n * pole)
     return results
 
 

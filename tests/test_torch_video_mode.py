@@ -8,9 +8,12 @@ clip the benchmark muxes (``portbench/avi.py``) read back by the port's
 reader; the spans and counters video mode adds (``video_open``,
 ``batch_stack``, ``batch_upload``, ``color_quantize``,
 ``io/video.open_counts``, ``executor.video_frames_warped``) with their
-counts in a run and absent from image mode; and the benchmark's readers
-of them on synthetic readings."""
+counts in a run and absent from image mode; ``full360coverage --add-top
+--add-bottom`` (pitched and pole views) against the reference, the
+view-class counter ``executor.view_counts`` and its pole test; and the
+benchmark's readers of them on synthetic readings."""
 
+import dataclasses
 import json
 import pathlib
 import threading
@@ -47,6 +50,17 @@ VIEWS = dict(json.loads(
     (ROOT / "portbench/configs/perspcut-video-8k-default.json").read_text()
 )["views"], size=SIZE)
 NEW_SPANS = ("video_open", "batch_stack", "batch_upload", "color_quantize")
+# perspcut's flags of each preset the tests run, and the benchmark's copy of
+# its table (ids, yaw, pitch; focal length) at 48 px
+POLES_CONFIG = json.loads((
+    ROOT / "portbench/configs/perspcut-video-8k-full360-poles.json"
+).read_text())
+PRESETS = {
+    "default": (("--preset", "default"), VIEWS),
+    "full360-poles": (("--preset", "full360coverage", "--add-top",
+                       "--add-bottom"),
+                      dict(POLES_CONFIG["views"], size=SIZE)),
+}
 
 # The gate on a written view against the float64 reference. The port
 # computes in f32: a value whose float64 result lies within f32's error of
@@ -74,18 +88,18 @@ def clip(tmp_path_factory):
     return path, jpegs
 
 
-def _main(clip_path, out_dir, *extra):
+def _main(clip_path, out_dir, *extra, preset="default"):
     return perspcut.main(["-i", str(clip_path), "-o", str(out_dir),
-                          "--preset", "default", "--size", str(SIZE),
+                          *PRESETS[preset][0], "--size", str(SIZE),
                           "--ext", "png", "-f", str(int(FPS)), "--device",
                           "cpu", "-j", "2", *extra])
 
 
-def _batched(clip_path, out_dir, n_batch):
+def _batched(clip_path, out_dir, n_batch, preset="default"):
     """``_run_video_sharded`` at ``n_batch`` frames a batch on a 1-device
     CPU mesh, the plan as ``perspcut.main`` builds it."""
     args = perspcut.create_arg_parser().parse_args(
-        ["-i", str(clip_path), "--preset", "default", "--size", str(SIZE),
+        ["-i", str(clip_path), *PRESETS[preset][0], "--size", str(SIZE),
          "--ext", "png", "-f", str(int(FPS))])
     args.input_is_video, args.video_bit_depth = True, 8
     plan = build_view_plan(perspcut.config_from_args(args), [clip_path],
@@ -100,16 +114,17 @@ def _batched(clip_path, out_dir, n_batch):
     return report
 
 
-def _against_reference(out_dir, jpegs):
+def _against_reference(out_dir, jpegs, views=VIEWS):
     """(largest difference in LSB, largest share of a view's values that
-    differ) of every written view against the reference's."""
+    differ) of every written view of ``views``' table against the
+    reference's."""
     frames = [torch.from_numpy(compare.read_u8(p).copy()) for p in jpegs]
     worst, share = 0, 0.0
     for k in range(FRAMES):
-        for view in VIEWS["layout"]:
+        for view in views["layout"]:
             got = compare.read_u8(out_dir / f"clip_{k:07d}_{view['id']}.png")
             ref = refvideo.cut_move_view(frames[k % len(frames)], view,
-                                         VIEWS).numpy()
+                                         views).numpy()
             diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
             worst = max(worst, int(diff.max()))
             share = max(share, float((diff > 0).mean()))
@@ -130,6 +145,47 @@ def test_video_mode_matches_the_reference(clip, tmp_path, n_batch):
     assert len(list(out.iterdir())) == FRAMES * 8
     worst, share = _against_reference(out, jpegs)
     assert worst <= MAX_LSB and share <= OFF_SHARE, (worst, share)
+
+
+@pytest.mark.parametrize("n_batch", [1, 4])
+def test_full360_poles_video_mode_matches_the_reference(clip, tmp_path,
+                                                        n_batch):
+    """``full360coverage --add-top --add-bottom``: 14 views a frame, 8
+    pitched ±30° and 2 over the poles, whose taps reflect over the pole
+    onto the opposite meridian; every written view within the gate."""
+    clip_path, jpegs = clip
+    out = tmp_path / "out"
+    if n_batch == 1:
+        assert _main(clip_path, out, preset="full360-poles") == 0
+    else:
+        report = _batched(clip_path, out, n_batch, preset="full360-poles")
+        assert report.ok == report.total == FRAMES * 14
+    assert len(list(out.iterdir())) == FRAMES * 14
+    worst, share = _against_reference(out, jpegs,
+                                      PRESETS["full360-poles"][1])
+    assert worst <= MAX_LSB and share <= OFF_SHARE, (worst, share)
+
+
+def test_full360_poles_layout_is_the_tools():
+    """The benchmark's table, from which ``drivers/perspcut_video.py``
+    names the files it expects, is the one ``build_view_plan`` makes of the configuration's
+    own flags: ids, yaws and pitches in order, size and FOV."""
+    from portbench.reference import equirect
+    args = perspcut.create_arg_parser().parse_args(
+        ["-i", "clip.avi", *POLES_CONFIG["args"]])
+    args.input_is_video, args.video_bit_depth = True, 8
+    plan = build_view_plan(perspcut.config_from_args(args),
+                           [pathlib.Path("clip.avi")], pathlib.Path("out"))
+    views = POLES_CONFIG["views"]
+    assert [(v.view_id, v.yaw_deg, v.pitch_deg, v.roll_deg)
+            for v in plan.unique_views()] == [
+        (v["id"], v["yaw"], v["pitch"], 0.0) for v in views["layout"]]
+    fov = equirect.fov_deg(views["focal_mm"], views["sensor_mm"][0])
+    for v in plan.unique_views():
+        assert (v.width, v.height) == (views["size"], views["size"])
+        assert v.projection == views["projection"]
+        assert v.hfov_deg == pytest.approx(fov, abs=1e-9)
+        assert v.vfov_deg == pytest.approx(fov, abs=1e-9)
 
 
 def test_four_frames_a_batch_writes_the_per_frame_files(clip, tmp_path):
@@ -202,7 +258,12 @@ def test_reference_color_move_against_the_port_in_f32():
 def test_clip_reads_back_as_pillows_decode(clip, monkeypatch, scan):
     clip_path, jpegs = clip
     if scan == "python":
-        monkeypatch.setattr(native, "HAS_NATIVE", False)
+        # the library as if it failed to load: HAS_NATIVE is the module's
+        # __getattr__, and a patch of it would leave a plain attribute
+        # behind for the worker's later tests
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "_tried", True)
+        assert native.HAS_NATIVE is False
     elif not native.HAS_NATIVE:
         pytest.skip("no C++ compiler for the native library")
     reader = videolib.open_video(clip_path)
@@ -289,6 +350,84 @@ def test_image_mode_runs_none_of_them(tmp_path):
     assert not set(NEW_SPANS) & set(held)
     assert videolib.open_counts() == opens0
     assert executor.video_frames_warped() == warped0
+
+
+# --- the view-class counter ---------------------------------------------------
+
+def _stats_line(capsys):
+    return [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("[STATS]")][-1]
+
+
+@pytest.mark.parametrize("n_batch", [1, 4])
+def test_view_counts_full360_poles(clip, tmp_path, capsys, n_batch):
+    """Video mode at ``full360coverage --add-top --add-bottom``: 14
+    view-frames a frame, 10 off the horizon, 2 holding a pole, one frame a
+    batch through ``perspcut.main`` (and its ``[STATS]``) or 4 on the
+    batched path."""
+    clip_path, _ = clip
+    t0 = time.perf_counter()
+    if n_batch == 1:
+        assert _main(clip_path, tmp_path / "out", "--stats",
+                     preset="full360-poles") == 0
+    else:
+        _batched(clip_path, tmp_path / "out", n_batch,
+                 preset="full360-poles")
+    assert executor.view_counts(t0, time.perf_counter()) == {
+        "views": 14 * FRAMES, "off_horizon": 10 * FRAMES,
+        "pole": 2 * FRAMES}
+    if n_batch == 1:
+        assert (f"views {14 * FRAMES} (off-horizon {10 * FRAMES}, pole "
+                f"{2 * FRAMES})") in _stats_line(capsys)
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla"])
+def test_view_counts_image_mode_default(tmp_path, capsys, backend):
+    """Image mode at ``default``: 8 view-frames a frame on the horizon, on
+    the kernel wrapper's path and the plain twin's alike."""
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    for k in range(2):
+        imagelib.write_image(frames / f"f{k}.png",
+                             scenes.scene(SEED, k, H, W, SCENE))
+    t0 = time.perf_counter()
+    assert perspcut.main(["-i", str(frames), "-o", str(tmp_path / "out"),
+                          "--size", str(SIZE), "--ext", "png", "--device",
+                          "cpu", "-j", "2", "--backend", backend,
+                          "--stats"]) == 0
+    assert executor.view_counts(t0, time.perf_counter()) == {
+        "views": 16, "off_horizon": 0, "pole": 0}
+    assert "views 16 (off-horizon 0, pole 0)" in _stats_line(capsys)
+
+
+FOV_14MM = 2 * np.degrees(np.arctan(18.0 / 14.0))     # 104.25°
+
+
+@pytest.mark.parametrize("projection,fov,pitch,holds", [
+    ("perspective", FOV_14MM, 90.0, True),
+    ("perspective", FOV_14MM, -90.0, True),
+    ("perspective", FOV_14MM, 30.0, False),     # top edge at 82.1°
+    ("perspective", FOV_14MM, -30.0, False),
+    ("perspective", FOV_14MM, 38.5, True),      # top edge at 90.6°
+    ("perspective", FOV_14MM, -38.5, True),
+    ("perspective", FOV_14MM, 0.0, False),
+    ("fisheye_v360", 190.0, 0.0, True),         # θ 90° within 95°
+    ("fisheye_v360", 170.0, 0.0, False),        # 90° beyond 85°
+    ("equisolid", 170.0, 10.0, True),           # 80° within 85°
+])
+def test_holds_pole_at_the_frustum_edge(projection, fov, pitch, holds):
+    from gs360x_torch.rig.spec import ViewSpec
+    view = ViewSpec("V", 45.0, pitch, fov, fov, SIZE, SIZE, projection)
+    assert executor.holds_pole(view) is holds
+
+
+def test_rolled_views_count_off_the_horizon():
+    from gs360x_torch.rig.spec import ViewSpec
+    views = [ViewSpec("A", 0.0, 0.0, FOV_14MM, FOV_14MM, SIZE, SIZE),
+             ViewSpec("B", 90.0, 0.0, FOV_14MM, FOV_14MM, SIZE, SIZE,
+                      roll_deg=15.0),
+             ViewSpec("C", 0.0, 90.0, FOV_14MM, FOV_14MM, SIZE, SIZE)]
+    assert executor._view_classes(views) == (2, 1)
 
 
 # --- the benchmark's readers ----------------------------------------------
@@ -399,3 +538,54 @@ def test_reader_without_its_program(name, monkeypatch):
     monkeypatch.delattr(executor, "decode_overlap")
     monkeypatch.delattr(tprof, "spans")
     assert reader.read(_readings()) is None
+
+
+# the full360 cell's readers: two batches of 4 frames × 14 views in the
+# window (8 frames' worth), one frame's views before it and one at its end
+FULL360_READERS = {
+    "offhorizon_view_pct.full360": 100.0 * 10 / 14,
+    "pole_view_pct.full360": 100.0 * 2 / 14,
+    # 112 view-frames ÷ 14 = 8 frames at 9 µs against 80 µs of warp launches
+    "mesh_warp_roofline.full360": 100.0 * 8 * 9.0 / 80.0,
+}
+VIEW_EVENTS = [(99.5, 1), (100.3, 4), (100.7, 4), (101.0, 1)]
+
+
+def _feed_views(monkeypatch, events):
+    """``executor.view_counts``' counter, holding ``events`` (start,
+    frames) of the full360 layout."""
+    fed = tprof.WindowCounter(views=add, off_horizon=add, pole=add)
+    for t, frames in events:
+        fed.add(t, views=14 * frames, off_horizon=10 * frames,
+                pole=2 * frames)
+    monkeypatch.setattr(executor, "_VIEWS", fed)
+
+
+def test_full360_readers_are_the_cells_metrics():
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cell = "perspcut-video.8k-full360-poles.mjpeg-avi"
+    mine = {m["name"] for m in spec["per_layer"]
+            if m.get("workloads") == [cell]}
+    assert mine == set(FULL360_READERS)
+
+
+@pytest.mark.parametrize("name", list(FULL360_READERS))
+def test_full360_reader(name, monkeypatch):
+    _feed_views(monkeypatch, VIEW_EVENTS)
+    assert _reader(name).read(_readings()) == pytest.approx(
+        FULL360_READERS[name], rel=1e-9)
+
+
+@pytest.mark.parametrize("name", list(FULL360_READERS))
+def test_full360_reader_without_its_program(name, monkeypatch):
+    """No view warped in the window, no trace, or a program without the
+    counter (the parent of ``view_counts``): None, never a raise."""
+    reader = _reader(name)
+    _feed_views(monkeypatch, [VIEW_EVENTS[0], VIEW_EVENTS[-1]])
+    assert reader.read(_readings()) is None
+    _feed_views(monkeypatch, VIEW_EVENTS)
+    r = _readings()
+    if name == "mesh_warp_roofline.full360":
+        assert reader.read(dataclasses.replace(r, trace=None)) is None
+    monkeypatch.delattr(executor, "view_counts")
+    assert reader.read(r) is None
